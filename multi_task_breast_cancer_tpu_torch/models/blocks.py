@@ -1,0 +1,153 @@
+"""Building blocks of the nnU-Net family (PyTorch, NCHW).
+
+Twins of ``multi_task_breast_cancer_tpu/models/blocks.py``. Module and
+parameter names follow the JAX parameter tree (``conv``, ``block1``,
+``deconv_kernel``, …) so :mod:`.jax_weights` maps one onto the other by path.
+Initialisation follows the JAX initialisers (:func:`init_weights`), drawn
+from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import instance_norm_leaky_relu
+
+
+def conv3x3(in_features: int, features: int, *, use_bias: bool = False) -> nn.Conv2d:
+    """3×3 conv, padding preserves spatial size (bias off, as in JAX)."""
+    return nn.Conv2d(in_features, features, 3, padding=1, bias=use_bias)
+
+
+def conv1x1(in_features: int, features: int, *, use_bias: bool = True) -> nn.Conv2d:
+    """1×1 conv (bias on, zero-initialised)."""
+    return nn.Conv2d(in_features, features, 1, bias=use_bias)
+
+
+def deconv(in_features: int, features: int, kernel: int) -> nn.ConvTranspose2d:
+    """ConvTranspose with kernel == stride (exact k× upsampling, no overlap)."""
+    return nn.ConvTranspose2d(in_features, features, kernel, stride=kernel)
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 2)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over H, W (affine=False,
+    eps=1e-5). Statistics in f32 even for bf16 input; the result is cast back
+    to the input's dtype before any activation, as the JAX module does."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        centered = xf - xf.mean(dim=(2, 3), keepdim=True)
+        var = (centered * centered).mean(dim=(2, 3), keepdim=True)
+        return (centered * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+class ConvInNormLeReLU(nn.Module):
+    """conv3x3(bias=False) → InstanceNorm → LeakyReLU(0.01).
+
+    The norm and activation run as one fused kernel
+    (:func:`~..ops.hopper_kernels.instance_norm_leaky_relu`). ``plain_norm``
+    selects :class:`InstanceNorm` + ``F.leaky_relu`` instead, the twin of the
+    JAX default path; it exists to give a reference on the same device."""
+
+    def __init__(self, in_features: int, features: int, negative_slope: float = 0.01,
+                 plain_norm: bool = False):
+        super().__init__()
+        self.conv = conv3x3(in_features, features)
+        self.negative_slope = negative_slope
+        self.norm = InstanceNorm() if plain_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.norm is not None:
+            return F.leaky_relu(self.norm(x), self.negative_slope)
+        return instance_norm_leaky_relu(x, 1e-5, self.negative_slope)
+
+
+class LevelBlock(nn.Module):
+    """Two stacked ConvInNormLeReLU blocks."""
+
+    def __init__(self, in_features: int, mid_features: int, out_features: int,
+                 plain_norm: bool = False):
+        super().__init__()
+        self.block1 = ConvInNormLeReLU(in_features, mid_features, plain_norm=plain_norm)
+        self.block2 = ConvInNormLeReLU(mid_features, out_features, plain_norm=plain_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block2(self.block1(x))
+
+
+class DeconvHead(nn.Module):
+    """Deep-supervision head ``ConvTranspose(k=s, C→C) → conv1x1(C→R)``
+    computed as ONE transposed conv with the fused kernel
+    ``W[i,r,a,b] = Σ_c Wd[i,c,a,b]·W1[r,c]`` and bias ``W1·bd + b1``.
+
+    Keeps the JAX head's four parameters, in PyTorch layouts:
+    ``deconv_kernel`` (C, C, k, k) as ``ConvTranspose2d`` weights,
+    ``conv1x1_kernel`` (R, C, 1, 1) as ``Conv2d`` weights."""
+
+    def __init__(self, mid_features: int, regions: int, kernel: int):
+        super().__init__()
+        c, k, r = mid_features, kernel, regions
+        self.kernel = k
+        self.deconv_kernel = nn.Parameter(torch.empty(c, c, k, k))
+        self.deconv_bias = nn.Parameter(torch.zeros(c))
+        self.conv1x1_kernel = nn.Parameter(torch.empty(r, c, 1, 1))
+        self.conv1x1_bias = nn.Parameter(torch.zeros(r))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w1 = self.conv1x1_kernel[:, :, 0, 0]  # (R, C)
+        fused_w = torch.einsum("icab,rc->irab", self.deconv_kernel, w1)
+        fused_b = w1 @ self.deconv_bias + self.conv1x1_bias
+        return F.conv_transpose2d(x, fused_w.to(x.dtype), fused_b.to(x.dtype),
+                                  stride=self.kernel)
+
+
+def _kaiming_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """He normal, JAX ``variance_scaling(2.0, "fan_in", "normal")``."""
+    w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """JAX ``lecun_normal``: a normal truncated at ±2σ, σ rescaled so that the
+    variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo = math.erf(-2.0 / math.sqrt(2.0))
+    w.uniform_(lo, -lo, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
+    w.clamp_(-2.0 * std, 2.0 * std)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter as the JAX initialisers do (fan_in counted over
+    the kernel taps and input channels, as JAX counts it): convs He normal,
+    transposed convs and dense layers LeCun normal, biases zero."""
+    for m in model.modules():
+        if isinstance(m, DeconvHead):
+            c, _, k, _ = m.deconv_kernel.shape
+            _lecun_normal_(m.deconv_kernel, k * k * c, generator)
+            _kaiming_normal_(m.conv1x1_kernel, c, generator)
+            m.deconv_bias.zero_()
+            m.conv1x1_bias.zero_()
+        elif isinstance(m, nn.ConvTranspose2d):
+            i, _, kh, kw = m.weight.shape
+            _lecun_normal_(m.weight, i * kh * kw, generator)
+        elif isinstance(m, nn.Conv2d):
+            _, i, kh, kw = m.weight.shape
+            _kaiming_normal_(m.weight, i * kh * kw, generator)
+        elif isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, generator)
+        if isinstance(m, (nn.ConvTranspose2d, nn.Conv2d, nn.Linear)) and m.bias is not None:
+            m.bias.zero_()
+    return model
