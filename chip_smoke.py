@@ -18,12 +18,35 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    128², with the kernel against the same model with the plain norm on the
    card and against the plain model on the CPU at batch 2; exactly 25 kernel
    launches per forward; forward time and images/s;
-4. serving, the main path: ``InferenceServer(CheckpointBackend(...))`` answers
+4. serving, a main path: ``InferenceServer(CheckpointBackend(...))`` answers
    one raw plane on ``/predict`` and 64 raw planes on ``/predict_batch``; the
    records must equal the backend's direct answer; the kernel's launch count
    over these requests must be 25 per forward the server ran;
-5. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
-   path, error, times and bound; then, last, ``{"ok": true, "device": ...}``.
+5. backward kernel: ``instance_norm_leaky_relu_backward`` against its plain
+   version at every (C, H·W) shape of the flagship's 25 norm sites, batches 2
+   (a training step's) and 64, f32 and bf16, with kernel, plain and library
+   times (autograd backward of ``F.leaky_relu(F.instance_norm(x))``, timed
+   here only) and the bytes bound;
+6. augmentation kernel: ``fast_augment`` against its plain version, bit for
+   bit, at S=128 P=2 B∈{2, 64}, S=256 P=3 and S=16, with draws that include
+   ±180°, multiples of 90° and both flips; kernel and plain times and the
+   bytes bound (no single PyTorch call computes this function: no library
+   time);
+7. training, a main path: ``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4,
+   fused DICE + Focal, fast augmentation on, f32), the full-width model from
+   generator seed 0, on a seeded synthetic 128² fold (48 train, 12 val, two
+   cross-fold padding steps): two epochs of ``Engine.train_and_eval_epoch``
+   with the plateau scheduler, as the JAX driver runs them. Checks: finite
+   losses; exactly 25 forward and 25 backward norm launches and one
+   augmentation launch per real step (plus 25 forward launches per
+   validation pass) and none on padding steps; padding steps leave the state
+   bit-identical; three steps without augmentation on the card against the
+   CPU from the same weights; step-0 gradients of the kernel model and of
+   the plain-norm model against a float64 gradient on the card. Reports ms per step and images/s at
+   batch 2 and 64, epoch seconds and a ``torch.profiler`` breakdown of one
+   step;
+8. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
+   paths, error, times and bound; then, last, ``{"ok": true, "device": ...}``.
 
 Tolerances. f32 kernel vs plain: 1e-5 absolute (the same f32 arithmetic,
 summed in another order). bf16 kernel vs plain: one bf16 ulp (2^-7 of the
@@ -31,7 +54,27 @@ value), because the two sum in different orders and an f32 result beside a
 rounding boundary may round either way. Model outputs: 1e-4 of the output's
 largest magnitude, f32 with TF32 off; the paths differ only in the order of
 their f32 sums (norm statistics, cuDNN vs CPU convolutions), carried through
-25 normalised layers.
+25 normalised layers. Backward kernel vs plain, f32: 1e-5 of the gradient's
+largest magnitude; bf16: one bf16 ulp of the value plus that f32 tolerance
+(values near zero may round either way from f32 results that differ in
+their last digits). Augmentation: bit-exact (integer indexing). Training,
+card vs CPU over three Adam steps, TF32 off and cuDNN deterministic: losses
+1e-4 relative; parameters: no element beyond 2·lr per step (Adam moves a
+parameter by at most about lr a step), and the difference of the two
+updates at most 10 % of the update's L2 norm. The parameters cannot be held
+tighter: Adam turns any gradient near zero into a step of up to lr whose
+sign follows the last digits, and the LeakyReLU's kink flips gradients of
+elements that sit within rounding of it, so the card's plain PyTorch model
+(cuDNN, no kernel of the port) differs from the CPU by 5.5 % of the update
+norm after three steps on an H100 80GB HBM3 at 700 W, where the kernel
+model differs by 2.6 %. Step-0 gradients on the card, tensor by tensor: the kernel
+model's distance to the float64 gradient (the plain-norm model in f64) at
+most 1e-4 of the tensor's largest magnitude or twice the plain-norm f32
+model's distance, whichever is larger. Kernel against plain norm directly
+cannot be held to 1e-4: the plain f32 model itself is 14 % off the f64
+gradient on one tensor (encoder5's first conv) where the kernel model is
+2e-5 off, and both are ~1 % off on the input layers, whose weight gradients
+cancel sums over raw 0-255 intensities.
 """
 
 from __future__ import annotations
@@ -53,6 +96,11 @@ FLOPS_PER_ELEMENT = 8       # sum; centre, square, sum; centre, scale, select
 F32_TOL = 1e-5
 BF16_REL_TOL = 2.0 ** -7
 MODEL_REL_TOL = 1e-4
+BWD_FLOPS_PER_ELEMENT = 17  # stats 4; xhat, select, two sums 6; dx 7
+GRAD_REL_TOL = 1e-4
+LOSS_REL_TOL = 1e-4
+PARAM_REL_TOL = 0.1
+TRAIN_N, VAL_N, PAD_STEPS = 48, 12, 2
 
 
 def log(*args) -> None:
@@ -82,11 +130,13 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bound_ms(numel: int, itemsize: int) -> tuple:
-    """Least time for one launch: every element read once and written once
-    over the memory rate, or the arithmetic over the f32 rate; the larger."""
-    by_bytes = 2 * numel * itemsize / HBM_BYTES_PER_S * 1e3
-    by_ops = FLOPS_PER_ELEMENT * numel / F32_FLOPS_PER_S * 1e3
+def bound_ms(numel: int, itemsize: int, tensors: int = 2,
+             flops_per_element: int = FLOPS_PER_ELEMENT) -> tuple:
+    """Least time for one launch: each of ``tensors`` tensors of ``numel``
+    elements read or written once over the memory rate, or the arithmetic
+    over the f32 rate; the larger."""
+    by_bytes = tensors * numel * itemsize / HBM_BYTES_PER_S * 1e3
+    by_ops = flops_per_element * numel / F32_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -301,6 +351,408 @@ def phase_serving() -> int:
     return launches
 
 
+def kink_free(batch: int, c: int, h: int, w: int, gen):
+    """Norm inputs whose normalised values all lie at least ~0.05 from the
+    LeakyReLU's kink: each plane is 5 ± 2·(|N(0,1)| + 0.1) in ± pairs, so its
+    mean is 5 and no element sits near it. At xhat = 0 the gradient jumps by
+    (1 − slope)·g, and two f32 evaluations whose statistics are summed in
+    different orders can put an element within ~1e-7 of the kink on
+    different sides (one such element at batch 64 differed by 0.275 on an
+    H100 with plain normal inputs): a branch choice, not an error of either
+    version."""
+    import torch
+    a = torch.randn(batch, c, h * w // 2, device=DEVICE, generator=gen).abs() + 0.1
+    z = torch.cat([a, -a], dim=2)
+    order = torch.rand(batch, c, h * w, device=DEVICE, generator=gen).argsort(dim=2)
+    return (5.0 + 2.0 * z.gather(2, order)).reshape(batch, c, h, w)
+
+
+def phase_backward_kernel(shapes: Counter) -> dict:
+    """Kernel #2 against its plain version at every norm site's shape, at a
+    training step's batch (2) and at 64. Returns batch 2's totals over one
+    step's 25 launches (the training path's shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    result = {}
+    for batch in (2, BATCH):
+        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        kinds, max_err = set(), 0.0
+        log(f"backward kernel instance_norm_leaky_relu_backward at batch {batch}:")
+        for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
+            x = kink_free(batch, c, h, w, g)
+            gy = torch.randn(batch, c, h, w, device=DEVICE, generator=g)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd, gd = x.to(dtype), gy.to(dtype)
+                got = hk.instance_norm_leaky_relu_backward(xd, gd)
+                want = hk.instance_norm_leaky_relu_backward_reference(xd, gd)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                scale = want.float().abs().max().item()
+                if dtype == torch.float32:
+                    ok = err.max().item() <= F32_TOL * scale
+                    max_err = max(max_err, err.max().item())
+                else:
+                    ok = bool((err <= BF16_REL_TOL * want.float().abs() + F32_TOL * scale).all())
+                check(ok, f"backward kernel != plain at B={batch} C={c} HxW={h}x{w} "
+                          f"{dtype}: max abs err {err.max().item():.3g} (scale {scale:.3g})")
+                k_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward(xd, gd))
+                p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward_reference(xd, gd))
+                b_ms, kind = bound_ms(xd.numel(), xd.element_size(), 3, BWD_FLOPS_PER_ELEMENT)
+                line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
+                        f"err {err.max().item():.3g}  kernel {k_ms:.4f} ms  "
+                        f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({kind})")
+                if dtype == torch.float32:
+                    xr = xd.detach().requires_grad_()
+                    yr = F.leaky_relu(F.instance_norm(xr), 0.01)
+                    l_ms = time_ms(lambda: torch.autograd.grad(yr, xr, gd, retain_graph=True))
+                    del xr, yr
+                    line += f"  library {l_ms:.4f} ms"
+                    for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                                   ("library_ms", l_ms), ("bound_ms", b_ms)):
+                        totals[key] += sites * v
+                    kinds.add(kind)
+                log(line)
+        log(f"backward totals over one f32 step's {sum(shapes.values())} launches at "
+            f"batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()))
+        result[batch] = {"max_abs_err": max_err, "bound_by": "bytes"
+                         if kinds == {"bytes"} else "operations", **totals}
+    return result[2]
+
+
+def _special_draws(b: int, gen):
+    """Random flips and angles with the boundary cases first: ±180°, the
+    multiples of 90°, 0°, just beside them, under all four flip pairs."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+    fh, fv, angle = FA.draw_flips_and_angles(gen, b, p_hflip=0.5, p_vflip=0.5,
+                                             max_angle=360.0)
+    special = torch.tensor([180.0, -180.0, 90.0, -90.0, 0.0, 270.0, -270.0, 360.0,
+                            -360.0, 45.0, 135.0, -135.0, 89.99, 90.01, -179.99, 179.99])
+    k = min(b, len(special))
+    angle[:k] = special[:k]
+    combos = torch.arange(k)
+    fh[:k], fv[:k] = combos % 2 == 1, combos // 2 % 2 == 1
+    return fh, fv, angle
+
+
+def phase_augment_kernel() -> dict:
+    """Kernel #3 against its plain version, bit for bit; returns the
+    training path's case (S=128, P=2, B=2)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+
+    gen = torch.Generator().manual_seed(4)
+    main = None
+    log("augmentation kernel fast_augment (bit-exact against the plain pipeline):")
+    for s, p, b in ((SIZE, 2, 2), (SIZE, 2, BATCH), (256, 3, 16), (16, 2, 8)):
+        n = b + 8
+        packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, p, s, s), generator=gen,
+                               dtype=torch.int32).to(DEVICE)
+        rows = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32).to(DEVICE)
+        idx, t1 = FA.pipeline_params_from_draws(*_special_draws(b, gen), s, DEVICE)
+        got = FA.fast_augment(packed, rows, idx, t1)
+        want = FA.fast_augment_reference(packed, rows, idx, t1)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum().item())
+        check(mismatches == 0, f"augmentation kernel != plain at S={s} P={p} B={b}: "
+                               f"{mismatches} pixels differ")
+        k_ms = time_ms(lambda: FA.fast_augment(packed, rows, idx, t1))
+        p_ms = time_ms(lambda: FA.fast_augment_reference(packed, rows, idx, t1))
+        # selected source planes + 3 index planes per sample + output, int32
+        b_ms = (2 * b * p + 3 * b) * s * s * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"  S={s:3d} P={p} B={b:2d}  exact ({got.numel()} pixels)  kernel {k_ms:.4f} ms  "
+            f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms (bytes)  library none")
+        if main is None:
+            main = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": "bytes", "library_ms": None}
+    return main
+
+
+def synthetic_fold(n: int, seed: int):
+    """A BUSI-like fold: uint8-valued 128² images with a brighter elliptic
+    lesion, its binary mask, labels benign/malignant/normal in turn, and
+    empty masks for 'normal'."""
+    import numpy as np
+    from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    labels = (np.arange(n) % 3).astype(np.int32)
+    masks = np.zeros((n, SIZE, SIZE, 1), np.float32)
+    for i in np.flatnonzero(labels != 2):
+        cy, cx = rng.integers(SIZE // 4, 3 * SIZE // 4, 2)
+        ry, rx = rng.integers(SIZE // 12, SIZE // 5, 2)
+        masks[i, ..., 0] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+    images = np.clip(rng.normal(90, 30, masks.shape) + 70 * masks, 0, 255).round()
+    return ArrayDataset(images=images.astype(np.float32), masks=masks, labels=labels,
+                        patient_ids=np.arange(n), class_names=["benign"] * n,
+                        tumor_pixels=masks.sum(axis=(1, 2, 3)).astype(np.int64))
+
+
+def _engine_config(cfg, **overrides):
+    """``EngineConfig`` from a ``Config``, as the JAX driver builds it."""
+    from multi_task_breast_cancer_tpu_torch.train.loop import EngineConfig
+    kw = dict(task="multitask", n_classes=len(cfg.data.classes),
+              batch_size=cfg.data.batch_size, alpha=cfg.training.alpha,
+              inversely_weighted=cfg.loss.inversely_weighted,
+              seg_criterion=cfg.loss.function,
+              cls_criterion=cfg.loss.classification_criterion,
+              classes_weighted=cfg.data.classes_weighted, max_angle=360.0,
+              p_hflip=cfg.data.transforms.horizontal_flip,
+              p_vflip=cfg.data.transforms.vertical_flip,
+              compute_dtype=cfg.training.compute_dtype,
+              fast_augmentation=cfg.training.fast_augmentation)
+    kw.update(overrides)
+    return EngineConfig(**kw)
+
+
+def _counts():
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    return (hk.instance_norm_leaky_relu.launches,
+            hk.instance_norm_leaky_relu_backward.launches, FA.fast_augment.launches)
+
+
+def _reset_counts() -> None:
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    hk.instance_norm_leaky_relu.launches = 0
+    hk.instance_norm_leaky_relu_backward.launches = 0
+    FA.fast_augment.launches = 0
+
+
+def _snapshot(state):
+    moments = [(s["exp_avg"].clone(), s["exp_avg_sq"].clone(), float(s["step"]))
+               for s in (state.optimizer.state[p] for p in state.model.parameters())]
+    return {k: v.clone() for k, v in state.model.state_dict().items()}, moments, state.step
+
+
+def _same_state(a, b) -> bool:
+    import torch
+    return (a[2] == b[2]
+            and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and all(torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]) and x[2] == y[2]
+                    for x, y in zip(a[1], b[1])))
+
+
+def phase_training() -> tuple:
+    """The training main path; returns the launches of its two epochs
+    (forward norm, backward norm, augmentation)."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.ops.losses import check_finite_loss
+    from multi_task_breast_cancer_tpu_torch.train.loop import (
+        Engine, plan_epoch_indices, step_valid_mask)
+    from multi_task_breast_cancer_tpu_torch.train.optim import (
+        CosineAnnealingScheduler, init_lr_scheduler, set_learning_rate)
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    b = cfg.data.batch_size
+    model = init_multitask_model(cfg.model.architecture, generator=torch.Generator().manual_seed(0))
+    init_weights = {k: v.clone() for k, v in model.state_dict().items()}
+    engine = Engine(model, _engine_config(cfg), device=DEVICE)
+    state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+    train_ds, val_ds = synthetic_fold(TRAIN_N, 10), synthetic_fold(VAL_N, 11)
+    real_steps = -(-TRAIN_N // b)
+    max_steps = real_steps + PAD_STEPS
+    train = engine.device_data(train_ds, pad_to=TRAIN_N)
+    val = engine.device_data(val_ds, for_training=False)
+    step_valid = step_valid_mask(TRAIN_N, b, max_steps)
+    scheduler = init_lr_scheduler(cfg.optimizer.scheduler, cfg.optimizer.lr,
+                                  t_max=cfg.optimizer.t_max, factor=cfg.optimizer.decrease_factor,
+                                  min_lr=cfg.optimizer.min_lr, patience=cfg.optimizer.patience)
+    host_rng = np.random.default_rng(cfg.training.seed)
+    gen = torch.Generator().manual_seed(cfg.training.seed)
+    log(f"training: {cfg.model.architecture} full width, batch {b}, {cfg.optimizer.opt} "
+        f"lr {cfg.optimizer.lr}, {cfg.loss.function}+{cfg.loss.classification_criterion}, "
+        f"fast_augmentation={cfg.training.fast_augmentation}, {TRAIN_N} train / {VAL_N} val "
+        f"at {SIZE}^2, {real_steps} real + {PAD_STEPS} padding steps per epoch")
+
+    # the main path: two epochs as the JAX driver runs them
+    torch.cuda.synchronize()
+    _reset_counts()
+    epoch_s = []
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        perm = plan_epoch_indices(TRAIN_N, b, host_rng, pad_to_steps=max_steps)
+        state, tm, vm = engine.train_and_eval_epoch(state, train, val, perm, gen, step_valid)
+        check_finite_loss(tm["loss"])
+        check_finite_loss(vm["loss"])
+        if isinstance(scheduler, CosineAnnealingScheduler):
+            scheduler.step()
+        else:
+            scheduler.step(vm["loss"])
+        set_learning_rate(state.optimizer, scheduler.lr)
+        epoch_s.append(time.perf_counter() - t0)
+        log(f"  epoch {epoch}: {epoch_s[-1]:.3f} s; train loss {tm['loss']:.5f} "
+            f"(seg {tm['seg_loss']:.5f}, cls {tm['cls_loss']:.5f}, dice {tm['dice']:.4f}); "
+            f"val loss {vm['loss']:.5f} acc {vm['acc']:.3f}; lr {scheduler.lr:g}")
+    fwd, bwd, aug = launches = _counts()
+    steps = 2 * real_steps
+    log(f"  launches over the two epochs: {fwd} norm forward, {bwd} norm backward, "
+        f"{aug} augmentation, for {steps} real steps and 2 validation passes")
+    check(fwd == 25 * (steps + 2) and bwd == 25 * steps and aug == steps,
+          f"launch counts {launches}, want ({25 * (steps + 2)}, {25 * steps}, {steps})")
+    check(state.step == steps, f"state.step {state.step} after {steps} real steps")
+
+    # padding steps are no-ops: an epoch of only padding steps
+    before = _snapshot(state)
+    _reset_counts()
+    engine.train_epoch(state, train, plan_epoch_indices(TRAIN_N, b, host_rng)[:PAD_STEPS * b],
+                       gen, np.zeros(PAD_STEPS, np.float32))
+    check(_counts() == (0, 0, 0) and _same_state(before, _snapshot(state)),
+          "padding steps changed the state or launched a kernel")
+    log(f"  {PAD_STEPS} padding steps: no launch, parameters, Adam moments and step "
+        f"count bit-identical")
+
+    # speed: ms per step at batch 2 (all real steps), then batch 64
+    perm = plan_epoch_indices(TRAIN_N, b, host_rng)
+    engine.train_epoch(state, train, perm, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_epoch(state, train, perm, gen)
+    step_ms = (time.perf_counter() - t0) * 1e3 / real_steps
+    log(f"  batch {b}: {step_ms:.3f} ms per training step = {b / step_ms * 1e3:.1f} images/s "
+        f"(host clock over {real_steps} steps and the epoch's one metric fetch); "
+        f"epoch of {real_steps} steps + validation {epoch_s[1]:.3f} s")
+    profile_step(engine, state, train, perm[:b], gen, step_ms)
+    del engine, state, train, val
+    torch.cuda.empty_cache()
+    train_step_ms_64()
+
+    comparisons(cfg, init_weights, train_ds)
+    return launches
+
+
+def train_step_ms_64() -> None:
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine, plan_epoch_indices
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg, n = Config(), 4 * BATCH
+    engine = Engine(init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0)),
+                    _engine_config(cfg, batch_size=BATCH), device=DEVICE)
+    state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+    data = engine.device_data(synthetic_fold(n, 12))
+    gen, rng = torch.Generator().manual_seed(1), np.random.default_rng(1)
+    engine.train_epoch(state, data, plan_epoch_indices(n, BATCH, rng), gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tm = engine.train_epoch(state, data, plan_epoch_indices(n, BATCH, rng), gen)
+    epoch_s = time.perf_counter() - t0
+    check(np.isfinite(tm["loss"]), f"batch {BATCH} training loss {tm['loss']}")
+    log(f"  batch {BATCH}: epoch of {n // BATCH} steps {epoch_s:.3f} s = "
+        f"{epoch_s * 1e3 / (n // BATCH):.3f} ms per step = {n / epoch_s:.1f} images/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del engine, state, data
+    torch.cuda.empty_cache()
+
+
+def profile_step(engine, state, data, perm, gen, step_ms: float) -> None:
+    """Device time of one training step by kernel (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.train_epoch(state, data, perm, gen)
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    total = sum(r[0] for r in rows)
+    if total <= 0:
+        log("  profile of one step: the profiler saw no device time (not measured)")
+        return
+    ours = {name: (ms, count) for ms, count, name in rows
+            if "instance_norm_leaky_relu" in name or "fast_augment" in name}
+    log(f"  profile of one training step: {total:.3f} ms device time (host step "
+        f"{step_ms:.3f} ms: device busy {100 * total / step_ms:.1f} %) in "
+        f"{sum(r[1] for r in rows)} launches of {len(rows)} kernels; by kernel:")
+    for ms, count, name in rows[:12]:
+        log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:100]}")
+    for name, (ms, count) in ours.items():
+        log(f"    port kernel {name[:60]}: {ms:.3f} ms x{count} ({100 * ms / total:.1f} %)")
+
+
+def comparisons(cfg, init_weights, train_ds) -> None:
+    """Card against CPU over three steps, and step-0 gradients of the kernel
+    model against the plain-norm model; TF32 off, cuDNN deterministic."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.multitask import MTnnUNet
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, device, plain in (("kernels on the card", DEVICE, False),
+                                ("plain norm on the card", DEVICE, True),
+                                ("CPU", "cpu", True)):
+        model = MTnnUNet(plain_norm=plain)
+        model.load_state_dict(init_weights)
+        engine = Engine(model, _engine_config(cfg, use_transforms=False), device=device)
+        state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+        data = engine.device_data(train_ds)
+        threads = torch.get_num_threads()
+        if device == "cpu":
+            torch.set_num_threads(1)  # one thread: the CPU's sums in one fixed order
+        losses = [engine.train_epoch(state, data, [2 * k, 2 * k + 1])[1]["loss"]
+                  for k in range(3)]
+        torch.set_num_threads(threads)
+        runs[name] = (losses, {k: v.cpu() for k, v in state.model.state_dict().items()})
+    cpu_l, cpu_p = runs["CPU"]
+    update = torch.cat([(cpu_p[k] - init_weights[k]).flatten() for k in cpu_p])
+    rel = {}
+    for name in ("kernels on the card", "plain norm on the card"):
+        losses, params = runs[name]
+        diff = torch.cat([(params[k] - cpu_p[k]).flatten() for k in cpu_p])
+        rel[name] = (diff.norm() / update.norm()).item()
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_l))
+        log(f"  {name} vs CPU, 3 steps without augmentation: losses {losses} vs {cpu_l}, "
+            f"max rel err {loss_err:.3g} (tol {LOSS_REL_TOL}); parameters: max abs err "
+            f"{diff.abs().max().item():.3g} (bound {3 * 2 * cfg.optimizer.lr:g}), "
+            f"{int((diff.abs() > 1e-6).sum())} of {diff.numel()} beyond 1e-6, update "
+            f"difference {rel[name]:.3g} of the update's L2 norm (tol {PARAM_REL_TOL})")
+        check(loss_err <= LOSS_REL_TOL, f"{name} vs CPU: losses")
+        check(diff.abs().max().item() <= 3 * 2 * cfg.optimizer.lr
+              and rel[name] <= PARAM_REL_TOL, f"{name} vs CPU: parameters")
+
+    engine = Engine(MTnnUNet(), _engine_config(cfg, use_transforms=False), device=DEVICE)
+    data = engine.device_data(train_ds)
+    rows = torch.arange(cfg.data.batch_size, device=DEVICE)
+    batch = [data[k].index_select(0, rows).float() for k in ("images", "masks", "cls_targets")]
+    grads = {}
+    for name, plain, dtype in (("kernel", False, torch.float32), ("plain", True, torch.float32),
+                               ("f64", True, torch.float64)):
+        model = MTnnUNet(plain_norm=plain)
+        model.load_state_dict(init_weights)
+        model = model.to(DEVICE, dtype)
+        x, m, t = (b.to(dtype) for b in batch)
+        loss, _ = engine._losses(model(x), m, t)
+        loss.backward()
+        grads[name] = {k: p.grad.double() for k, p in model.named_parameters()}
+    worst = {"kernel vs plain": 0.0, "kernel vs f64": 0.0, "plain vs f64": 0.0}
+    bad = []
+    for k, g64 in grads["f64"].items():
+        scale = g64.abs().max().item()
+        errs = {"kernel vs plain": grads["kernel"][k] - grads["plain"][k],
+                "kernel vs f64": grads["kernel"][k] - g64, "plain vs f64": grads["plain"][k] - g64}
+        errs = {n: e.abs().max().item() / scale for n, e in errs.items()}
+        worst = {n: max(worst[n], errs[n]) for n in worst}
+        if errs["kernel vs f64"] > max(GRAD_REL_TOL, 2 * errs["plain vs f64"]):
+            bad.append((k, errs))
+    log(f"  step-0 gradients on the card over {len(grads['f64'])} tensors, max error of "
+        f"each tensor's scale: " + ", ".join(f"{n} {v:.3g}" for n, v in worst.items()))
+    check(not bad, f"step-0 gradients: the kernel model is further from the f64 gradient "
+                   f"than the plain-norm model: {bad[:3]}")
+    torch.backends.cudnn.deterministic = False
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -312,17 +764,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
     model = model.to(DEVICE).eval()
-    kernel = phase_kernel(norm_shapes(model, DEVICE))
+    shapes = norm_shapes(model, DEVICE)
+    kernel = phase_kernel(shapes)
     phase_model(model)
     del model
     torch.cuda.empty_cache()
-    launches = phase_serving()
+    serve_launches = phase_serving()
+    backward = phase_backward_kernel(shapes)
+    augment = phase_augment_kernel()
+    fwd, bwd, aug = phase_training()
 
-    log(json.dumps({"kernels": [{
-        "name": "instance_norm_leaky_relu", "route": "cuda",
-        "source": "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu",
-        "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-        "launches": launches, **kernel}]}))
+    norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
+    log(json.dumps({"kernels": [
+        {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
+         "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
+         "launches": serve_launches + fwd, **kernel},
+        {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
+         "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
+         "launches": bwd, **backward},
+        {"name": "fast_augment", "route": "cuda",
+         "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
+         "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
+         "launches": aug, **augment}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

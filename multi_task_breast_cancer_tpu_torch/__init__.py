@@ -1,12 +1,18 @@
 """PyTorch/CUDA port of ``multi_task_breast_cancer_tpu`` for NVIDIA Hopper.
 
 The JAX package beside this one is the reference; this package imports
-nothing from it (nor ``jax``). It is ported slice by slice, serving first:
+nothing from it (nor ``jax``). It is ported slice by slice, serving and
+training so far:
 
 - :mod:`.models` — the nnU-Net family (``MTnnUNet``, ``nnUNet``) as NCHW
   ``nn.Module``s, plus the bridge that loads JAX weights;
-- :mod:`.ops.hopper_kernels` — the hand-written CUDA kernels (built on first
-  use from ``csrc/``) with their plain PyTorch twins;
+- :mod:`.ops` — the hand-written CUDA kernels (built on first use from
+  ``csrc/``: the fused norm's forward and backward in
+  :mod:`.ops.hopper_kernels`, the 3-shear augmentation in
+  :mod:`.ops.fast_augment`) with their plain PyTorch twins, and the losses
+  and device metrics;
+- :mod:`.train` — the epoch ``Engine``, optimizers, schedulers, train state;
+- :mod:`.data` — the in-memory fold and the exact joint augmentation;
 - :mod:`.serve` — the micro-batching HTTP server over a live model or a JAX
   serving artifact's weights.
 

@@ -1,0 +1,28 @@
+"""Train state: the model, its optimizer and the count of steps taken (twin
+of ``multi_task_breast_cancer_tpu/train/state.py``, whose pytree carries
+params, batch statistics and optimizer state). The ported models have no
+dropout and no batch statistics, so the module's parameters are the whole of
+the learned state."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from multi_task_breast_cancer_tpu_torch.train.optim import init_optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, opt: str, learning_rate: float) -> TrainState:
+    """A fresh state over ``model``'s parameters, on the device the model is
+    on (move the model first: ``Engine`` does)."""
+    return TrainState(model=model,
+                      optimizer=init_optimizer(opt, learning_rate, model.parameters()))

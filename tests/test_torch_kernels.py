@@ -119,5 +119,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         hk.instance_norm_leaky_relu(x.to(memory_format=torch.channels_last))
     with pytest.raises(TypeError, match="dtype"):
         hk.instance_norm_leaky_relu(x.half())
-    with pytest.raises(NotImplementedError, match="backward"):
-        hk.instance_norm_leaky_relu(x.requires_grad_())
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.instance_norm_leaky_relu(x.to(memory_format=torch.channels_last).requires_grad_())
+    # a gradient is no longer refused: the backward kernel takes it
+    assert hk.instance_norm_leaky_relu(x.requires_grad_()).grad_fn is not None
