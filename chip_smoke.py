@@ -8,12 +8,17 @@ without the repository beside it, it exits non-zero and prints no result.
 Phases, in turn; any mismatch ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch and
-   CUDA versions, and the seconds the kernel build took (``nvcc``, sm_90a);
+   CUDA versions, the seconds the kernel build took (``nvcc``, sm_90a), and
+   ptxas's registers and spill bytes of every norm kernel variant (the
+   register-resident and subwarp variants must spill nothing);
 2. kernel: ``instance_norm_leaky_relu`` against its plain PyTorch version at
-   every (C, H·W) shape the flagship's forward gives it at 128², batch 64,
-   in f32 and bf16, with the kernel's, the plain version's and the library
-   call's times (``F.instance_norm`` + ``F.leaky_relu``, timed here only) and
-   the bytes bound;
+   every (C, H·W) shape the flagship's forward gives it at 128², batches 1,
+   2 and 64, in f32 and bf16, plus 256², 7×9 and a misaligned view; per
+   shape the launch plan, the kernel's time and, in turns on the same input,
+   the streaming design of the first port (forced), the plain version's and
+   the library call's times (``F.instance_norm`` + ``F.leaky_relu``, timed
+   here only), the bytes bound and the launch floor (an empty kernel of the
+   same library); two calls must agree bit for bit;
 3. model: the full-width MTnnUNet (widths 32…320, seeded weights), batch 64 at
    128², with the kernel against the same model with the plain norm on the
    card and against the plain model on the CPU at batch 2; exactly 25 kernel
@@ -24,9 +29,10 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    over these requests must be 25 per forward the server ran;
 5. backward kernel: ``instance_norm_leaky_relu_backward`` against its plain
    version at every (C, H·W) shape of the flagship's 25 norm sites, batches 2
-   (a training step's) and 64, f32 and bf16, with kernel, plain and library
-   times (autograd backward of ``F.leaky_relu(F.instance_norm(x))``, timed
-   here only) and the bytes bound;
+   (a training step's) and 64, f32 and bf16, plus 256², 7×9 and a
+   misaligned view, with the plan, kernel, forced-streaming, plain and
+   library times (autograd backward of ``F.leaky_relu(F.instance_norm(x))``,
+   timed here only) and the bytes bound; two calls must agree bit for bit;
 6. augmentation kernel: ``fast_augment`` against its plain version, bit for
    bit, at S=128 P=2 B∈{2, 64}, S=256 P=3 and S=16, with draws that include
    ±180°, multiples of 90° and both flips; kernel and plain times and the
@@ -46,7 +52,9 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    batch 2 and 64, epoch seconds and a ``torch.profiler`` breakdown of one
    step;
 8. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
-   paths, error, times and bound; then, last, ``{"ok": true, "device": ...}``.
+   paths, error, times and bound (``previous_ms``: the norm kernels' first,
+   streaming design, timed in the same run); then, last,
+   ``{"ok": true, "device": ...}``.
 
 Tolerances. f32 kernel vs plain: 1e-5 absolute (the same f32 arithmetic,
 summed in another order). bf16 kernel vs plain: one bf16 ulp (2^-7 of the
@@ -80,6 +88,9 @@ cancel sums over raw 0-255 intensities.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -115,17 +126,30 @@ def check(ok: bool, what: str) -> None:
 
 def time_ms(fn, reps: int = 20) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each after the L2
-    cache is flushed (a 256 MB write), so every launch reads its input cold."""
+    cache is flushed (a 256 MB write), so every launch reads its input cold.
+    The card spins (``torch.cuda._sleep``) while the host queues every
+    launch, and the spin is lengthened until it outlasts the queueing, so no
+    delay of the host (Python, a busy shared CPU) falls inside a timed
+    span."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEVICE)
     fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
+    spin = 1 << 24  # cycles, ~8 ms at the H100's 1.98 GHz
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        spun = torch.cuda.Event()
+        spun.record()
+        for s, e in zip(starts, ends):
+            flush.zero_()
+            s.record()
+            fn()
+            e.record()
+        if not spun.query() or spin >= 1 << 30:  # still spinning: no gaps
+            break
+        spin *= 4
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
@@ -154,6 +178,35 @@ def norm_shapes(model, device) -> Counter:
     return seen
 
 
+def ptxas_report(log_text: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every entry
+    function in an ``nvcc -Xptxas -v`` log, names demangled where a
+    demangler is at hand."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), *spills])
+            name, spills = None, (0, 0)
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    tool = tool if os.path.exists(tool) else shutil.which("c++filt")
+    if tool and rows:
+        out = subprocess.run([tool], input="\n".join(r[0] for r in rows), text=True,
+                             capture_output=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, d in zip(rows, out):
+                d = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::", "", d)
+                r[0] = d[:d.index(">(") + 1] if ">(" in d else d.split("(", 1)[0]
+    return rows
+
+
 def phase_device() -> None:
     import torch
     from multi_task_breast_cancer_tpu_torch.ops import _build
@@ -164,51 +217,134 @@ def phase_device() -> None:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     log(f"kernel build: {_build.build():.2f} s ({', '.join(_build.sources())})")
+    rows = ptxas_report(_build.build_log("instance_norm_leaky_relu"))
+    check(bool(rows), "no ptxas report for the norm kernels")
+    log("norm kernels, ptxas -v (registers, spill store/load bytes):")
+    for name, regs, st, ld in sorted(rows):
+        log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B")
+        if "resident" in name or "subwarp" in name:
+            check(st == 0 and ld == 0, f"{name} spills {st}/{ld} bytes")
+
+
+def in_turns(fn_a, fn_b, reps: int = 10) -> tuple:
+    """Times of ``fn_a`` and ``fn_b`` on one card, taken a, b, b, a and
+    averaged per function, so a drift of the card's clock falls on both."""
+    a1, b1 = time_ms(fn_a, reps), time_ms(fn_b, reps)
+    b2, a2 = time_ms(fn_b, reps), time_ms(fn_a, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def plan_text(plan) -> str:
+    if plan.variant == "streaming":
+        return f"streaming T={plan.threads}"
+    text = f"{plan.variant} k={plan.cluster} T={plan.threads} V={plan.vectors}"
+    return text + (f" G={plan.group}" if plan.variant == "subwarp" else "")
+
+
+def launch_floor_ms() -> float:
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    floor = time_ms(lambda: hk.empty_launch(DEVICE))
+    log(f"launch floor: an empty kernel of the same library {floor:.4f} ms per launch "
+        f"({25 * floor:.4f} ms for 25), timed as the kernels are")
+    return floor
+
+
+def _forward_ok(got, want) -> tuple:
+    """Within tolerance (f32: 1e-5 absolute; bf16: one bf16 ulp), and the
+    largest absolute error."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        return err.max().item() <= F32_TOL, err.max().item()
+    return bool((err <= BF16_REL_TOL * want.float().abs() + 1e-6).all()), err.max().item()
+
+
+# shapes off the flagship's path, with whether to misalign the view: 256²
+# (the streaming design's planes), 7×9 (not whole 16-byte vectors) and a
+# view one element past a 16-byte boundary
+EXTRA_SHAPES = (((2, 4, 256, 256), False), ((2, 8, 7, 9), False), ((2, 16, 32, 32), True))
+
+
+def misaligned_copy(t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte boundary."""
+    import torch
+    buf = torch.empty(1 + t.numel(), device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    check(out.is_contiguous() and out.data_ptr() % 16 != 0, "misaligned view")
+    return out
 
 
 def phase_kernel(shapes: Counter) -> dict:
+    """Kernel #1 at every site's shape, batches 1, 2 and 64; returns batch
+    64's totals over one forward's 25 launches (the serving path's shapes)."""
     import torch
     import torch.nn.functional as F
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    bound_kinds, max_err = set(), 0.0
-    log(f"kernel instance_norm_leaky_relu at batch {BATCH}: "
-        f"{len(shapes)} shapes, {sum(shapes.values())} sites per forward")
-    for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
-        # offset planes: the two-pass variance must not lose the centred part
-        x = torch.randn(BATCH, c, h, w, device=DEVICE, generator=g) * 2.0 + 5.0
+    floor = launch_floor_ms()
+    result = {}
+    for batch in (1, 2, BATCH):
+        totals = {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0}
+        bound_kinds, max_err = set(), 0.0
+        log(f"kernel instance_norm_leaky_relu at batch {batch}: {len(shapes)} shapes, "
+            f"{sum(shapes.values())} sites per forward; new plan vs the streaming "
+            f"design in turns")
+        for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
+            # offset planes: the two-pass variance must not lose the centred part
+            x = torch.randn(batch, c, h, w, device=DEVICE, generator=g) * 2.0 + 5.0
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                plan, old = hk.plan_for(xd), hk.streaming_plan(batch * c, h * w)
+                got, again = hk.instance_norm_leaky_relu(xd), hk.instance_norm_leaky_relu(xd)
+                prev = hk._forward(xd, 1e-5, 0.01, plan=old)
+                want = hk.instance_norm_leaky_relu_reference(xd)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"two calls differ at B={batch} C={c} "
+                                               f"HxW={h}x{w} {dtype}")
+                for what, out in (("kernel", got), ("streaming", prev)):
+                    ok, err = _forward_ok(out, want)
+                    check(ok, f"{what} != plain at B={batch} C={c} HxW={h}x{w} {dtype}: "
+                              f"max abs err {err:.3g}")
+                ok, err = _forward_ok(got, want)
+                k_ms, s_ms = in_turns(lambda: hk.instance_norm_leaky_relu(xd),
+                                      lambda: hk._forward(xd, 1e-5, 0.01, plan=old))
+                p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_reference(xd))
+                b_ms, kind = bound_ms(xd.numel(), xd.element_size())
+                line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
+                        f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
+                        f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                        f"bound {b_ms:.4f} ms ({kind})")
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+                    l_ms = time_ms(lambda: F.leaky_relu(F.instance_norm(xd), 0.01))
+                    line += f"  library {l_ms:.4f} ms"
+                    for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
+                                   ("library_ms", l_ms), ("bound_ms", b_ms)):
+                        totals[key] += sites * v
+                    bound_kinds.add(kind)
+                log(line)
+        log(f"kernel totals over one f32 forward's {sum(shapes.values())} launches at "
+            f"batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in totals.items())
+            + f", launch floor {25 * floor:.4f}")
+        result[batch] = {"max_abs_err": max_err, "bound_by": "bytes"
+                         if bound_kinds == {"bytes"} else "operations", **totals}
+
+    for shape, misaligned in EXTRA_SHAPES:
+        x = torch.randn(*shape, device=DEVICE, generator=g) * 2.0 + 5.0
         for dtype in (torch.float32, torch.bfloat16):
-            xd = x.to(dtype)
-            got, want = hk.instance_norm_leaky_relu(xd), hk.instance_norm_leaky_relu_reference(xd)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            if dtype == torch.float32:
-                ok = err.max().item() <= F32_TOL
-                max_err = max(max_err, err.max().item())
-            else:
-                ok = bool((err <= BF16_REL_TOL * want.float().abs() + 1e-6).all())
-            check(ok, f"kernel != plain at C={c} HxW={h}x{w} {dtype}: "
-                      f"max abs err {err.max().item():.3g}")
-            k_ms = time_ms(lambda: hk.instance_norm_leaky_relu(xd))
-            p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_reference(xd))
-            b_ms, kind = bound_ms(xd.numel(), xd.element_size())
-            line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
-                    f"err {err.max().item():.3g}  kernel {k_ms:.4f} ms  "
-                    f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({kind})")
-            if dtype == torch.float32:
-                l_ms = time_ms(lambda: F.leaky_relu(F.instance_norm(xd), 0.01))
-                line += f"  library {l_ms:.4f} ms"
-                for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                               ("library_ms", l_ms), ("bound_ms", b_ms)):
-                    totals[key] += sites * v
-                bound_kinds.add(kind)
-            log(line)
-    log(f"kernel totals over one f32 forward's {sum(shapes.values())} launches: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()))
-    return {"max_abs_err": max_err, "bound_by": "bytes" if bound_kinds == {"bytes"}
-            else "operations", **totals}
+            xd = misaligned_copy(x.to(dtype)) if misaligned else x.to(dtype)
+            plan = hk.plan_for(xd, torch.empty_like(xd))
+            got, again = hk.instance_norm_leaky_relu(xd), hk.instance_norm_leaky_relu(xd)
+            ok, err = _forward_ok(got, hk.instance_norm_leaky_relu_reference(xd))
+            check(ok and torch.equal(got, again),
+                  f"kernel at {shape} {dtype}: max abs err {err:.3g} or calls differ")
+            log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
+                f"{plan_text(plan):28s} err {err:.3g}  "
+                f"kernel {time_ms(lambda: hk.instance_norm_leaky_relu(xd)):.4f} ms")
+    return result[BATCH]
 
 
 def _max_rel_err(got, want) -> float:
@@ -351,66 +487,85 @@ def phase_serving() -> int:
     return launches
 
 
-def kink_free(batch: int, c: int, h: int, w: int, gen):
+def kink_free(shape, gen):
     """Norm inputs whose normalised values all lie at least ~0.05 from the
     LeakyReLU's kink: each plane is 5 ± 2·(|N(0,1)| + 0.1) in ± pairs, so its
-    mean is 5 and no element sits near it. At xhat = 0 the gradient jumps by
-    (1 − slope)·g, and two f32 evaluations whose statistics are summed in
-    different orders can put an element within ~1e-7 of the kink on
-    different sides (one such element at batch 64 differed by 0.275 on an
-    H100 with plain normal inputs): a branch choice, not an error of either
-    version."""
+    mean is 5 and no element sits near it (an odd plane gets one more
+    element at 5 + 3, which moves the mean by at most 3/H·W). At xhat = 0
+    the gradient jumps by (1 − slope)·g, and two f32 evaluations whose
+    statistics are summed in different orders can put an element within
+    ~1e-7 of the kink on different sides (one such element at batch 64
+    differed by 0.275 on an H100 with plain normal inputs): a branch choice,
+    not an error of either version."""
     import torch
+    batch, c, h, w = shape
     a = torch.randn(batch, c, h * w // 2, device=DEVICE, generator=gen).abs() + 0.1
-    z = torch.cat([a, -a], dim=2)
+    odd = torch.full((batch, c, h * w % 2), 1.5, device=DEVICE)
+    z = torch.cat([a, -a, odd], dim=2)
     order = torch.rand(batch, c, h * w, device=DEVICE, generator=gen).argsort(dim=2)
     return (5.0 + 2.0 * z.gather(2, order)).reshape(batch, c, h, w)
 
 
 def phase_backward_kernel(shapes: Counter) -> dict:
     """Kernel #2 against its plain version at every norm site's shape, at a
-    training step's batch (2) and at 64. Returns batch 2's totals over one
-    step's 25 launches (the training path's shapes)."""
+    training step's batch (2) and at 64, beside the streaming design in
+    turns. Returns batch 2's totals over one step's 25 launches (the
+    training path's shapes)."""
     import torch
     import torch.nn.functional as F
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def ok_err(got, want, dtype):
+        err = (got.float() - want.float()).abs()
+        scale = want.float().abs().max().item()
+        if dtype == torch.float32:
+            return err.max().item() <= F32_TOL * scale, err.max().item(), scale
+        return (bool((err <= BF16_REL_TOL * want.float().abs() + F32_TOL * scale).all()),
+                err.max().item(), scale)
+
     result = {}
     for batch in (2, BATCH):
-        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        totals = {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0}
         kinds, max_err = set(), 0.0
-        log(f"backward kernel instance_norm_leaky_relu_backward at batch {batch}:")
+        log(f"backward kernel instance_norm_leaky_relu_backward at batch {batch}; "
+            f"new plan vs the streaming design in turns:")
         for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
-            x = kink_free(batch, c, h, w, g)
+            x = kink_free((batch, c, h, w), g)
             gy = torch.randn(batch, c, h, w, device=DEVICE, generator=g)
             for dtype in (torch.float32, torch.bfloat16):
                 xd, gd = x.to(dtype), gy.to(dtype)
+                plan, old = hk.plan_for(xd, gd), hk.streaming_plan(batch * c, h * w)
                 got = hk.instance_norm_leaky_relu_backward(xd, gd)
+                again = hk.instance_norm_leaky_relu_backward(xd, gd)
+                prev = hk._backward(xd, gd, 1e-5, 0.01, plan=old)
                 want = hk.instance_norm_leaky_relu_backward_reference(xd, gd)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                scale = want.float().abs().max().item()
-                if dtype == torch.float32:
-                    ok = err.max().item() <= F32_TOL * scale
-                    max_err = max(max_err, err.max().item())
-                else:
-                    ok = bool((err <= BF16_REL_TOL * want.float().abs() + F32_TOL * scale).all())
-                check(ok, f"backward kernel != plain at B={batch} C={c} HxW={h}x{w} "
-                          f"{dtype}: max abs err {err.max().item():.3g} (scale {scale:.3g})")
-                k_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward(xd, gd))
+                check(torch.equal(got, again), f"two backward calls differ at B={batch} "
+                                               f"C={c} HxW={h}x{w} {dtype}")
+                for what, out in (("kernel", got), ("streaming", prev)):
+                    ok, err, scale = ok_err(out, want, dtype)
+                    check(ok, f"backward {what} != plain at B={batch} C={c} HxW={h}x{w} "
+                              f"{dtype}: max abs err {err:.3g} (scale {scale:.3g})")
+                ok, err, scale = ok_err(got, want, dtype)
+                k_ms, s_ms = in_turns(lambda: hk.instance_norm_leaky_relu_backward(xd, gd),
+                                      lambda: hk._backward(xd, gd, 1e-5, 0.01, plan=old))
                 p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward_reference(xd, gd))
                 b_ms, kind = bound_ms(xd.numel(), xd.element_size(), 3, BWD_FLOPS_PER_ELEMENT)
                 line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
-                        f"err {err.max().item():.3g}  kernel {k_ms:.4f} ms  "
-                        f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({kind})")
+                        f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
+                        f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                        f"bound {b_ms:.4f} ms ({kind})")
                 if dtype == torch.float32:
+                    max_err = max(max_err, err)
                     xr = xd.detach().requires_grad_()
                     yr = F.leaky_relu(F.instance_norm(xr), 0.01)
                     l_ms = time_ms(lambda: torch.autograd.grad(yr, xr, gd, retain_graph=True))
                     del xr, yr
                     line += f"  library {l_ms:.4f} ms"
-                    for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                    for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
                                    ("library_ms", l_ms), ("bound_ms", b_ms)):
                         totals[key] += sites * v
                     kinds.add(kind)
@@ -419,6 +574,22 @@ def phase_backward_kernel(shapes: Counter) -> dict:
             f"batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()))
         result[batch] = {"max_abs_err": max_err, "bound_by": "bytes"
                          if kinds == {"bytes"} else "operations", **totals}
+
+    for shape, misaligned in EXTRA_SHAPES:
+        x = kink_free(shape, g)
+        gy = torch.randn(*shape, device=DEVICE, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dtype), gy.to(dtype)
+            xd = misaligned_copy(xd) if misaligned else xd
+            plan = hk.plan_for(xd, gd, torch.empty_like(xd))
+            got = hk.instance_norm_leaky_relu_backward(xd, gd)
+            again = hk.instance_norm_leaky_relu_backward(xd, gd)
+            ok, err, _ = ok_err(got, hk.instance_norm_leaky_relu_backward_reference(xd, gd), dtype)
+            check(ok and torch.equal(got, again),
+                  f"backward kernel at {shape} {dtype}: max abs err {err:.3g} or calls differ")
+            k_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward(xd, gd))
+            log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
+                f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms")
     return result[2]
 
 

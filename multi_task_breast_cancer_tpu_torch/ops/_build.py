@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface under ``build/torch_kernels/`` at the
 repository root (git-ignored). The library's file name carries a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time: the CPU tests import every module of
-the port on machines without ``nvcc`` or a GPU.
+reused. ``ptxas`` reports each kernel's registers and spills (``-Xptxas -v``);
+the report is kept beside the library (``build_log``). Nothing here runs at
+import time: the CPU tests import every module of the port on machines
+without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -53,8 +55,9 @@ def _target(name: str) -> Path:
 
 def build(names: Optional[Iterable[str]] = None) -> float:
     """Compile the given kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together. Returns the seconds taken;
-    raises ``RuntimeError`` with the compiler's output if one fails."""
+    ``nvcc`` per source, all started together, keeping each compiler's output
+    beside its library. Returns the seconds taken; raises ``RuntimeError``
+    with the compiler's output if one fails."""
     t0 = time.perf_counter()
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -74,10 +77,18 @@ def build(names: Optional[Iterable[str]] = None) -> float:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (with ptxas's register and spill report) of the
+    built ``csrc/<name>.cu``; empty if it was not built here."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -11,12 +11,22 @@ backward recomputes the statistics. The CUDA source of both is
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernel or raises. There is no
-fallback from a failed launch to the plain version.
+fallback from a failed launch to the plain version, nor to another variant.
+
+Each launch follows a plan (:func:`_plan`) decided on the host before it
+from the number of planes, H·W, the type and the pointers' alignment: the
+``subwarp`` variant for planes of at most 256 elements, the register-
+``resident`` one up to 128 KB a plane (one block per plane, or a
+thread-block cluster where one block cannot hold the plane), and the
+``streaming`` one, the first design, for larger, misaligned or ragged
+planes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -63,12 +73,105 @@ def instance_norm_leaky_relu_backward_reference(x: torch.Tensor, g: torch.Tensor
     return (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
 
 
+class NormPlan(NamedTuple):
+    """How one launch covers its planes (see ``csrc/instance_norm_leaky_relu.cu``)."""
+
+    variant: str    # "subwarp", "resident" or "streaming"
+    cluster: int    # blocks per plane (a thread-block cluster when > 1)
+    threads: int    # threads per block
+    vectors: int    # 16-byte vectors per thread and input (0: streaming)
+    group: int      # threads that share one plane
+    elements: int   # elements of the plane each thread holds (or visits)
+    blocks: int     # grid size
+
+
+_VARIANT_CODES = {"streaming": 0, "subwarp": 1, "resident": 2}
+H100_SMS = 132
+_MAX_THREADS = 256         # the kernels' __launch_bounds__
+_MAX_VECTORS = 4           # register array per thread and input, resident
+_MIN_THREADS = 64          # a block keeps two warps at least
+_MAX_CLUSTER = 8           # the portable cluster size
+_SUBWARP_MAX_HW = 256      # elements; a 32-lane group holds it in ≤ 2 vectors
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def streaming_plan(planes: int, hw: int) -> NormPlan:
+    """The first design: one block of whole warps (≤ 256 threads) per plane."""
+    threads = _MAX_THREADS if hw >= _MAX_THREADS else _round_up(hw, 32)
+    return NormPlan("streaming", 1, threads, 0, threads, -(-hw // threads), planes)
+
+
+def _plan(planes: int, hw: int, dtype: torch.dtype, aligned: bool,
+          sms: int = H100_SMS) -> NormPlan:
+    """The launch plan for ``planes`` planes of ``hw`` elements of ``dtype``.
+
+    ``aligned``: every pointer of the launch is 16-byte aligned. The vector
+    variants need that and whole 16-byte vectors per plane (4 f32 or 8
+    bf16); otherwise, and for planes above 128 KB (more than ``_MAX_CLUSTER``
+    blocks of ``_MAX_THREADS`` threads hold at ``_MAX_VECTORS`` vectors
+    each), the streaming design.
+
+    Planes of at most 256 elements go to a group of 1-32 lanes each; a block
+    of 64-256 threads holds many, fewer threads where the blocks would not
+    reach two per SM (``sms``). Larger planes go to one block each, and to a
+    cluster only when one block of 256 threads cannot hold the plane at 4
+    vectors a thread (the 128² levels): on an H100 a cluster costs more than
+    the idle SMs it would fill (``norm_plan_sweep.py``, ``PERF.md``). A
+    plane that needs a cluster is split further, up to 8 blocks, while the
+    planes give fewer than two blocks per SM. A thread holds 4 vectors where that leaves the
+    block 64 threads or more, else 2 or 1."""
+    width = 16 // dtype.itemsize
+    if not aligned or hw % width:
+        return streaming_plan(planes, hw)
+    nvec = hw // width
+    if hw <= _SUBWARP_MAX_HW:
+        group = min(32, 1 << (nvec - 1).bit_length())
+        vectors = -(-nvec // group)
+        threads = _MAX_THREADS
+        while threads > _MIN_THREADS and -(-planes * group // threads) < 2 * sms:
+            threads //= 2
+        return NormPlan("subwarp", 1, threads, vectors, group, vectors * width,
+                        -(-planes * group // threads))
+    per_block = _MAX_THREADS * _MAX_VECTORS
+    k = 1
+    while k < _MAX_CLUSTER and nvec > k * per_block:
+        k *= 2
+    if nvec > k * per_block:
+        return streaming_plan(planes, hw)
+    while 1 < k < _MAX_CLUSTER and planes * k < 2 * sms:
+        k *= 2
+    vectors = _MAX_VECTORS
+    while vectors > 1 and -(-nvec // (k * vectors)) < _MIN_THREADS:
+        vectors //= 2
+    threads = _round_up(-(-nvec // (k * vectors)), 32)
+    return NormPlan("resident", k, threads, vectors, threads * k, vectors * width,
+                    planes * k)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(*tensors: torch.Tensor) -> NormPlan:
+    """The plan a launch over these NCHW CUDA tensors (inputs and output,
+    one shape) takes: alignment read from their pointers, SMs from their
+    card."""
+    n, c, h, w = tensors[0].shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return _plan(n * c, h * w, tensors[0].dtype, aligned,
+                 _sm_count(tensors[0].device.index or 0))
+
+
 def _entry(name: str, dtype: torch.dtype, n_pointers: int):
     fn = getattr(_build.library(_SOURCE), f"{name}_{_DTYPES[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_pointers + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p]
+            ctypes.c_void_p] + [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
     return fn
 
@@ -84,26 +187,61 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: input must be NCHW-contiguous")
 
 
-def _launch(name: str, inputs, out: torch.Tensor, eps: float, slope: float) -> None:
+def _launch(name: str, inputs, out: torch.Tensor, eps: float, slope: float,
+            plan: NormPlan) -> None:
     n, c, h, w = out.shape
     with torch.cuda.device(out.device):
         err = _entry(name, out.dtype, len(inputs) + 1)(
             *(t.data_ptr() for t in inputs), out.data_ptr(), n * c, h * w,
-            float(eps), float(slope), torch.cuda.current_stream(out.device).cuda_stream)
+            float(eps), float(slope), torch.cuda.current_stream(out.device).cuda_stream,
+            _VARIANT_CODES[plan.variant], plan.cluster, plan.threads, plan.vectors,
+            plan.group)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} at "
-                           f"shape {tuple(out.shape)}")
+                           f"shape {tuple(out.shape)}, plan {plan}")
 
 
-def _forward(x: torch.Tensor, eps: float, slope: float) -> torch.Tensor:
+def empty_launch(device: torch.device) -> None:
+    """One launch of the library's empty kernel (the launch floor)."""
+    fn = _build.library(_SOURCE).instance_norm_leaky_relu_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel: CUDA launch failed with error {err}")
+
+
+def _forward(x: torch.Tensor, eps: float, slope: float,
+             plan: NormPlan | None = None) -> torch.Tensor:
+    """The forward on ``x``'s device; ``plan`` overrides :func:`plan_for`
+    (to time the streaming design beside the one the plan picks)."""
     if x.device.type == "cpu":
         return instance_norm_leaky_relu_reference(x, eps, slope)
     _check_cuda_input(x, "instance_norm_leaky_relu")
     y = torch.empty_like(x)
     if x.numel():
-        _launch("instance_norm_leaky_relu", (x,), y, eps, slope)
+        _launch("instance_norm_leaky_relu", (x,), y, eps, slope, plan or plan_for(x, y))
         instance_norm_leaky_relu.launches += 1
     return y
+
+
+def _backward(x: torch.Tensor, g: torch.Tensor, eps: float, slope: float,
+              plan: NormPlan | None = None) -> torch.Tensor:
+    """The backward on ``x``'s device; ``plan`` as in :func:`_forward`."""
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"instance_norm_leaky_relu_backward: gradient "
+                         f"{tuple(g.shape)} {g.dtype} {g.device} does not match "
+                         f"input {tuple(x.shape)} {x.dtype} {x.device}")
+    if x.device.type == "cpu":
+        return instance_norm_leaky_relu_backward_reference(x, g, eps, slope)
+    _check_cuda_input(x, "instance_norm_leaky_relu_backward")
+    g = g.contiguous(memory_format=torch.contiguous_format)
+    dx = torch.empty_like(x)
+    if x.numel():
+        _launch("instance_norm_leaky_relu_backward", (x, g), dx, eps, slope,
+                plan or plan_for(x, g, dx))
+        instance_norm_leaky_relu_backward.launches += 1
+    return dx
 
 
 def instance_norm_leaky_relu_backward(x: torch.Tensor, g: torch.Tensor,
@@ -117,19 +255,7 @@ def instance_norm_leaky_relu_backward(x: torch.Tensor, g: torch.Tensor,
     ``instance_norm_leaky_relu_backward.launches``. ``g`` may arrive with any
     strides (cuDNN's convolution backward can hand over channels-last ones):
     it is made NCHW-contiguous here, a copy only when its layout differs."""
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f"instance_norm_leaky_relu_backward: gradient "
-                         f"{tuple(g.shape)} {g.dtype} {g.device} does not match "
-                         f"input {tuple(x.shape)} {x.dtype} {x.device}")
-    if x.device.type == "cpu":
-        return instance_norm_leaky_relu_backward_reference(x, g, eps, slope)
-    _check_cuda_input(x, "instance_norm_leaky_relu_backward")
-    g = g.contiguous(memory_format=torch.contiguous_format)
-    dx = torch.empty_like(x)
-    if x.numel():
-        _launch("instance_norm_leaky_relu_backward", (x, g), dx, eps, slope)
-        instance_norm_leaky_relu_backward.launches += 1
-    return dx
+    return _backward(x, g, eps, slope)
 
 
 class _InstanceNormLeakyReLU(torch.autograd.Function):

@@ -123,3 +123,62 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         hk.instance_norm_leaky_relu(x.to(memory_format=torch.channels_last).requires_grad_())
     # a gradient is no longer refused: the backward kernel takes it
     assert hk.instance_norm_leaky_relu(x.requires_grad_()).grad_fn is not None
+
+
+# One shape per variant and cluster size: subwarp groups of 2-32 lanes
+# (4×4, 8×8, 16×16); one resident block per plane (32², 64²); clusters of 8
+# (128², batch 2), 4 (f32 128², batch 64) and 2 (bf16 128², batch 64);
+# streaming for 256² f32 (256 KB planes; bf16 stays resident in a cluster of
+# 8) and 7×9 (not whole 16-byte vectors).
+PLAN_SHAPES = [(2, 320, 4, 4), (2, 320, 8, 8), (2, 256, 16, 16), (2, 32, 128, 128),
+               (64, 32, 128, 128), (2, 128, 32, 32), (64, 64, 64, 64),
+               (2, 4, 256, 256), (2, 8, 7, 9)]
+
+
+def _assert_close_to_plain(got, x):
+    want = hk.instance_norm_leaky_relu_reference(x)
+    err = (got.float() - want.float()).abs()
+    if x.dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:  # one bf16 ulp: the two sum in different orders
+        assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_every_plan_matches_plain_and_repeats(dtype, shape):
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(*shape, device="cuda", generator=g) * 2 + 5).to(dtype)
+    before = hk.instance_norm_leaky_relu.launches
+    got = hk.instance_norm_leaky_relu(x)
+    again = hk.instance_norm_leaky_relu(x)
+    torch.cuda.synchronize()
+    assert hk.instance_norm_leaky_relu.launches == before + 2  # one launch per call
+    assert torch.equal(got, again)  # fixed summation order: bit for bit
+    _assert_close_to_plain(got, x)
+    n, c, h, w = shape
+    forced = hk._forward(x, 1e-5, 0.01, plan=hk.streaming_plan(n * c, h * w))
+    _assert_close_to_plain(forced, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_misaligned_view_takes_the_streaming_design(dtype):
+    _cuda_or_skip()
+    buf = (torch.randn(1 + 2 * 16 * 32 * 32, device="cuda") * 2 + 5).to(dtype)
+    x = buf[1:].view(2, 16, 32, 32)  # contiguous, one element past an aligned start
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert hk.plan_for(x, torch.empty_like(x)).variant == "streaming"
+    _assert_close_to_plain(hk.instance_norm_leaky_relu(x), x)
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_a_plan_the_kernel_does_not_take():
+    """A plan is never quietly replaced: a bad one raises."""
+    _cuda_or_skip()
+    x = torch.randn(2, 8, 32, 32, device="cuda")
+    bad = hk.NormPlan("resident", 2, 32, 1, 64, 4, 32)  # 2·32·4 < 1024 elements
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hk._forward(x, 1e-5, 0.01, plan=bad)

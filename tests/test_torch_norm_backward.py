@@ -127,10 +127,11 @@ def _kink_free(shape, gen):
     """Planes of 5 ± 2·(|N(0,1)| + 0.1) in ± pairs: every normalised value
     stays ~0.05 from the kink, where the gradient jumps by (1 − slope)·g and
     two f32 evaluations summed in different orders may pick different
-    branches for an element within ~1e-7 of it."""
+    branches for an element within ~1e-7 of it. An odd plane gets one more
+    element at 5 + 3, which moves the mean by at most 3/H·W."""
     n, c, h, w = shape
     a = torch.randn(n, c, h * w // 2, device="cuda", generator=gen).abs() + 0.1
-    z = torch.cat([a, -a], dim=2)
+    z = torch.cat([a, -a] + [torch.full((n, c, h * w % 2), 1.5, device="cuda")], dim=2)
     order = torch.rand(n, c, h * w, device="cuda", generator=gen).argsort(dim=2)
     return (5.0 + 2.0 * z.gather(2, order)).reshape(shape)
 
@@ -175,3 +176,54 @@ def test_cuda_autograd_through_both_kernels():
     assert hk.instance_norm_leaky_relu_backward.launches == b0 + 1
     want = hk.instance_norm_leaky_relu_backward_reference(x.detach(), g)
     assert (x.grad - want).abs().max().item() <= 1e-5
+
+
+# One shape per variant and cluster size, as in tests/test_torch_kernels.py.
+PLAN_SHAPES = [(2, 320, 4, 4), (2, 320, 8, 8), (2, 256, 16, 16), (2, 32, 128, 128),
+               (64, 32, 128, 128), (2, 128, 32, 32), (64, 64, 64, 64),
+               (2, 4, 256, 256), (2, 8, 7, 9)]
+
+
+def _assert_close_to_plain(got, x, g):
+    want = hk.instance_norm_leaky_relu_backward_reference(x, g)
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    if x.dtype == torch.float32:
+        assert err.max().item() <= 1e-5 * scale
+    else:  # one bf16 ulp of the value, plus the f32 tolerance near zero
+        assert bool((err <= 2.0 ** -7 * want.float().abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_backward_every_plan_matches_plain_and_repeats(dtype, shape):
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = _kink_free(shape, gen).to(dtype)
+    g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    before = hk.instance_norm_leaky_relu_backward.launches
+    got = hk.instance_norm_leaky_relu_backward(x, g)
+    again = hk.instance_norm_leaky_relu_backward(x, g)
+    torch.cuda.synchronize()
+    assert hk.instance_norm_leaky_relu_backward.launches == before + 2
+    assert torch.equal(got, again)  # fixed summation order: bit for bit
+    _assert_close_to_plain(got, x, g)
+    n, c, h, w = shape
+    forced = hk._backward(x, g, 1e-5, 0.01, plan=hk.streaming_plan(n * c, h * w))
+    _assert_close_to_plain(forced, x, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_misaligned_view(dtype):
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (2, 16, 32, 32)
+    buf = torch.empty(1 + 2 * 16 * 32 * 32, device="cuda", dtype=dtype)
+    x = buf[1:].view(shape)  # contiguous, one element past an aligned start
+    x.copy_(_kink_free(shape, gen))
+    g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert hk.plan_for(x, g, torch.empty_like(x)).variant == "streaming"
+    _assert_close_to_plain(hk.instance_norm_leaky_relu_backward(x, g), x, g)
