@@ -8,9 +8,12 @@ without the repository beside it, it exits non-zero and prints no result.
 Phases, in turn; any mismatch ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch and
-   CUDA versions, the seconds the kernel build took (``nvcc``, sm_90a), and
-   ptxas's registers and spill bytes of every norm kernel variant (the
-   register-resident and subwarp variants must spill nothing);
+   CUDA versions, the seconds the kernel build took (``nvcc``, sm_90a; the
+   augmentation kernel's index-plane design, kept in this file only to be
+   timed, compiles beside the port's kernels), and ptxas's registers and
+   spill bytes of every norm kernel variant (the register-resident and
+   subwarp variants must spill nothing) and of the augmentation kernel's
+   variants, with their static shared memory (none may spill);
 2. kernel: ``instance_norm_leaky_relu`` against its plain PyTorch version at
    every (C, H·W) shape the flagship's forward gives it at 128², batches 1,
    2 and 64, in f32 and bf16, plus 256², 7×9 and a misaligned view; per
@@ -34,10 +37,14 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    library times (autograd backward of ``F.leaky_relu(F.instance_norm(x))``,
    timed here only) and the bytes bound; two calls must agree bit for bit;
 6. augmentation kernel: ``fast_augment`` against its plain version, bit for
-   bit, at S=128 P=2 B∈{2, 64}, S=256 P=3 and S=16, with draws that include
-   ±180°, multiples of 90° and both flips; kernel and plain times and the
-   bytes bound (no single PyTorch call computes this function: no library
-   time);
+   bit, under every launch plan it takes (staged, direct; 1-32 blocks per
+   plane), at S=128 P=2 B∈{2, 64}, S=256 P=3 B=16 and S=16 P=2
+   B=8, with draws that include ±180°, multiples of 90° and both flips;
+   each plan's time, the default plan and the index-plane design (the
+   first design: three (B, 3, S, S) index planes read from device memory)
+   in turns, the plain version's time, the launch floor and the bound:
+   selected source planes and output once, factors once (no single
+   PyTorch call computes this function: no library time);
 7. training, a main path: ``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4,
    fused DICE + Focal, fast augmentation on, f32), the full-width model from
    generator seed 0, on a seeded synthetic 128² fold (48 train, 12 val, two
@@ -50,10 +57,12 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    CPU from the same weights; step-0 gradients of the kernel model and of
    the plain-norm model against a float64 gradient on the card. Reports ms per step and images/s at
    batch 2 and 64, epoch seconds and a ``torch.profiler`` breakdown of one
-   step;
+   step; a second profile counts the launches from the augmentation to the
+   model's first convolution: the kernel alone, no cast or copy;
 8. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
    paths, error, times and bound (``previous_ms``: the norm kernels' first,
-   streaming design, timed in the same run); then, last,
+   streaming design, and the augmentation's index-plane design, timed in the
+   same run); then, last,
    ``{"ok": true, "device": ...}``.
 
 Tolerances. f32 kernel vs plain: 1e-5 absolute (the same f32 arithmetic,
@@ -179,9 +188,9 @@ def norm_shapes(model, device) -> Counter:
 
 
 def ptxas_report(log_text: str) -> list:
-    """(kernel, registers, spill store bytes, spill load bytes) of every entry
-    function in an ``nvcc -Xptxas -v`` log, names demangled where a
-    demangler is at hand."""
+    """(kernel, registers, spill store bytes, spill load bytes, static shared
+    memory bytes) of every entry function in an ``nvcc -Xptxas -v`` log,
+    names demangled where a demangler is at hand."""
     rows, name, spills = [], None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -192,7 +201,8 @@ def ptxas_report(log_text: str) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append([name, int(m.group(1)), *spills])
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)), *spills, int(smem.group(1)) if smem else 0])
             name, spills = None, (0, 0)
     from multi_task_breast_cancer_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
@@ -207,7 +217,9 @@ def ptxas_report(log_text: str) -> list:
     return rows
 
 
-def phase_device() -> None:
+def phase_device():
+    """Returns the index-plane design's library (built beside the port's
+    kernels, all compilers started together)."""
     import torch
     from multi_task_breast_cancer_tpu_torch.ops import _build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -216,14 +228,26 @@ def phase_device() -> None:
     log(smi.stdout.strip())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    proc, index_plane_lib = start_index_plane_build()
     log(f"kernel build: {_build.build():.2f} s ({', '.join(_build.sources())})")
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"index-plane design: nvcc exited {proc.returncode}\n{out}")
     rows = ptxas_report(_build.build_log("instance_norm_leaky_relu"))
     check(bool(rows), "no ptxas report for the norm kernels")
     log("norm kernels, ptxas -v (registers, spill store/load bytes):")
-    for name, regs, st, ld in sorted(rows):
+    for name, regs, st, ld, _ in sorted(rows):
         log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B")
         if "resident" in name or "subwarp" in name:
             check(st == 0 and ld == 0, f"{name} spills {st}/{ld} bytes")
+    rows = ptxas_report(_build.build_log("fast_augment"))
+    check(bool(rows), "no ptxas report for the augmentation kernel")
+    log("augmentation kernel, ptxas -v (registers, spill store/load bytes, static shared "
+        "memory; the staged plane is dynamic shared memory):")
+    for name, regs, st, ld, smem in sorted(rows):
+        log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B  smem {smem} B")
+    check(all(r[2] == r[3] == 0 for r in rows),
+          "the augmentation kernel spills:\n" + _build.build_log("fast_augment"))
+    return index_plane_lib
 
 
 def in_turns(fn_a, fn_b, reps: int = 10) -> tuple:
@@ -609,36 +633,158 @@ def _special_draws(b: int, gen):
     return fh, fv, angle
 
 
-def phase_augment_kernel() -> dict:
-    """Kernel #3 against its plain version, bit for bit; returns the
-    training path's case (S=128, P=2, B=2)."""
+# The index-plane design of the augmentation kernel, the first one the port
+# had: one thread per output pixel, the three (B, 3, S, S) index planes read
+# from device memory (two of them scattered), the source gathered from device
+# memory. Kept here only to be timed beside the kernel in the same run.
+INDEX_PLANE_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256)
+index_plane_kernel(const int32_t* __restrict__ packed, const int32_t* __restrict__ rows,
+                   const int32_t* __restrict__ idx, const int32_t* __restrict__ t1,
+                   int32_t* __restrict__ out, int n, int planes, int s, int64_t total) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const int x = static_cast<int>(o % s);
+  int64_t t = o / s;
+  const int y = static_cast<int>(t % s);
+  t /= s;
+  const int p = static_cast<int>(t % planes);
+  const int i = static_cast<int>(t / planes);
+  const int64_t ss = static_cast<int64_t>(s) * s;
+  const int32_t* id = idx + static_cast<int64_t>(i) * 3 * ss;
+  const bool transpose = t1[i] > 0;
+  const int r = transpose ? x : y, c = transpose ? y : x;
+  const int row = rows[i];
+  int32_t v = 0;
+  const int j = id[2 * ss + static_cast<int64_t>(r) * s + c];
+  if (row >= 0 && row < n && j >= 0 && j < s) {
+    const int k = id[ss + static_cast<int64_t>(j) * s + r];
+    if (k >= 0 && k < s) {
+      const int m = id[static_cast<int64_t>(k) * s + j];
+      if (m >= 0 && m < s)
+        v = packed[(static_cast<int64_t>(row) * planes + p) * ss + static_cast<int64_t>(k) * s + m];
+    }
+  }
+  out[o] = v;
+}
+extern "C" cudaError_t index_plane_augment_i32(const void* packed, const void* rows,
+                                               const void* idx, const void* t1, void* out,
+                                               int n, int b, int planes, int s,
+                                               cudaStream_t stream) {
+  const int64_t total = static_cast<int64_t>(b) * planes * s * s;
+  index_plane_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const int32_t*>(packed), static_cast<const int32_t*>(rows),
+      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(t1),
+      static_cast<int32_t*>(out), n, planes, s, total);
+  return cudaGetLastError();
+}
+"""
+
+
+def start_index_plane_build():
+    """Start ``nvcc`` on the index-plane design (same flags as the port's
+    kernels) into a git-ignored directory; returns the running process and
+    the library's path."""
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    where = _build.BUILD_DIR / "index_plane_design"
+    where.mkdir(parents=True, exist_ok=True)
+    src = where / "index_plane_augment.cu"
+    src.write_text(INDEX_PLANE_CU)
+    lib = where / "libindex_plane_augment.so"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def index_plane_entry(lib):
+    import ctypes
+    fn = ctypes.CDLL(str(lib)).index_plane_augment_i32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def plan_label(plan) -> str:
+    return f"{plan.variant} k={plan.split} T={plan.threads} smem={plan.smem} B"
+
+
+AUG_INT_OPS_PER_PIXEL = 14  # three index products and sums, three range tests, the address
+
+
+def augment_bound_ms(b: int, p: int, s: int) -> tuple:
+    """Least time of the function: the selected source planes read and the
+    output written once, the factors (3·(S+2) per sample) and the rows and
+    t1 read once, int32, over the memory rate; or its integer arithmetic
+    over the f32 rate; the larger."""
+    by_bytes = (2 * b * p * s * s + 3 * b * (s + 2) + 2 * b) * 4 / HBM_BYTES_PER_S * 1e3
+    by_ops = AUG_INT_OPS_PER_PIXEL * b * p * s * s / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def phase_augment_kernel(index_plane_lib) -> dict:
+    """Kernel #3 against its plain version, bit for bit, under every plan it
+    takes, at the training path's shape (S=128, P=2, B=2), batch 64, 256²
+    (P=3, B=16) and 16²; each plan timed, the default plan and the
+    index-plane design in turns on the same draws, the launch floor, the
+    bound. Returns the training path's case."""
     import torch
     from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 
+    entry = index_plane_entry(index_plane_lib)
+    floor = launch_floor_ms()
     gen = torch.Generator().manual_seed(4)
     main = None
-    log("augmentation kernel fast_augment (bit-exact against the plain pipeline):")
+    log("augmentation kernel fast_augment (bit-exact against the plain pipeline); every "
+        "plan, then the default plan vs the index-plane design in turns:")
     for s, p, b in ((SIZE, 2, 2), (SIZE, 2, BATCH), (256, 3, 16), (16, 2, 8)):
         n = b + 8
         packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, p, s, s), generator=gen,
                                dtype=torch.int32).to(DEVICE)
         rows = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32).to(DEVICE)
-        idx, t1 = FA.pipeline_params_from_draws(*_special_draws(b, gen), s, DEVICE)
-        got = FA.fast_augment(packed, rows, idx, t1)
-        want = FA.fast_augment_reference(packed, rows, idx, t1)
+        factors = FA.pipeline_factors_from_draws(*_special_draws(b, gen), s, DEVICE)
+        idx, t1 = FA.expand_factors(factors)
+        idx = idx.contiguous()
+        want = FA.fast_augment_reference(packed, rows, factors)
+        plan = FA.plan_for(packed, b)
+        got = FA.fast_augment(packed, rows, factors)
+        old = torch.empty((b, p, s, s), dtype=torch.int32, device=DEVICE)
+
+        def index_plane_design():
+            err = entry(packed.data_ptr(), rows.data_ptr(), idx.data_ptr(), t1.data_ptr(),
+                        old.data_ptr(), n, b, p, s, torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"index-plane design: launch error {err}")
+
+        index_plane_design()
         torch.cuda.synchronize()
-        mismatches = int((got != want).sum().item())
-        check(mismatches == 0, f"augmentation kernel != plain at S={s} P={p} B={b}: "
-                               f"{mismatches} pixels differ")
-        k_ms = time_ms(lambda: FA.fast_augment(packed, rows, idx, t1))
-        p_ms = time_ms(lambda: FA.fast_augment_reference(packed, rows, idx, t1))
-        # selected source planes + 3 index planes per sample + output, int32
-        b_ms = (2 * b * p + 3 * b) * s * s * 4 / HBM_BYTES_PER_S * 1e3
-        log(f"  S={s:3d} P={p} B={b:2d}  exact ({got.numel()} pixels)  kernel {k_ms:.4f} ms  "
-            f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms (bytes)  library none")
+        check(torch.equal(got, want) and torch.equal(old, want),
+              f"augmentation kernel != plain at S={s} P={p} B={b}: "
+              f"{int((got != want).sum())} pixels differ (index-plane design: "
+              f"{int((old != want).sum())})")
+        b_ms, kind = augment_bound_ms(b, p, s)
+        log(f"  S={s:3d} P={p} B={b:2d}: bound {b_ms * 1e3:.2f} us ({kind}), launch floor "
+            f"{floor * 1e3:.2f} us; default plan {plan_label(plan)}")
+        for pl in FA.candidate_plans(b, p, s):
+            out = FA.fast_augment(packed, rows, factors, plan=pl)
+            torch.cuda.synchronize()
+            check(torch.equal(out, want), f"plan {pl} != plain at S={s} P={p} B={b}")
+            pl_ms = time_ms(lambda: FA.fast_augment(packed, rows, factors, plan=pl))
+            log(f"    {plan_label(pl):40s} exact  {pl_ms * 1e3:8.2f} us")
+        k_ms, o_ms = in_turns(lambda: FA.fast_augment(packed, rows, factors), index_plane_design)
+        p_ms = time_ms(lambda: FA.fast_augment_reference(packed, rows, factors))
+        # a yardstick, not the function: PyTorch's copy of as many bytes as
+        # the kernel must read and write, timed as the kernels are
+        flat = old.view(-1)
+        copy_src = torch.empty_like(flat)
+        c_ms = time_ms(lambda: flat.copy_(copy_src))
+        log(f"  S={s:3d} P={p} B={b:2d}  exact ({got.numel()} pixels)  kernel {k_ms * 1e3:.2f} us "
+            f"({100 * b_ms / k_ms:.0f} % of bound, {k_ms / floor:.2f}x the floor)  "
+            f"index-plane design {o_ms * 1e3:.2f} us  plain {p_ms:.4f} ms  library none  "
+            f"(copy_ of the same bytes {c_ms * 1e3:.2f} us)")
         if main is None:
-            main = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": "bytes", "library_ms": None}
+            main = {"max_abs_err": 0.0, "ms": k_ms, "previous_ms": o_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": kind, "library_ms": None}
     return main
 
 
@@ -792,6 +938,7 @@ def phase_training() -> tuple:
         f"(host clock over {real_steps} steps and the epoch's one metric fetch); "
         f"epoch of {real_steps} steps + validation {epoch_s[1]:.3f} s")
     profile_step(engine, state, train, perm[:b], gen, step_ms)
+    profile_augmentation_path(engine, state, train, perm[:b], gen)
     del engine, state, train, val
     torch.cuda.empty_cache()
     train_step_ms_64()
@@ -849,6 +996,62 @@ def profile_step(engine, state, data, perm, gen, step_ms: float) -> None:
         log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:100]}")
     for name, (ms, count) in ours.items():
         log(f"    port kernel {name[:60]}: {ms:.3f} ms x{count} ({100 * ms / total:.1f} %)")
+
+
+def profile_augmentation_path(engine, state, data, perm, gen) -> None:
+    """The launches of one training step from the augmentation to the
+    model's first convolution, in the order the card ran them. Empty-kernel
+    markers are launched just before and just after ``Engine._augmented_batch``
+    and at the entry of the first convolution (a forward pre-hook); the
+    profiler's device events between them are the augmentation path's
+    launches and what runs between it and the convolution. At 128² f32 the
+    path is one launch, the kernel (no cast, no copy), and nothing runs
+    between it and the convolution."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    armed = []
+    inner = engine._augmented_batch
+
+    def augmented_batch(*args):
+        hk.empty_launch(engine.device)
+        out = inner(*args)
+        hk.empty_launch(engine.device)
+        armed.append(True)
+        return out
+
+    def first_conv(_module, _args):
+        if armed:
+            armed.clear()
+            hk.empty_launch(engine.device)
+
+    hooks = [m.register_forward_pre_hook(first_conv) for m in engine.model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    engine._augmented_batch = augmented_batch
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.train_epoch(state, data, perm, gen)
+            torch.cuda.synchronize()
+    finally:
+        del engine._augmented_batch
+        for h in hooks:
+            h.remove()
+    names = [e.name for e in sorted((e for e in prof.events()
+                                     if e.device_type == DeviceType.CUDA),
+                                    key=lambda e: e.time_range.start)]
+    check(bool(names), "augmentation path: the profiler saw no device events")
+    marks = [k for k, name in enumerate(names) if "instance_norm_leaky_relu_empty" in name]
+    check(len(marks) == 3, f"augmentation path profile: {len(marks)} markers, want 3")
+    path, between = names[marks[0] + 1:marks[1]], names[marks[1] + 1:marks[2]]
+    copies = [n for n in path + between if re.search(r"copy|cast|elementwise", n, re.I)]
+    log(f"  augmentation path of one step (profile): {len(path)} launch(es) "
+        f"{[n[:60] for n in path]}; {len(between)} launch(es) between it and the first "
+        f"convolution; {len(copies)} copies or casts")
+    check(len(path) == 1 and "fast_augment" in path[0] and not between and not copies,
+          "the augmentation path at 128^2 f32 must be the kernel alone, with nothing "
+          "before the first convolution")
 
 
 def comparisons(cfg, init_weights, train_ds) -> None:
@@ -929,7 +1132,7 @@ def main() -> int:
     check(torch.cuda.is_available(), "CUDA is not available")
     from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
 
-    phase_device()
+    index_plane_lib = phase_device()
     # float32 means float32: no TF32 in cuDNN convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -942,7 +1145,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches = phase_serving()
     backward = phase_backward_kernel(shapes)
-    augment = phase_augment_kernel()
+    augment = phase_augment_kernel(index_plane_lib)
     fwd, bwd, aug = phase_training()
 
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"

@@ -20,11 +20,20 @@ packs channel pairs into one int32; H×W sits centred in the square canvas S
 of :func:`plan_canvas` (kept identical to the JAX plan, so both paths resample
 the same canvas and agree bit for bit).
 
-Executors: :func:`reference_pipeline` (plain PyTorch, the staged gathers) and
-:func:`fast_augment` (the CUDA kernel ``csrc/fast_augment.cu`` on CUDA
-tensors, the plain twin on CPU tensors). The kernel composes the three
-stages into one gather per output pixel (see the source), which is pure
-integer indexing and therefore bit-identical to the staged executor.
+The index planes are affine, ``idx_k[y, x] = d_k·x + c_k + s_k[y]``: the
+draws fold into :class:`PipelineFactors` (3·(S+2)+1 integers per sample,
+:func:`pipeline_factors_from_draws`), and the JAX package's (B, 3, S, S)
+planes are their expansion (:func:`expand_factors`).
+
+Executors: :func:`reference_pipeline` (plain PyTorch, the staged gathers on
+the expanded planes) and :func:`fast_augment` (the CUDA kernel
+``csrc/fast_augment.cu`` on CUDA tensors, the plain twin on CPU tensors).
+The kernel takes the factors and composes the three stages into one gather
+per output pixel (see the source), which is pure integer indexing and
+therefore bit-identical to the staged executor. Its launch plan
+(:func:`_plan`) is decided on the host from B·P, S and the card's SM count.
+Both executors return a (B, P, S, S) view of plane-major (P, B, S, S)
+storage, so a one-channel slice of the batch is an NCHW tensor as it is.
 
 Draws are ``(fh, fv, angle)`` per sample from an explicit ``torch.Generator``
 (:func:`draw_flips_and_angles`); JAX's key splits cannot be reproduced, so the
@@ -40,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from multi_task_breast_cancer_tpu_torch.ops import _build
+from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import H100_SMS, _sm_count
 
 _LANE = 128  # the JAX kernel's lane width: kept so both packages plan one canvas
 
@@ -169,18 +179,27 @@ def _relabel_rows(cond, s):
     return torch.where(cond[:, None], s.flip(-1), s)
 
 
-def pipeline_params_from_draws(fh: torch.Tensor, fv: torch.Tensor,
-                               angle: torch.Tensor, w: int,
-                               device: Optional[Union[str, torch.device]] = None
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fold per-sample flips and angles into the pipeline's gather indices:
-    ``(idx (B, 3, W, W) int32, t1 (B,) int32)``, the JAX function's
-    arithmetic in f32 step for step (round half to even, ``remainder`` for
-    ``jnp.mod``).
+class PipelineFactors(NamedTuple):
+    """The pipeline's gather indices in factored form: stage ``k``'s index
+    plane is ``idx_k[y, x] = d[k] * x + c[k] + s[k, y]`` (:func:`expand_factors`)."""
+    d: torch.Tensor    # (..., 3) int32: each stage's slope, ±1
+    c: torch.Tensor    # (..., 3) int32: each stage's offset
+    s: torch.Tensor    # (..., 3, S) int32: each stage's shift per row
+    t1: torch.Tensor   # (...,) int32: 1 where the final transpose applies
 
-    The per-sample shifts are computed on the draws' device (the CPU in the
-    Engine, so the card and the CPU get the same integers from the same
-    draws); ``idx`` is expanded on ``device`` (default: the draws')."""
+
+def pipeline_factors_from_draws(fh: torch.Tensor, fv: torch.Tensor,
+                                angle: torch.Tensor, w: int,
+                                device: Optional[Union[str, torch.device]] = None
+                                ) -> PipelineFactors:
+    """Fold per-sample flips and angles into the pipeline's gather factors
+    (:class:`PipelineFactors`, 3·(W+2)+1 integers per sample), the JAX
+    function's arithmetic in f32 step for step (round half to even,
+    ``remainder`` for ``jnp.mod``).
+
+    The factors are computed on the draws' device (the CPU in the Engine, so
+    the card and the CPU get the same integers from the same draws) and then
+    moved to ``device`` (default: the draws')."""
     angle = angle.to(torch.float32)
     c_mid = (w - 1) / 2.0
     ang = torch.remainder(angle + 180.0, 360.0) - 180.0
@@ -214,12 +233,28 @@ def pipeline_params_from_draws(fh: torch.Tensor, fv: torch.Tensor,
     t1 = torch.remainder(q, 2).to(torch.int32)
 
     dev = angle.device if device is None else torch.device(device)
-    d = torch.stack([d1, d2, d3], dim=1).to(dev)[:, :, None, None]   # (B,3,1,1)
-    c = torch.stack([c1, c2, c3], dim=1).to(dev)[:, :, None, None]
-    s = torch.stack([s1, s2, s3], dim=1).to(dev)[:, :, :, None]      # (B,3,W,1)
-    iota_x = torch.arange(w, dtype=torch.int32, device=dev)
-    idx = d * iota_x + c + s                                          # (B,3,W,W)
-    return idx.to(torch.int32), t1.to(dev)
+    return PipelineFactors(*(t.to(device=dev, dtype=torch.int32) for t in (
+        torch.stack([d1, d2, d3], dim=1), torch.stack([c1, c2, c3], dim=1),
+        torch.stack([s1, s2, s3], dim=1), t1)))
+
+
+def expand_factors(factors: PipelineFactors) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The factors as the staged pipeline's index planes: ``(idx (..., 3, W,
+    W) int32, t1)`` with ``idx = d·iota + c + s`` (the JAX package's form)."""
+    d, c, s, t1 = factors
+    iota_x = torch.arange(s.shape[-1], dtype=torch.int32, device=s.device)
+    idx = d[..., None, None] * iota_x + c[..., None, None] + s[..., None]
+    return idx.to(torch.int32), t1
+
+
+def pipeline_params_from_draws(fh: torch.Tensor, fv: torch.Tensor,
+                               angle: torch.Tensor, w: int,
+                               device: Optional[Union[str, torch.device]] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX function's output: ``(idx (B, 3, W, W) int32, t1 (B,) int32)``,
+    the expansion (:func:`expand_factors`) of
+    :func:`pipeline_factors_from_draws`, on ``device``."""
+    return expand_factors(pipeline_factors_from_draws(fh, fv, angle, w, device))
 
 
 def build_pipeline_params(generator: torch.Generator, b: int, w: int, *,
@@ -258,64 +293,160 @@ def reference_pipeline(planes: torch.Tensor, idx: torch.Tensor,
 
 
 def fast_augment_reference(packed: torch.Tensor, batch_idx: torch.Tensor,
-                           idx: torch.Tensor, t1: torch.Tensor) -> torch.Tensor:
+                           factors: PipelineFactors) -> torch.Tensor:
     """Plain twin of the kernel: rows ``batch_idx`` of the (N, P, S, S)
     stack, then :func:`reference_pipeline` on every plane with its sample's
-    parameters. Returns (B, P, S, S) int32."""
+    index planes (the factors expanded, :func:`expand_factors`). Returns
+    (B, P, S, S) int32, a view of plane-major (P, B, S, S) storage, as the
+    kernel does."""
+    idx, t1 = expand_factors(factors)
     planes = packed.index_select(0, batch_idx.to(torch.int64))
     return torch.stack([reference_pipeline(planes[:, p], idx, t1)
-                        for p in range(planes.shape[1])], dim=1)
+                        for p in range(planes.shape[1])], dim=0).transpose(0, 1)
+
+
+class AugPlan(NamedTuple):
+    """How one launch covers its B·P planes (see ``csrc/fast_augment.cu``)."""
+
+    variant: str    # "staged" or "direct"
+    split: int      # blocks per plane
+    threads: int    # threads per block
+    blocks: int     # grid size
+    smem: int       # dynamic shared memory per block, bytes
+
+
+_VARIANT_CODES = {"staged": 0, "direct": 1}
+_CHUNK = 128             # output pixels of a row segment, a warp's step
+_PAD = 4                 # words of padding per staged row
+_MAX_SMEM = 232448       # shared memory one block may use on an H100
+_MAX_THREADS = 1024      # the kernel's __launch_bounds__
+_DIRECT_THREADS = 256    # direct gathers: many small blocks (measured on an H100)
+
+
+def _smem_bytes(variant: str, s: int) -> int:
+    """The kernel's dynamic shared memory for one block: the plane it
+    stages (staged: S rows at S + 4 words) and the three s vectors."""
+    held = {"staged": s, "direct": 0}[variant]
+    pitch = s if variant == "direct" else s + _PAD
+    return 4 * (held * pitch + 3 * s)
+
+
+def _units(s: int) -> int:
+    """Row segments of up to 128 pixels per plane: a warp computes one at a
+    time."""
+    return s * -(-s // _CHUNK)
+
+
+def make_plan(variant: str, split: int, b: int, planes: int, s: int,
+              threads: Optional[int] = None) -> AugPlan:
+    """The plan of ``variant`` with ``split`` blocks per plane: by default as
+    many warps as the block's share of row segments needs, at most 32."""
+    threads = threads or min(_MAX_THREADS, 32 * -(-_units(s) // split))
+    return AugPlan(variant, split, threads, b * planes * split, _smem_bytes(variant, s))
+
+
+def _plan(b: int, planes: int, s: int, sms: int = H100_SMS) -> AugPlan:
+    """The launch plan for ``b`` samples of ``planes`` S×S planes, chosen by
+    timing every plan on an H100 (``chip_smoke.py`` phase 6, ``PERF.md``).
+
+    A plane that one block can hold in shared memory (S ≤ 128) is staged
+    there, one block of up to 32 warps per plane; where the planes would
+    leave most SMs (``sms``) idle, the output of each plane is split over up
+    to 8 blocks (B·P = 4 at the training step's batch of 2: 8 blocks). A
+    larger plane is gathered directly from device memory by blocks of 8
+    warps, up to 32 per plane and 8 per SM."""
+    split = 1
+    if _smem_bytes("staged", s) <= _MAX_SMEM:
+        while split < 8 and split * 2 <= _units(s) and b * planes * split * 8 <= sms:
+            split *= 2
+        return make_plan("staged", split, b, planes, s)
+    while split < 32 and split * 2 <= _units(s) and b * planes * split * 2 <= 8 * sms:
+        split *= 2
+    return make_plan("direct", split, b, planes, s, _DIRECT_THREADS)
+
+
+def candidate_plans(b: int, planes: int, s: int) -> list:
+    """Every plan the kernel takes at this shape, the plan of :func:`_plan`
+    among them: staged (where the plane fits) and direct, 1-32 blocks per
+    plane (at most one per row segment), with as many warps as the block's
+    segments need or 8."""
+    units = _units(s)
+    plans = [make_plan(v, k, b, planes, s, threads) for v in ("staged", "direct")
+             for k in (1, 2, 4, 8, 16, 32) if k <= units for threads in (None, _DIRECT_THREADS)]
+    return list(dict.fromkeys(pl for pl in plans if pl.smem <= _MAX_SMEM
+                              and pl.threads <= 32 * -(-units // pl.split)))
+
+
+def plan_for(packed: torch.Tensor, b: int) -> AugPlan:
+    """The plan a launch over ``b`` samples of this (N, P, S, S) CUDA stack
+    takes: SMs from its card."""
+    _, p, s, _ = packed.shape
+    return _plan(b, p, s, _sm_count(packed.device.index or 0))
 
 
 def _entry():
     fn = _build.library("fast_augment").fast_augment_i32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 3)
         fn.restype = ctypes.c_int
     return fn
 
 
-def fast_augment(packed: torch.Tensor, batch_idx: torch.Tensor, idx: torch.Tensor,
-                 t1: torch.Tensor) -> torch.Tensor:
+def _check_factors(factors, b: int, s: int) -> PipelineFactors:
+    factors = PipelineFactors(*factors)
+    want = {"d": (b, 3), "c": (b, 3), "s": (b, 3, s), "t1": (b,)}
+    got = {k: tuple(v.shape) for k, v in factors._asdict().items()}
+    if got != want:
+        raise ValueError(f"fast_augment: factors {got} do not match batch {b} and "
+                         f"canvas {s} (want {want})")
+    return factors
+
+
+def fast_augment(packed: torch.Tensor, batch_idx: torch.Tensor, factors: PipelineFactors,
+                 plan: Optional[AugPlan] = None) -> torch.Tensor:
     """Batch selection + the joint flip/rotate pipeline on packed planes:
-    ``packed`` (N, P, S, S) int32, ``batch_idx`` (B,), ``idx`` (B, 3, S, S)
-    int32, ``t1`` (B,) → (B, P, S, S) int32.
+    ``packed`` (N, P, S, S) int32, ``batch_idx`` (B,) int32, ``factors``
+    (:class:`PipelineFactors` of B samples) → (B, P, S, S) int32, a view of
+    plane-major (P, B, S, S) storage: ``out[:, p]`` is contiguous, so a
+    one-channel slice of the batch has exact NCHW strides.
 
     CPU tensors → :func:`fast_augment_reference`. CUDA tensors → the kernel
-    ``csrc/fast_augment.cu`` (one launch for all B·P planes), counted in
-    ``fast_augment.launches``. ``batch_idx`` must lie in ``[0, N)``: the
-    values are not read back from the card, and the kernel writes zeros for
-    a row outside it."""
+    ``csrc/fast_augment.cu`` (one launch for all B·P planes) under ``plan``
+    (default :func:`plan_for`), counted in ``fast_augment.launches``; a plan
+    the kernel does not take raises. ``batch_idx`` must lie in ``[0, N)``:
+    the values are not read back from the card, and the kernel writes zeros
+    for a row outside it."""
     if packed.dim() != 4 or packed.shape[-1] != packed.shape[-2]:
         raise ValueError(f"fast_augment: packed must be (N, P, S, S), got {tuple(packed.shape)}")
     n, p, s, _ = packed.shape
     b = batch_idx.shape[0]
-    if tuple(idx.shape) != (b, 3, s, s) or tuple(t1.shape) != (b,):
-        raise ValueError(f"fast_augment: idx {tuple(idx.shape)} / t1 {tuple(t1.shape)} "
-                         f"do not match batch {b} and canvas {s}")
+    factors = _check_factors(factors, b, s)
     if packed.device.type == "cpu":
-        return fast_augment_reference(packed, batch_idx, idx, t1)
+        return fast_augment_reference(packed, batch_idx, factors)
     if packed.device.type != "cuda":
         raise ValueError(f"fast_augment: unsupported device {packed.device}")
-    tensors = [packed, batch_idx, idx, t1]
+    tensors = [packed, batch_idx, *factors]
     if any(t.device != packed.device for t in tensors):
         raise ValueError("fast_augment: all inputs must be on one device")
     if any(t.dtype != torch.int32 for t in tensors):
-        raise TypeError("fast_augment: packed, batch_idx, idx and t1 must be int32")
+        raise TypeError("fast_augment: packed, batch_idx and the factors must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fast_augment: inputs must be contiguous")
-    out = torch.empty((b, p, s, s), dtype=torch.int32, device=packed.device)
+    out = torch.empty((p, b, s, s), dtype=torch.int32, device=packed.device)
     if out.numel() == 0:
-        return out
+        return out.transpose(0, 1)
+    plan = plan or plan_for(packed, b)
     with torch.cuda.device(packed.device):
-        err = _entry()(packed.data_ptr(), batch_idx.data_ptr(), idx.data_ptr(),
-                       t1.data_ptr(), out.data_ptr(), n, b, p, s,
-                       torch.cuda.current_stream(packed.device).cuda_stream)
+        err = _entry()(packed.data_ptr(), batch_idx.data_ptr(),
+                       *(t.data_ptr() for t in factors), out.data_ptr(), n, b, p, s,
+                       torch.cuda.current_stream(packed.device).cuda_stream,
+                       _VARIANT_CODES[plan.variant], plan.split, plan.threads)
     if err != 0:
         raise RuntimeError(f"fast_augment: CUDA launch failed with error {err} "
-                           f"at packed {tuple(packed.shape)}, batch {b}")
+                           f"at packed {tuple(packed.shape)}, batch {b}, plan {plan}")
     fast_augment.launches += 1
-    return out
+    return out.transpose(0, 1)
 
 
 fast_augment.launches = 0
@@ -329,7 +460,7 @@ def fast_joint_transform(packed: torch.Tensor, batch_idx: torch.Tensor,
     angle)`` (:func:`draw_flips_and_angles`): the cropped (B, H, W, C) batch
     in the compute dtype (the JAX layout). The single-device path only: the
     JAX mesh branch has no counterpart here yet."""
-    idx, t1 = pipeline_params_from_draws(*draws, packed.shape[-1], packed.device)
+    factors = pipeline_factors_from_draws(*draws, packed.shape[-1], packed.device)
     out = fast_augment(packed, batch_idx.to(device=packed.device, dtype=torch.int32),
-                       idx, t1)
+                       factors)
     return unpack_channels(out, fmt)

@@ -206,13 +206,16 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _augmented_batch(self, data, rows: torch.Tensor, draws, step: int):
-        """Rows ``rows`` of the fold, augmented with step ``step``'s draws:
-        (images, masks) as NCHW-contiguous f32 tensors."""
+        """Rows ``rows`` (int32) of the fold, augmented with step ``step``'s
+        draws: (images, masks) as NCHW-contiguous f32 tensors. On the fast
+        path at f32 with the canvas equal to the image, a one-channel image
+        or mask is a view of the kernel's plane-major output: the kernel is
+        the path's only launch."""
         cfg = self.cfg
         if cfg.use_transforms and cfg.fast_augmentation:
             fmt, n_mask = self._aug_fmt
-            idx, t1 = draws["idx"][step], draws["t1"][step]
-            out = FA.fast_augment(data["aug_packed"], rows.to(torch.int32), idx, t1)
+            factors = FA.PipelineFactors(*(f[step] for f in draws["factors"]))
+            out = FA.fast_augment(data["aug_packed"], rows, factors)
             stack = FA.unpack_channels_nchw(out, fmt)
             return self._nchw(stack[:, n_mask:]), self._nchw(stack[:, :n_mask])
         imgs = data["images"].index_select(0, rows).float()
@@ -230,16 +233,21 @@ class Engine:
         """``x`` with exactly the NCHW-contiguous strides. ``contiguous()``
         is not enough: a one-channel NHWC batch permuted to NCHW counts as
         contiguous while its strides look channels-last, and cuDNN then
-        writes channels-last outputs that the norm kernel refuses."""
+        writes channels-last outputs that the norm kernel refuses. A
+        one-channel ``x`` whose planes are contiguous is re-strided as a view
+        (its bytes are already in NCHW order); anything else is copied."""
         n, c, h, w = x.shape
         if x.stride() == (c * h * w, h * w, w, 1):
             return x
+        if c == 1 and x[:, 0].is_contiguous():
+            return x[:, 0].unsqueeze(1)
         return x.clone(memory_format=torch.contiguous_format)
 
     def _epoch_draws(self, steps: int, generator: Optional[torch.Generator]):
         """Every step's augmentation draws for one epoch, drawn at once from
         ``generator`` (on the CPU) and, for the fast path, folded into the
-        kernel's gather indices on the device."""
+        kernel's gather factors (``PipelineFactors`` with leading dims
+        (steps, B), 3·(S+2)+1 integers per sample) on the device."""
         cfg = self.cfg
         if not cfg.use_transforms:
             return None
@@ -253,10 +261,10 @@ class Engine:
         if not cfg.fast_augmentation:
             return {"flips_angles": (fh, fv, angle)}
         fmt, _ = self._aug_fmt
-        idx, t1 = FA.pipeline_params_from_draws(
+        factors = FA.pipeline_factors_from_draws(
             fh.reshape(-1), fv.reshape(-1), angle.reshape(-1), fmt.canvas, self.device)
-        return {"idx": idx.reshape(steps, b, 3, fmt.canvas, fmt.canvas),
-                "t1": t1.reshape(steps, b)}
+        return {"factors": FA.PipelineFactors(
+            *(f.reshape(steps, b, *f.shape[1:]) for f in factors))}
 
     # ------------------------------------------------------------------
     # epochs
@@ -288,7 +296,7 @@ class Engine:
                  else np.asarray(step_valid, np.float32))
         if valid.shape != (steps,):
             raise ValueError(f"step_valid has shape {valid.shape}, want ({steps},)")
-        rows_all = torch.as_tensor(perm, dtype=torch.int64).to(self.device).reshape(steps, b)
+        rows_all = torch.as_tensor(perm, dtype=torch.int32).to(self.device).reshape(steps, b)
         draws = self._epoch_draws(steps, generator)
 
         n_cm = max(cfg.n_classes, 2)
@@ -301,9 +309,9 @@ class Engine:
             if valid[k] <= 0:
                 continue  # cross-fold padding: a no-op, not a zero-gradient step
             rows = rows_all[k]
-            imgs, msks = self._augmented_batch(data, rows, draws, k)
             ctgt = data["cls_targets"].index_select(0, rows)
             lint = data["labels_int"].index_select(0, rows)
+            imgs, msks = self._augmented_batch(data, rows, draws, k)
             opt.zero_grad(set_to_none=True)
             out = model(imgs)
             loss, aux = self._losses(out, msks, ctgt)

@@ -221,3 +221,43 @@ def test_batches_reach_the_model_nchw_contiguous(jax_run):
         assert seen and all(
             t.stride() == (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3],
                            t.shape[3], 1) for pair in seen for t in pair)
+
+
+def test_fast_batch_reaches_the_model_without_a_copy(monkeypatch):
+    """At 128² f32 with the fast augmentation, the image that reaches the
+    model and the mask that reaches the loss share storage with the
+    augmentation's output (no clone), with exact NCHW strides; and the
+    epoch's draws hold the gather factors, not (steps, B, 3, S, S) index
+    planes."""
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+
+    size = 128
+    model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
+    engine = Engine(model, _cfg(fast_augmentation=True), device="cpu")
+    state = create_train_state(engine.model, "Adam", 1e-4)
+    data = engine.device_data(_fold(4, 2, size))
+    outs, seen = [], {}
+    real_augment, real_losses = FA.fast_augment, engine._losses
+
+    def augment(*args, **kwargs):
+        outs.append(real_augment(*args, **kwargs))
+        return outs[-1]
+
+    def losses(out, masks, cls_targets):
+        seen.setdefault("mask", masks)
+        return real_losses(out, masks, cls_targets)
+
+    monkeypatch.setattr(FA, "fast_augment", augment)
+    monkeypatch.setattr(engine, "_losses", losses)
+    engine.model.register_forward_pre_hook(lambda _m, args: seen.setdefault("image", args[0]))
+    engine.train_epoch(state, data, np.array([3, 1]), torch.Generator().manual_seed(1))
+    assert len(outs) == 1 and set(seen) == {"image", "mask"}
+    for name, t in seen.items():
+        assert t.untyped_storage().data_ptr() == outs[0].untyped_storage().data_ptr(), name
+        assert t.shape == (B, 1, size, size) and t.stride() == (size * size, size * size, size, 1)
+
+    steps = 5
+    draws = engine._epoch_draws(steps, torch.Generator().manual_seed(2))
+    assert set(draws) == {"factors"}
+    assert [tuple(f.shape) for f in draws["factors"]] == [
+        (steps, B, 3), (steps, B, 3), (steps, B, 3, size), (steps, B)]
