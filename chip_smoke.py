@@ -97,6 +97,7 @@ cancel sums over raw 0-255 intensities.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -1127,6 +1128,269 @@ def comparisons(cfg, init_weights, train_ds) -> None:
     torch.backends.cudnn.deterministic = False
 
 
+DRIVER_COUNTS = {"benign": 222, "malignant": 164, "normal": 64}  # Curated BUSI
+DRIVER_CV, DRIVER_EPOCHS = 2, 2          # cut from the config's 4 folds, 200 epochs
+DRIVER_SMALL_PER_CLASS = 16              # the CLI and resume runs
+DRIVER_NNUNET_WIDTHS = None              # None: the config's full widths
+SERVE_REL_TOL = 1e-4
+
+
+def _driver_config(root, cv: int, epochs: int, **training):
+    """``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4, DICE + Focal,
+    alpha 0.35, oversampling, fast augmentation, plateau) on ``root``, cut to
+    ``cv`` folds and ``epochs`` epochs."""
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    cfg = Config()
+    cfg.data.input_img = str(root)
+    cfg.model.nnunet_widths = DRIVER_NNUNET_WIDTHS
+    cfg.training.CV, cfg.training.epochs = cv, epochs
+    for k, v in training.items():
+        setattr(cfg.training, k, v)
+    return cfg
+
+
+def _fold_sizes(run) -> list:
+    """(train, val, test) of every fold, from the run's execution.log."""
+    text = open(os.path.join(run, "execution.log")).read()
+    return [tuple(int(v) for v in m) for m in
+            re.findall(r"Fold \d+ sizes: train=(\d+) val=(\d+) test=(\d+)", text)]
+
+
+def _metric_rows(run, fold: int) -> list:
+    with open(os.path.join(run, f"fold_{fold}", "metrics.csv")) as f:
+        return [ln.rstrip("\n") for ln in f if ln.strip()]
+
+
+def _check_run_dir(run, task: str, mode: str, folds: int, epochs: int) -> None:
+    """The JAX driver's run-dir layout and file contracts."""
+    from multi_task_breast_cancer_tpu_torch.train.driver import METRIC_HEADERS
+    for name in ("config.yaml", "execution.log", "model.txt",
+                 "results_segmentation.xlsx", "classification_results.xlsx"):
+        check(os.path.isfile(os.path.join(run, name)), f"run dir: no {name}")
+    for n in range(folds):
+        d = os.path.join(run, f"fold_{n}")
+        rows = _metric_rows(run, n)
+        check(rows[0] == METRIC_HEADERS[(task, mode)] and len(rows) == 1 + epochs,
+              f"fold {n} metrics.csv: {rows}")
+        values = [float(v) for r in rows[1:] for v in r.split(",")]
+        check(all(math.isfinite(v) for v in values), f"fold {n}: a loss or metric is not finite")
+        ckpts = [f for f in os.listdir(d) if f.startswith("model_") and f.endswith(f"_fold_{n}")]
+        check(len(ckpts) == 1, f"fold {n}: checkpoints {ckpts}")
+        for name in ("results_segmentation.csv", "results_classification.csv", ".fold_complete",
+                     "loss_evolution.png"):
+            check(os.path.isfile(os.path.join(d, name)), f"fold {n}: no {name}")
+        for sub in ("segs", "features_map"):
+            check(bool(os.listdir(os.path.join(d, sub))), f"fold {n}: {sub}/ is empty")
+        check(os.path.isdir(os.path.join(d, "plots")), f"fold {n}: no plots/")
+
+
+def phase_driver() -> tuple:
+    """The experiment driver, as a user runs it; returns the launches of the
+    full-width run (forward norm, backward norm, augmentation)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.data.loader import load_datasets
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+    from multi_task_breast_cancer_tpu_torch.serve.server import CheckpointBackend
+    from multi_task_breast_cancer_tpu_torch.train import driver as D
+    from multi_task_breast_cancer_tpu_torch.train import loop as LP
+    from multi_task_breast_cancer_tpu_torch.train.inference import to_host
+    from multi_task_breast_cancer_tpu_torch.utils.profiling import StepTimer
+
+    tmp = tempfile.mkdtemp(prefix="mtbc_driver_")
+    try:
+        t0 = time.perf_counter()
+        root = make_preprocessed_busi(os.path.join(tmp, "busi"), size=SIZE, seed=0,
+                                      class_counts=DRIVER_COUNTS)
+        log(f"driver: synthetic Curated-BUSI tree, {sum(DRIVER_COUNTS.values())} PNGs at "
+            f"{SIZE}^2 {DRIVER_COUNTS}, written in {time.perf_counter() - t0:.2f} s")
+        cfg = _driver_config(root, DRIVER_CV, DRIVER_EPOCHS)
+        log(f"driver: run_experiment(cfg, 'multitask', 'CV') at the Config() defaults "
+            f"({cfg.model.architecture}, batch {cfg.data.batch_size}, {cfg.optimizer.opt} "
+            f"{cfg.optimizer.lr}, {cfg.loss.function}+{cfg.loss.classification_criterion}, "
+            f"alpha {cfg.training.alpha}, oversampling {cfg.data.oversampling}, fast "
+            f"augmentation {cfg.training.fast_augmentation}, {cfg.optimizer.scheduler}); "
+            f"cuts: CV 4 -> {DRIVER_CV}, epochs 200 -> {DRIVER_EPOCHS}")
+
+        # the test phase's forward, and the run's bookkeeping, timed apart
+        spans = Counter()
+        predict, bookkeeping = LP.Engine.predict, {}
+
+        def timed_predict(self, state, images, *args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = predict(self, state, images, *args, **kwargs)
+            torch.cuda.synchronize()
+            spans["forward_s"] += time.perf_counter() - t
+            spans["forward_images"] += len(images)
+            return out
+
+        def timed(name):
+            fn = getattr(D, name)
+            bookkeeping[name] = fn
+
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spans["bookkeeping_s"] += time.perf_counter() - t
+            setattr(D, name, wrapper)
+
+        timer = StepTimer()
+        LP.Engine.predict = timed_predict
+        for name in ("write_metrics_file", "_log_epoch", "save_segmentation_results",
+                     "save_classification_results", "_fold_plots"):
+            timed(name)
+        try:
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            run = D.run_experiment(cfg, "multitask", "CV", run_root=os.path.join(tmp, "runs"),
+                                   device=DEVICE, timer=timer)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = fwd, bwd, aug = _counts()
+        finally:
+            LP.Engine.predict = predict
+            for name, fn in bookkeeping.items():
+                setattr(D, name, fn)
+
+        _check_run_dir(run, "multitask", "CV", DRIVER_CV, DRIVER_EPOCHS)
+        sizes = _fold_sizes(run)
+        check(len(sizes) == DRIVER_CV, f"fold sizes in execution.log: {sizes}")
+        b = cfg.data.batch_size
+        steps = sum(DRIVER_EPOCHS * -(-tr // b) for tr, _, _ in sizes)
+        passes = DRIVER_CV * (DRIVER_EPOCHS + 1)  # a validation pass per epoch, a test forward
+        want = (25 * (steps + passes), 25 * steps, steps)
+        log(f"  fold sizes (train, val, test): {sizes}; {steps} real steps over the run "
+            f"(padding steps launch nothing)")
+        log(f"  launches: {fwd} norm forward, {bwd} norm backward, {aug} augmentation; "
+            f"the fold sizes predict {want}")
+        check(launches == want, f"driver launch counts {launches}, want {want}")
+        t = timer.summary()
+        test_images = sum(te for _, _, te in sizes)
+        test_s = timer.totals["test_phase"]
+        host_s = test_s - spans["forward_s"]
+        log(f"  wall time: run {run_s:.2f} s; per fold {t['fold']:.2f} s; per epoch "
+            f"{t['epoch']:.3f} s, of which the Engine (train + validation) {t['engine']:.3f} s "
+            f"({100 * t['engine'] / t['epoch']:.1f} %) = "
+            f"{t['engine'] * 1e3 / (steps / (DRIVER_CV * DRIVER_EPOCHS)):.2f} ms per step; "
+            f"checkpoint writes {timer.totals['checkpoint']:.3f} s in all")
+        log(f"  test phase: {test_s:.3f} s for {test_images} images = "
+            f"{test_s * 1e3 / test_images:.3f} ms per image: forward "
+            f"{spans['forward_s'] * 1e3 / test_images:.3f} ms, host metrics, PNGs and CSVs "
+            f"{host_s * 1e3 / test_images:.3f} ms per image")
+        log(f"  execution.log, metrics.csv, plots and result sheets: "
+            f"{spans['bookkeeping_s']:.3f} s in all")
+        rows = {n: _metric_rows(run, n)[1:] for n in range(DRIVER_CV)}
+        log(f"  metrics.csv rows: {rows}")
+
+        # serving what training wrote
+        fold0 = load_datasets(cfg.training, cfg.data, mode="CV")[0].test
+        images = fold0.images[:8]
+        ckpt = next(os.path.join(run, "fold_0", f) for f in os.listdir(os.path.join(run, "fold_0"))
+                    if f.startswith("model_"))
+        backend = CheckpointBackend(cfg, "multitask", checkpoint=ckpt, size=SIZE, max_batch=8,
+                                    device=DEVICE)
+        served = backend.predict(images.astype(np.uint8))
+        state, _ = D.build_inference_state(cfg, "multitask", checkpoint=ckpt, device=DEVICE)
+        engine = LP.Engine(state.model, D._engine_config(cfg, "multitask", 360.0), device=DEVICE)
+        direct = to_host(engine.predict(state, images))
+        pairs = list(zip(_flat(served), _flat(direct)))
+        check(all(a.shape == b_.shape and np.isfinite(a).all() for a, b_ in pairs),
+              "served outputs: shapes or finiteness")
+        err = max(float(np.abs(a - b_).max() / max(np.abs(b_).max(), 1e-12)) for a, b_ in pairs)
+        log(f"  CheckpointBackend on fold 0's checkpoint vs Engine.predict, fold 0's first "
+            f"8 test images: max error {err:.3g} of the output scale (tol {SERVE_REL_TOL})")
+        check(err <= SERVE_REL_TOL, "served answer differs from Engine.predict")
+        del backend, engine, state
+        torch.cuda.empty_cache()
+
+        small = make_preprocessed_busi(os.path.join(tmp, "small"),
+                                       n_per_class=DRIVER_SMALL_PER_CLASS, size=SIZE, seed=1)
+        phase_driver_cli(tmp, small)
+        phase_driver_resume(tmp, small)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_driver_cli(tmp, root) -> None:
+    """``python -m ...training_multitask`` in a process of its own, at a
+    small depth: it must run on the card without being told to."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    cfg_path = os.path.join(tmp, "small.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(config_to_yaml(_driver_config(root, 2, 1)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "multi_task_breast_cancer_tpu_torch.training_multitask",
+                           "--config", cfg_path, "--run-root", os.path.join(tmp, "cli")],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"training_multitask exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    (run,) = os.listdir(os.path.join(tmp, "cli"))
+    run = os.path.join(tmp, "cli", run)
+    text = open(os.path.join(run, "execution.log")).read()
+    device_line = next((ln for ln in text.splitlines() if "Device: " in ln), "")
+    check("cuda" in device_line and torch.cuda.get_device_name(0) in device_line,
+          f"execution.log names no card: {device_line!r}")
+    _check_run_dir(run, "multitask", "CV", 2, 1)
+    log(f"driver CLI: python -m multi_task_breast_cancer_tpu_torch.training_multitask "
+        f"({DRIVER_SMALL_PER_CLASS} images per class, CV 2, 1 epoch, full widths): exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {device_line.split('--- ')[-1]}")
+
+
+def phase_driver_resume(tmp, root) -> None:
+    """A run killed after fold 0's first epoch and resumed with
+    ``resume_dir`` ends with the uninterrupted run's metrics.csv rows, bit for
+    bit as text (cuDNN deterministic; the kernels sum in a fixed order)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.train import driver as D
+    cfg = lambda: _driver_config(root, 2, 2, checkpoint_every_epoch=True)  # noqa: E731
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        whole = D.run_experiment(cfg(), "multitask", "CV", run_root=os.path.join(tmp, "whole"),
+                                 device=DEVICE)
+        real_profile = D.maybe_profile
+
+        def kill(epoch, fold):
+            if (fold, epoch) == (0, 1):
+                raise RuntimeError("simulated kill after fold 0's first epoch")
+            return real_profile(epoch, fold)
+
+        D.maybe_profile = kill
+        try:
+            D.run_experiment(cfg(), "multitask", "CV", run_root=os.path.join(tmp, "killed"),
+                             device=DEVICE)
+            check(False, "the simulated kill did not fire")
+        except RuntimeError as e:
+            check("simulated kill" in str(e), f"resume run failed: {e}")
+        finally:
+            D.maybe_profile = real_profile
+        (killed,) = os.listdir(os.path.join(tmp, "killed"))
+        killed = os.path.join(tmp, "killed", killed)
+        check(len(_metric_rows(killed, 0)) == 2, "the killed run wrote more than epoch 0")
+        resumed = D.run_experiment(cfg(), "multitask", "CV", resume_dir=killed, device=DEVICE)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    diff, same = 0.0, True
+    for n in range(2):
+        a, b = _metric_rows(whole, n), _metric_rows(resumed, n)
+        same = same and a == b
+        for ra, rb in zip(a[1:], b[1:]):
+            diff = max([diff] + [abs(float(x) - float(y))
+                                 for x, y in zip(ra.split(","), rb.split(","))])
+    log(f"driver resume: killed after fold 0's first epoch, resumed in place: metrics.csv "
+        f"rows of both folds {'identical' if same else 'DIFFER'} to the uninterrupted run's "
+        f"(largest difference {diff:.3g}; tolerance: identical text); "
+        f"three runs in {time.perf_counter() - t0:.1f} s")
+    check(same, "resumed metrics.csv rows differ from the uninterrupted run's")
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -1147,19 +1411,20 @@ def main() -> int:
     backward = phase_backward_kernel(shapes)
     augment = phase_augment_kernel(index_plane_lib)
     fwd, bwd, aug = phase_training()
+    d_fwd, d_bwd, d_aug = phase_driver()
 
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd, **kernel},
+         "launches": serve_launches + fwd + d_fwd, **kernel},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
-         "launches": bwd, **backward},
+         "launches": bwd + d_bwd, **backward},
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug, **augment}]}))
+         "launches": aug + d_aug, **augment}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,3 +20,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def set_float32_policy(device: torch.device, compute_dtype: str) -> None:
+    """``compute_dtype == "float32"`` on a CUDA device computes in float32:
+    TF32 off in cuDNN convolutions and in matmuls, which would otherwise keep
+    about 3 decimal digits and drift from the JAX reference for that reason
+    alone. The switches are process-wide; every entry point that builds a
+    model on the card (the Engine, the serving backends) calls this."""
+    if device.type == "cuda" and compute_dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -81,7 +81,10 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
 
 def widths_from_params(params) -> Tuple[int, ...]:
     """The nnU-Net family's five level widths, read from the encoder kernels
-    (a serving artifact's manifest does not record ``nnunet_widths``)."""
+    (a serving artifact's manifest does not record ``nnunet_widths``). The
+    segmentation and multitask models keep the encoder under ``backbone``;
+    ``NNUNetClassifier`` at the top level."""
     flat = _flat(params)
-    return tuple(int(flat[f"backbone/encoder{i}/block2/conv/kernel"].shape[-1])
+    prefix = "backbone/" if "backbone/encoder1/block2/conv/kernel" in flat else ""
+    return tuple(int(flat[f"{prefix}encoder{i}/block2/conv/kernel"].shape[-1])
                  for i in range(1, 6))

@@ -1,8 +1,9 @@
 """Model factories of the port (twin of
 ``multi_task_breast_cancer_tpu/models/registry.py``).
 
-This slice ports the nnU-Net family's ``MTnnUNet`` and ``nnUNet``; every other
-architecture of the JAX zoo raises ``NotImplementedError``. Factories return
+The port has the nnU-Net family: ``MTnnUNet``, ``nnUNet`` and
+``nnUNetClassifier``; every other architecture of the JAX zoo raises
+``NotImplementedError``. Factories return
 a model on the CPU with its parameters drawn as the JAX initialisers draw
 them, from an explicit ``torch.Generator`` (seed 0 when none is given).
 """
@@ -10,17 +11,20 @@ them, from an explicit ``torch.Generator`` (seed 0 when none is given).
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Optional
 
 import torch
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.models.blocks import init_weights
+from multi_task_breast_cancer_tpu_torch.models.classifiers import NNUNetClassifier
 from multi_task_breast_cancer_tpu_torch.models.multitask import MTnnUNet
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNet2021
 
 SEGMENTATION_ARCHS = ("BTSUNet", "nnUNet", "UNet", "AttentionUNet", "ResidualUNet",
                       "UnetPlusPlus", "FSBBTSUNet", "SegResNet", "SwinUNETR")
+CLASSIFICATION_ARCHS = ("BTSUNetClassifier", "UNetPlusPlusClassifier", "nnUNetClassifier")
 MULTITASK_ARCHS = ("Multi_BTSUNet", "MTUNetPlusPlus", "MTnnUNet", "Multi_FSB_BTSUNet", "Adityan")
 
 _DEFAULT_WIDTH = 24  # ModelConfig.width: an untouched config forwards it
@@ -29,6 +33,19 @@ _DEFAULT_WIDTH = 24  # ModelConfig.width: an untouched config forwards it
 def count_parameters(model: nn.Module) -> int:
     """Number of trainable parameters."""
     return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
+def save_model_summary(model: nn.Module, save_folder: Optional[Path]) -> None:
+    """The module tree and the parameter count, to ``model.txt`` in the run
+    dir (the reference prints its torch module there,
+    ``experiment_init.py:75-78``)."""
+    if save_folder is None:
+        return
+    save_folder = Path(save_folder)
+    save_folder.mkdir(parents=True, exist_ok=True)
+    with (save_folder / "model.txt").open("w") as f:
+        print(model, file=f)
+        print(f"\nTotal number of trainable parameters: {count_parameters(model)}", file=f)
 
 
 def _not_ported(kind: str, architecture: str, known) -> Exception:
@@ -77,4 +94,16 @@ def init_multitask_model(architecture: str, sequences: int = 1, regions: int = 1
         raise _not_ported("multitask", architecture, MULTITASK_ARCHS)
     model = MTnnUNet(sequences, regions, n_classes,
                      **_nnunet_widths(architecture, width, nnunet_widths))
+    return init_weights(model, generator or torch.Generator().manual_seed(0))
+
+
+def init_classification_model(architecture: str, sequences: int = 1, n_classes: int = 3,
+                              width: Optional[int] = None, nnunet_widths=None,
+                              generator: Optional[torch.Generator] = None) -> nn.Module:
+    """``nnUNetClassifier`` (softmax in the forward when multiclass, as the
+    reference's)."""
+    if architecture != "nnUNetClassifier":
+        raise _not_ported("classification", architecture, CLASSIFICATION_ARCHS)
+    model = NNUNetClassifier(sequences, n_classes,
+                             **_nnunet_widths(architecture, width, nnunet_widths))
     return init_weights(model, generator or torch.Generator().manual_seed(0))

@@ -4,7 +4,12 @@
     python -m multi_task_breast_cancer_tpu_torch.serve run --artifact ./artifact \
         --port 8000 --max-batch 64 --batch-wait-ms 5
 
-    # serve a config's model with a weights.npz
+    # serve a config's model with a checkpoint the port's driver wrote
+    python -m multi_task_breast_cancer_tpu_torch.serve run \
+        --config runs/<run>/config.yaml --task multitask \
+        --checkpoint runs/<run>/fold_0/model_<ts>_fold_0
+
+    # or with a JAX serving artifact's weights.npz
     python -m multi_task_breast_cancer_tpu_torch.serve run \
         --config config.yaml --task multitask --checkpoint ./artifact/weights.npz
 
@@ -26,7 +31,8 @@ def main() -> None:
     p_run.add_argument("--config", default="./config.yaml")
     p_run.add_argument("--task", default="multitask",
                        choices=["segmentation", "classification", "multitask"])
-    p_run.add_argument("--checkpoint", help="weights.npz in the artifact layout")
+    p_run.add_argument("--checkpoint", help="a training checkpoint of the port, or a "
+                                            "weights.npz in the artifact layout")
     p_run.add_argument("--size", type=int, default=128)
     p_run.add_argument("--host", default="0.0.0.0")
     p_run.add_argument("--port", type=int, default=8000)

@@ -16,8 +16,9 @@ faults and timeouts. See that module for the endpoints.
 Backends run the port's ``nn.Module``s (NCHW inside; NHWC float32 numpy at
 the boundary, so :mod:`.post` is the JAX package's postprocessing):
 
-- :class:`CheckpointBackend`: a model from a config, with seeded weights or
-  the ``weights.npz`` of a JAX serving artifact;
+- :class:`CheckpointBackend`: a model from a config, with seeded weights, a
+  training checkpoint the port's driver wrote, or the ``weights.npz`` of a
+  JAX serving artifact;
 - :class:`ArtifactBackend`: a JAX serving artifact directory, read from its
   ``manifest.json`` and ``weights.npz`` (the ``.jaxexport`` programs are not
   used).
@@ -40,19 +41,26 @@ from urllib.parse import urlparse, parse_qs
 import numpy as np
 import torch
 
-from multi_task_breast_cancer_tpu_torch.device import resolve_device
+from multi_task_breast_cancer_tpu_torch.device import resolve_device, set_float32_policy
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
     widths_from_params,
 )
 from multi_task_breast_cancer_tpu_torch.models.registry import (
+    init_classification_model,
     init_multitask_model,
     init_segmentation_model,
 )
+from multi_task_breast_cancer_tpu_torch.ops.image_ops import build_augment_channels
 from multi_task_breast_cancer_tpu_torch.serve.post import (
     model_applies_softmax,
     postprocess,
 )
+from multi_task_breast_cancer_tpu_torch.train.checkpoint import (
+    is_torch_checkpoint,
+    load_pretrained_model,
+)
+from multi_task_breast_cancer_tpu_torch.train.state import TrainState
 
 
 def nearest_resize(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
@@ -70,16 +78,17 @@ def nearest_resize(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
 
 def prepare_image(gray: np.ndarray, size: int, augmentations: Dict[str, bool]
                   ) -> np.ndarray:
-    """Raw grayscale uint8 → the (H, W, 1) uint8 stack the model takes:
-    nearest-resize to ``size``. The stack stays uint8 and is cast on the
-    device. Augment channels (CLAHE, Sobel, …) are not ported yet."""
-    if any(augmentations.values()):
-        raise NotImplementedError(
-            "augment channels are not ported to PyTorch yet (ops/image_ops.py; "
-            "ROADMAP.md, Queue 1, slice 3)")
+    """Raw grayscale uint8 → the (H, W, C) channel stack the model was
+    trained on: nearest-resize to ``size`` and the config's augment channels
+    (CLAHE, Sobel, …), as the training data is built. With no augment channel
+    the stack stays uint8 and is cast on the device; augment channels make it
+    float32."""
     if gray.shape != (size, size):
         gray = nearest_resize(gray, size, size)
-    return gray[..., None]
+    if not any(augmentations.values()):
+        return gray[..., None]
+    return np.concatenate([gray.astype(np.float32)[..., None],
+                           build_augment_channels(gray, augmentations)], axis=-1)
 
 
 def _build_model(task: str, architecture: str, channels: int, n_classes: int,
@@ -94,8 +103,11 @@ def _build_model(task: str, architecture: str, channels: int, n_classes: int,
                                        regions=regions, width=width,
                                        deep_supervision=deep_supervision,
                                        nnunet_widths=nnunet_widths)
-    raise NotImplementedError(
-        f"task {task!r} is not ported to PyTorch yet (ROADMAP.md, Queue 1, slice 4)")
+    if task == "classification":
+        return init_classification_model(architecture, sequences=channels,
+                                         n_classes=n_classes, width=width,
+                                         nnunet_widths=nnunet_widths)
+    raise ValueError(f"unknown task {task!r}")
 
 
 def _load_npz(path) -> Dict[str, np.ndarray]:
@@ -139,12 +151,7 @@ class _TorchBackend:
             raise NotImplementedError(
                 f"compute_dtype {compute_dtype!r} is not ported to PyTorch yet "
                 f"(ROADMAP.md, Queue 1, slice 3); float32 only")
-        if device.type == "cuda":
-            # float32 serving must compute in float32: cuDNN would otherwise
-            # run f32 convolutions in TF32 (about 3 decimal digits), and the
-            # answers would drift from the JAX reference for that reason alone
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        set_float32_policy(device, compute_dtype)
         self.device = device
         self.model = model.to(device).eval()
         self.buckets = sorted(int(b) for b in buckets)
@@ -184,9 +191,12 @@ class CheckpointBackend(_TorchBackend):
     batches padded to ``max_batch``.
 
     ``checkpoint=None`` draws seeded weights (generator seed 0), as the JAX
-    ``build_inference_state(checkpoint=None)`` gives a fresh init. A path to
-    a ``weights.npz`` in the JAX serving-artifact layout loads those weights.
-    Flax-msgpack training checkpoints are not read yet."""
+    ``build_inference_state(checkpoint=None)`` gives a fresh init. A
+    checkpoint the port's driver wrote (``fold_<n>/model_<ts>_fold_<n>``,
+    ``.tar`` for segmentation) loads through
+    ``train/checkpoint.load_pretrained_model``; a ``weights.npz`` in the JAX
+    serving-artifact layout loads those weights. The JAX driver's
+    flax-msgpack checkpoints are not read."""
 
     def __init__(self, cfg, task: str, checkpoint: Optional[str] = None,
                  size: int = 128, max_batch: int = 64, device=None):
@@ -199,12 +209,15 @@ class CheckpointBackend(_TorchBackend):
                              width=cfg.model.width,
                              deep_supervision=cfg.model.deep_supervision)
         if checkpoint is not None:
-            if Path(checkpoint).suffix != ".npz":
+            if Path(checkpoint).suffix == ".npz":
+                model.load_state_dict(params_from_jax(_load_npz(checkpoint)), strict=True)
+            elif is_torch_checkpoint(checkpoint):
+                load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
+            else:
                 raise NotImplementedError(
-                    f"{checkpoint}: only a serving artifact's weights.npz is read "
-                    f"yet; flax-msgpack training checkpoints wait for the training "
-                    f"slice (ROADMAP.md, Queue 1, slice 3)")
-            model.load_state_dict(params_from_jax(_load_npz(checkpoint)), strict=True)
+                    f"{checkpoint}: not a checkpoint of the port (torch.save) nor a "
+                    f"weights.npz; the JAX driver's flax-msgpack checkpoints are not "
+                    f"read by the port (ROADMAP.md, Queue 1)")
         super().__init__(model, device, cfg.training.compute_dtype, [max_batch])
         self.info = {
             "task": task, "architecture": cfg.model.architecture,

@@ -26,7 +26,7 @@ from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.data.augment import joint_transform_stack_batch
 from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
-from multi_task_breast_cancer_tpu_torch.device import resolve_device
+from multi_task_breast_cancer_tpu_torch.device import resolve_device, set_float32_policy
 from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
@@ -112,6 +112,7 @@ class Engine:
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
         self.device = resolve_device(device)
+        set_float32_policy(self.device, cfg.compute_dtype)
         self.model = model.to(self.device)
         self.cfg = cfg
         self._aug_fmt = None  # (AugFormat, n_mask) of the packed fold, set by device_data

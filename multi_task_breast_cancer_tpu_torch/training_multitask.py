@@ -1,0 +1,12 @@
+"""Entry point: multi-task segmentation + classification, k-fold CV, on the
+GPU (equivalent of ``python -m src.training_multitask``, the flagship)."""
+
+from multi_task_breast_cancer_tpu_torch._entry import run_entry
+
+
+def main() -> None:
+    run_entry(task="multitask", mode="CV")
+
+
+if __name__ == "__main__":
+    main()

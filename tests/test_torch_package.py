@@ -1,6 +1,7 @@
-"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points run on CUDA unless the CPU is asked for, and its
-copy of the config loads a YAML exactly as the JAX package's does."""
+"""Package rules of the PyTorch port: it imports neither JAX, flax, sklearn
+nor the JAX package, its entry points run on CUDA unless the CPU is asked
+for, float32 on the card means float32 (TF32 off), and its copy of the config
+loads a YAML exactly as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -30,13 +31,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'multi_task_breast_cancer_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',\n"
+        "              'multi_task_breast_cancer_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was walked
+    assert int(out.stdout.strip()) >= 45  # every module was walked, the driver's too
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
@@ -53,6 +55,27 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
         CheckpointBackend(port_config.Config(), "multitask")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ArtifactBackend(str(tmp_path))
+
+
+def test_engine_on_cuda_turns_tf32_off(monkeypatch):
+    """An Engine built for the card with ``compute_dtype: float32`` computes
+    convolutions and matmuls in float32, whoever built it (the driver, a
+    script), not only under the smoke's global switches."""
+    from torch import nn
+
+    from multi_task_breast_cancer_tpu_torch.train import loop
+
+    class _Stub(nn.Linear):
+        def to(self, *args, **kwargs):  # stays on the CPU
+            return self
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda", 0))
+    engine = loop.Engine(_Stub(1, 1), loop.EngineConfig(task="segmentation"))
+    assert engine.device.type == "cuda"
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def test_serve_cli_requires_a_model(monkeypatch):

@@ -31,6 +31,7 @@ from multi_task_breast_cancer_tpu.serve.server import (
     prepare_image as jax_prepare_image,
 )
 from multi_task_breast_cancer_tpu_torch.config import Config, DataConfig, ModelConfig
+from multi_task_breast_cancer_tpu_torch.models import registry
 from multi_task_breast_cancer_tpu_torch.models.blocks import ConvInNormLeReLU
 from multi_task_breast_cancer_tpu_torch.serve import post
 from multi_task_breast_cancer_tpu_torch.serve.server import (
@@ -39,6 +40,9 @@ from multi_task_breast_cancer_tpu_torch.serve.server import (
     InferenceServer,
     prepare_image,
 )
+from multi_task_breast_cancer_tpu_torch.train.checkpoint import save_checkpoint
+from multi_task_breast_cancer_tpu_torch.train.loop import Engine, EngineConfig
+from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
 
 SIZE = 64
 WIDTHS = [4, 8, 8, 16, 16]
@@ -179,8 +183,42 @@ def test_unported_options_raise(artifact, tmp_path):
     with pytest.raises(NotImplementedError, match="msgpack"):
         CheckpointBackend(_port_cfg(), "multitask", checkpoint=str(tmp_path / "ckpt_fold_0"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="augment"):
-        prepare_image(np.zeros((SIZE, SIZE), np.uint8), SIZE, {"CLAHE": True})
+    cfg = Config(model=ModelConfig(architecture="BTSUNetClassifier"),
+                 data=DataConfig(input_img="unused", classes=CLASSES))
+    with pytest.raises(NotImplementedError, match="BTSUNetClassifier"):
+        CheckpointBackend(cfg, "classification", device="cpu")
+
+
+def test_checkpoint_backend_serves_a_training_checkpoint(tmp_path):
+    """``CheckpointBackend`` reads a checkpoint of the port's driver and
+    answers what the trained model answers (classification too, where the
+    backend builds an ``nnUNetClassifier``)."""
+    images = np.random.default_rng(1).integers(0, 256, (3, 32, 32, 1), dtype=np.uint8)
+    x = torch.from_numpy(images.transpose(0, 3, 1, 2).astype(np.float32))
+    for task, arch in (("multitask", "MTnnUNet"), ("classification", "nnUNetClassifier")):
+        cfg = Config(model=ModelConfig(architecture=arch, nnunet_widths=WIDTHS),
+                     data=DataConfig(input_img="unused"))
+        build = registry.init_multitask_model if task == "multitask" \
+            else registry.init_classification_model
+        model = build(arch, nnunet_widths=WIDTHS,
+                      generator=torch.Generator().manual_seed(5))
+        engine = Engine(model, EngineConfig(task=task, use_transforms=False), device="cpu")
+        state = create_train_state(engine.model, "Adam", 1e-3)
+        path = str(tmp_path / f"model_20260101_000000_fold_0_{task}")
+        save_checkpoint(path, state, 0, 1.0)
+        backend = CheckpointBackend(cfg, task, checkpoint=path, size=32, max_batch=4,
+                                    device="cpu")
+        with torch.no_grad():
+            want = model.eval()(x)
+        got = backend.predict(images)
+        if task == "multitask":
+            np.testing.assert_allclose(got[0][0], want[0][0].numpy(), rtol=0, atol=1e-5)
+            np.testing.assert_allclose(got[1][-1][..., 0], want[1][-1][:, 0].numpy(),
+                                       rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-6)
+            assert backend.info["softmax_in_forward"]
+            np.testing.assert_allclose(got.sum(-1), 1.0, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(SIZE, SIZE), (100, 80), (37, 129)])
