@@ -59,7 +59,28 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    batch 2 and 64, epoch seconds and a ``torch.profiler`` breakdown of one
    step; a second profile counts the launches from the augmentation to the
    model's first convolution: the kernel alone, no cast or copy;
-8. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
+8. driver, a main path: ``run_experiment(cfg, "multitask", "CV")`` at the
+   ``Config()`` defaults on a 450-image 128² synthetic BUSI tree (CV 2, 2
+   epochs), the ``training_multitask`` CLI in a process of its own, a killed
+   and resumed run, and ``CheckpointBackend`` on the run's checkpoint;
+9. tools, the command-line tools at the ``Config()`` defaults on the card by
+   default: (a) ``data.preprocessing.main`` on a raw BUSI-style tree of 450
+   128² images (every PNG and mapping.csv row re-read as written); (b)
+   ``data.ssim.find_duplicates`` on those images with BUSI's 5 quadruplets,
+   22 triplets and 122 duplets planted as noisy copies (the groups found
+   exactly, 64 pairs against a float64 numpy SSIM to 1e-4, pairs/s); (c)
+   ``models.torch_import.main`` on a reference-named state_dict of seeded
+   tensors (the checkpoint's forward equals the model's, tolerance 0); (d) a
+   flax-msgpack checkpoint of the full-width weights and Adam's state,
+   written by :func:`flax_msgpack_bytes` (the card has no flax) and decoded
+   by the port (Adam's state as written, the forward equal to the
+   ``weights.npz`` path's, tolerance 0); (e) ``predict.main`` over the 450
+   PNGs with that checkpoint (predictions.json equal to ``Engine.predict`` +
+   ``postprocess`` called directly, 25 norm launches, images/s); (f)
+   ``evaluate.main`` over the tree as a UCLM-style set (ms per image, forward
+   vs host); (g) ``data.holdout_check.main`` (its fold sizes are
+   ``data/splits.py``'s);
+10. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
    paths, error, times and bound (``previous_ms``: the norm kernels' first,
    streaming design, and the augmentation's index-plane design, timed in the
    same run); then, last,
@@ -102,6 +123,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1391,6 +1413,498 @@ def phase_driver_resume(tmp, root) -> None:
     check(same, "resumed metrics.csv rows differ from the uninterrupted run's")
 
 
+def _mp_header(out: bytearray, n: int, small: int, fix: int, codes: tuple) -> None:
+    """A msgpack length header: ``fix | n`` below ``small``, else the first
+    of ``codes`` (8-, 16-, 32-bit lengths; None where the format has none)
+    that holds ``n``."""
+    if n < small:
+        out.append(fix | n)
+        return
+    for code, fmt in zip(codes, "BHI"):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(code)
+            out += struct.pack(">" + fmt, n)
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _mp_pack(x, out: bytearray) -> None:
+    """``x`` in the msgpack bytes that ``msgpack.packb(x, use_bin_type=True,
+    default=flax's ext packer, strict_types=True)`` writes, for the types a
+    checkpoint holds."""
+    import numpy as np
+    if x is None:
+        out.append(0xC0)
+    elif isinstance(x, (np.ndarray, np.generic)):
+        # before the bool/int/float branches, as strict_types packs only
+        # the exact Python types (np.float64 subclasses float): flax's ext
+        # types, 1 an ndarray, 3 a numpy scalar; the payload is msgpack of
+        # (shape, dtype name, C-order buffer)
+        arr = np.asarray(x)
+        payload = bytearray()
+        _mp_pack((arr.shape, arr.dtype.name, arr.tobytes("C")), payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(payload))
+        if fixext is not None:
+            out.append(fixext)
+        else:
+            _mp_header(out, len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+        out.append(1 if isinstance(x, np.ndarray) else 3)
+        out += payload
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        if 0 <= x <= 0x7F or -32 <= x < 0:
+            out += struct.pack(">b" if x < 0 else ">B", x)
+        else:
+            for code, fmt, lo, hi in ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+                                      (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2 ** 64 - 1),
+                                      (0xD0, ">b", -0x80, -1), (0xD1, ">h", -0x8000, -1),
+                                      (0xD2, ">i", -2 ** 31, -1), (0xD3, ">q", -2 ** 63, -1)):
+                if lo <= x <= hi:
+                    out.append(code)
+                    out += struct.pack(fmt, x)
+                    break
+    elif isinstance(x, float):
+        out.append(0xCB)
+        out += struct.pack(">d", x)
+    elif isinstance(x, str):
+        data = x.encode()
+        _mp_header(out, len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB))
+        out += data
+    elif isinstance(x, bytes):
+        _mp_header(out, len(x), 0, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    elif isinstance(x, (list, tuple)):
+        _mp_header(out, len(x), 16, 0x90, (None, 0xDC, 0xDD))
+        for v in x:
+            _mp_pack(v, out)
+    elif isinstance(x, dict):
+        _mp_header(out, len(x), 16, 0x80, (None, 0xDE, 0xDF))
+        for k, v in x.items():
+            _mp_pack(k, out)
+            _mp_pack(v, out)
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(x).__name__}")
+
+
+def flax_msgpack_bytes(state_dict: dict) -> bytes:
+    """What ``flax.serialization.to_bytes`` writes for a state dict (nested
+    dicts with str keys, numpy arrays, ints, floats): the JAX package's
+    checkpoint format, written here because the card has no flax. Arrays
+    over 2**30 bytes, which flax splits into chunks, are not written."""
+    out = bytearray()
+    _mp_pack(state_dict, out)
+    return bytes(out)
+
+
+SSIM_TOL = 1e-4
+SSIM_SAMPLES = 64
+# the curation the reference reports for BUSI (README.md:29-37): 5
+# quadruplets, 22 triplets and 122 duplets among its images
+SSIM_PLANTED = ((4, 5), (3, 22), (2, 122))
+
+
+def _device_args() -> list:
+    """The tools' command lines name no device on the card (``cuda`` is
+    their default); a CPU rehearsal asks for the CPU."""
+    return [] if DEVICE == "cuda" else ["--device", DEVICE]
+
+
+def _ssim64(a, b) -> float:
+    """Mean SSIM of two images in float64 numpy: 11×11 Gaussian window, σ
+    1.5, 'valid' windows, L 255 (Wang et al.), written apart from the port."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+    g = np.exp(-((np.arange(11) - 5.0) ** 2) / (2 * 1.5 ** 2))
+    k = np.outer(g, g) / g.sum() ** 2
+    a, b = a.astype(np.float64), b.astype(np.float64)
+
+    def filt(x):
+        return np.einsum("ijkl,kl->ij", sliding_window_view(x, (11, 11)), k)
+
+    mu_a, mu_b = filt(a), filt(b)
+    var_a, var_b = filt(a * a) - mu_a ** 2, filt(b * b) - mu_b ** 2
+    cov = filt(a * b) - mu_a * mu_b
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    return float(np.mean((2 * mu_a * mu_b + c1) * (2 * cov + c2)
+                         / ((mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2))))
+
+
+def _timed_predict(spans: Counter):
+    """``Engine.predict`` wrapped to add its device-synchronised seconds and
+    calls to ``spans``; returns the original, to put back."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.train import loop as LP
+    predict = LP.Engine.predict
+
+    def timed(self, state, images, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = predict(self, state, images, *args, **kwargs)
+        torch.cuda.synchronize()
+        spans["forward_s"] += time.perf_counter() - t
+        spans["forwards"] += 1
+        return out
+
+    LP.Engine.predict = timed
+    return predict
+
+
+def tools_preprocessing(tmp) -> str:
+    """(a) ``preprocessing.main`` on a raw BUSI-style tree; returns the
+    preprocessed tree."""
+    import cv2
+    import numpy as np
+    import pandas as pd
+    from multi_task_breast_cancer_tpu_torch import native
+    from multi_task_breast_cancer_tpu_torch.data import preprocessing
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_raw_busi
+
+    raw = make_raw_busi(os.path.join(tmp, "raw"), size=SIZE, seed=0, class_counts=DRIVER_COUNTS)
+    out = os.path.join(tmp, "busi")
+    t0 = time.perf_counter()
+    mapping = preprocessing.main(["--input", str(raw), "--output", out, "--size", str(SIZE)]
+                                 + _device_args())
+    took = time.perf_counter() - t0
+    on_disk = pd.read_csv(os.path.join(out, "mapping.csv"))
+    check(len(mapping) == sum(DRIVER_COUNTS.values()) and on_disk.equals(mapping),
+          f"preprocessing: mapping.csv ({len(on_disk)} rows) is not what was written")
+    for row in on_disk.itertuples():
+        stem = os.path.join(str(raw), row[3], f"{row[3]} ({row[4]})")
+        mask = cv2.imread(f"{stem}_mask.png", 0)
+        if os.path.isfile(f"{stem}_mask_1.png"):
+            mask = native.add_saturate(mask, cv2.imread(f"{stem}_mask_1.png", 0))
+        img = native.nearest_resize(cv2.imread(f"{stem}.png", 0), SIZE, SIZE)
+        check(np.array_equal(cv2.imread(row.img_path, 0), img)
+              and np.array_equal(cv2.imread(row.mask_path, 0),
+                                 native.nearest_resize(mask, SIZE, SIZE)),
+              f"preprocessing: {row.img_path} or its mask re-reads other than written")
+        check(row.tumor_pixels == int((cv2.imread(row.mask_path, 0) == 255).sum()),
+              f"preprocessing: tumor_pixels of {row.img_path}")
+    log(f"tools (a): preprocessing.main, raw BUSI-style tree of {len(mapping)} images at "
+        f"{SIZE}^2 {DRIVER_COUNTS} (multi-mask ids merged): {took:.2f} s; every PNG and "
+        f"mapping.csv row re-read equal to what was written")
+    return out
+
+
+def tools_ssim(root) -> None:
+    """(b) ``ssim.find_duplicates`` on the tree's images with duplicates
+    planted as BUSI's (noisy copies)."""
+    import cv2
+    import numpy as np
+    from multi_task_breast_cancer_tpu_torch.data import ssim
+
+    files = sorted(os.listdir(os.path.join(root, "images")))
+    images = np.stack([cv2.imread(os.path.join(root, "images", f), 0) for f in files]
+                      ).astype(np.float32)
+    rng = np.random.default_rng(0)
+    order = iter(rng.permutation(len(images)).tolist())
+    planted = []
+    for size, count in SSIM_PLANTED:
+        for _ in range(count):
+            group = sorted(next(order) for _ in range(size))
+            for i in group[1:]:
+                images[i] = np.clip(images[group[0]] + rng.normal(0, 2, images[i].shape), 0, 255)
+            planted.append(group)
+    planted.sort(key=lambda g: (-len(g), g[0]))
+    n = len(images)
+    n_pairs = n * (n - 1) // 2
+
+    ssim.ssim_pairwise(images[:8], np.array([[0, 1]]), device=DEVICE)  # warm-up: cuDNN plans
+    ii, jj = np.triu_indices(n, k=1)
+    pairs = np.stack([ii, jj], axis=1)
+    t0 = time.perf_counter()
+    vals = ssim.ssim_pairwise(images, pairs, device=DEVICE)
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = ssim.find_duplicates(images, device=DEVICE)
+    total_s = time.perf_counter() - t0
+    check(report.groups == planted,
+          f"ssim: groups {report.group_size_histogram()} are not the planted "
+          f"{ {s: c for s, c in SSIM_PLANTED} }")
+    check(np.array_equal(report.ssim_matrix_pairs[:, 2].astype(np.float32), vals),
+          "ssim: find_duplicates' values differ from ssim_pairwise's")
+    within = [(g[0], g[-1]) for g in planted[:SSIM_SAMPLES // 2]]
+    others = [tuple(sorted(rng.choice(n, 2, replace=False).tolist()))
+              for _ in range(SSIM_SAMPLES - len(within))]
+    index = {(int(i), int(j)): v for i, j, v in zip(ii, jj, vals)}
+    err = max(abs(index[p] - _ssim64(images[p[0]], images[p[1]])) for p in within + others)
+    log(f"tools (b): ssim.find_duplicates, {n} images at {SIZE}^2, {n_pairs} pairs, "
+        f"{len(planted)} planted groups {report.group_size_histogram()}: found exactly; "
+        f"pair sweep (ssim_pairwise) {sweep_s:.3f} s = {n_pairs / sweep_s:.0f} pairs/s; "
+        f"find_duplicates with union-find {total_s:.3f} s = {n_pairs / total_s:.0f} pairs/s; "
+        f"{SSIM_SAMPLES} sampled pairs vs float64 numpy: max error {err:.3g} (tol {SSIM_TOL})")
+    check(err <= SSIM_TOL, f"ssim: {err} from the float64 SSIM")
+
+
+def _forward(model, x):
+    import torch
+    with torch.inference_mode():
+        return [t.cpu() for t in _flat(model.eval()(x))]
+
+
+def tools_torch_import(tmp, cfg_path, x) -> str:
+    """(c) ``torch_import.main`` on a reference-named ``state_dict`` of
+    seeded tensors; returns the written checkpoint."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import load_config
+    from multi_task_breast_cancer_tpu_torch.models import torch_import
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
+
+    model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(1))
+    sd = model.state_dict()
+    ref = {r: sd[p] for p, r in torch_import._MAPPERS["MTnnUNet"]()}
+    ref_path, out = os.path.join(tmp, "reference_fold_0"), os.path.join(tmp, "imported_fold_0")
+    torch.save({"epoch": 11, "val_loss": 0.25, "model_state_dict": ref}, ref_path)
+    t0 = time.perf_counter()
+    torch_import.main(["--config", cfg_path, "--torch-checkpoint", ref_path, "--out", out]
+                      + _device_args())
+    took = time.perf_counter() - t0
+    state, _ = build_inference_state(load_config(cfg_path), "multitask", checkpoint=out,
+                                     device=DEVICE)
+    got, want = _forward(state.model, x), _forward(model.to(DEVICE), x)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"tools (c): torch_import.main, a reference-named MTnnUNet state_dict "
+        f"({len(ref)} tensors, seeded): {took:.2f} s; the checkpoint's forward on "
+        f"{x.shape[0]} images {'equals' if same else 'DIFFERS from'} the model with those "
+        f"tensors set directly (tolerance 0: same card, same code)")
+    check(same, "torch_import: the converted checkpoint's forward differs")
+    return out
+
+
+def tools_msgpack(tmp, cfg_path, x) -> str:
+    """(d) A flax-msgpack checkpoint written by :func:`flax_msgpack_bytes`,
+    with the full-width seeded weights and Adam state, decoded by the port;
+    returns its path."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import load_config
+    from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
+        params_from_jax, params_to_jax)
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.train.checkpoint import restore_checkpoint
+    from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
+
+    params = params_to_jax(init_multitask_model(
+        "MTnnUNet", generator=torch.Generator().manual_seed(2)).state_dict())
+    rng = np.random.default_rng(2)
+
+    def moments(tree, square):
+        return {k: moments(v, square) if isinstance(v, dict) else
+                (rng.standard_normal(v.shape).astype(np.float32) ** (2 if square else 1))
+                for k, v in tree.items()}
+
+    mu, nu = moments(params, False), moments(params, True)
+    scalar = lambda v, dt: np.asarray(v, dt)  # noqa: E731
+    opt = {"count": scalar(7, np.int32),
+           "hyperparams": {k: scalar(v, np.float32) for k, v in
+                           (("learning_rate", 1e-4), ("b1", 0.9), ("b2", 0.999),
+                            ("eps", 1e-4), ("eps_root", 0.0))},
+           "hyperparams_states": {},
+           "inner_state": {"0": {"count": scalar(7, np.int32), "mu": mu, "nu": nu}, "1": {}}}
+    resume = {"valid": 1.0, "sched_lr": 1e-4, "sched_best": 0.5, "sched_bad": 0.0,
+              "sched_epoch": 0.0, "patience": 0.0, "best_val_loss": 0.5}
+    payload = {"epoch": 6, "model_state_dict": {"params": params, "batch_stats": {}},
+               "optimizer_state_dict": opt, "val_loss": 0.5, "step": scalar(7, np.int32),
+               "resume_state": resume}
+    path = os.path.join(tmp, "jax_fold_0")
+    t0 = time.perf_counter()
+    data = flax_msgpack_bytes(payload)
+    with open(path, "wb") as f:
+        f.write(data)
+    write_s = time.perf_counter() - t0
+    def flat(prefix, node):  # a serving artifact's weights.npz keys
+        for k, v in node.items():
+            yield from flat(f"{prefix}/{k}", v) if isinstance(v, dict) else [(f"{prefix}/{k}", v)]
+
+    npz = os.path.join(tmp, "weights.npz")
+    np.savez(npz, **dict(flat("params", params)))
+
+    cfg = load_config(cfg_path)
+    t0 = time.perf_counter()
+    state, epoch, val_loss, rs = restore_checkpoint(
+        build_inference_state(cfg, "multitask", device=DEVICE)[0], path)
+    read_s = time.perf_counter() - t0
+    want_mu = params_from_jax(mu)
+    adam = [state.optimizer.state[p] for p in state.model.parameters()]
+    names = [n for n, _ in state.model.named_parameters()]
+    check((epoch, val_loss, state.step, rs) == (6, 0.5, 7, resume)
+          and all(float(s["step"]) == 7 and torch.equal(s["exp_avg"].cpu(), want_mu[n])
+                  for s, n in zip(adam, names))
+          and state.optimizer.param_groups[0]["lr"] == float(np.float32(1e-4)),
+          "msgpack: Adam's state, the counters or the epoch came back other than written")
+    model, _ = build_inference_state(cfg, "multitask", checkpoint=path, device=DEVICE)
+    npz_model = init_multitask_model("MTnnUNet")
+    with np.load(npz) as z:
+        npz_model.load_state_dict(params_from_jax({k: z[k] for k in z.files}), strict=True)
+    got, want = _forward(model.model, x), _forward(npz_model.to(DEVICE), x)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    import importlib.util
+    msgpack = "present" if importlib.util.find_spec("msgpack") else "absent"
+    log(f"tools (d): flax-msgpack checkpoint (this script's writer of flax's layout, the "
+        f"full-width weights and Adam mu/nu/count; msgpack on this machine: {msgpack}, "
+        f"unused): {len(data) / 2 ** 20:.1f} MiB written in "
+        f"{write_s:.2f} s, restored with Adam's state in {read_s:.2f} s; forward on "
+        f"{x.shape[0]} images {'equals' if same else 'DIFFERS from'} the weights.npz path "
+        f"through params_from_jax (tolerance 0)")
+    check(same, "msgpack: the decoded weights' forward differs from weights.npz's")
+    return path
+
+
+def tools_predict(tmp, cfg_path, root, ckpt) -> int:
+    """(e) ``predict.main`` over the tree's 450 PNGs with the flax-msgpack
+    checkpoint; returns its norm launches."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import load_config
+    from multi_task_breast_cancer_tpu_torch import predict
+    from multi_task_breast_cancer_tpu_torch.serve.post import model_applies_softmax, postprocess
+    from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
+    from multi_task_breast_cancer_tpu_torch.train.inference import to_host
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine, EngineConfig
+
+    folder, out = os.path.join(root, "images"), os.path.join(tmp, "predictions")
+    spans = Counter()
+    real = _timed_predict(spans)
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        predict.main(["--config", cfg_path, "--checkpoint", ckpt, "--images", folder,
+                      "--output", out, "--size", str(SIZE)] + _device_args())
+        total_s = time.perf_counter() - t0
+        fwd = _counts()[0]
+    finally:
+        from multi_task_breast_cancer_tpu_torch.train import loop as LP
+        LP.Engine.predict = real
+    with open(os.path.join(out, "predictions.json")) as f:
+        records = json.load(f)
+    n = len(records)
+    check(fwd == 25 * spans["forwards"] == 25,
+          f"predict: {fwd} norm launches in {spans['forwards']} forwards, want 25 in one")
+
+    cfg = load_config(cfg_path)
+    images, paths = predict.load_images(folder, SIZE)
+    state, _ = build_inference_state(cfg, "multitask", checkpoint=ckpt, device=DEVICE)
+    engine = Engine(state.model, EngineConfig(task="multitask", n_classes=3,
+                                              batch_size=cfg.data.batch_size), device=DEVICE)
+    pred = postprocess(to_host(engine.predict(state, images)), "multitask", 3,
+                       cfg.training.overlap_class_based_on_seg,
+                       model_applies_softmax("multitask", "MTnnUNet", 3))
+    direct = json.loads(json.dumps([{"image": p.name, **pred.record(i)}
+                                    for i, p in enumerate(paths)]))
+    masks = len(os.listdir(os.path.join(out, "segs")))
+    log(f"tools (e): predict.main, {n} raw {SIZE}^2 PNGs, the flax-msgpack checkpoint, "
+        f"full width: {total_s:.3f} s in all = {n / total_s:.1f} images/s (PNG reads, forward, "
+        f"postprocess, {masks} mask PNGs, JSON); the forward {spans['forward_s'] * 1e3:.2f} ms = "
+        f"{n / spans['forward_s']:.1f} images/s; {fwd} norm launches; predictions.json "
+        f"{'equals' if records == direct else 'DIFFERS from'} Engine.predict + postprocess "
+        f"called directly")
+    check(n == len(paths) == masks and records == direct and np.isfinite(
+        [p for r in records for p in r["probs"]]).all(), "predict: predictions.json")
+    return fwd
+
+
+def tools_evaluate(tmp, cfg_path, root, ckpt) -> int:
+    """(f) ``evaluate.main`` over the tree as a UCLM-style set, with the
+    imported checkpoint; returns its norm launches."""
+    import pandas as pd
+    import torch
+    from multi_task_breast_cancer_tpu_torch import evaluate
+
+    out = os.path.join(tmp, "evaluation")
+    spans = Counter()
+    real = _timed_predict(spans)
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        evaluate.main(["--config", cfg_path, "--checkpoint", ckpt, "--data", root,
+                       "--output", out] + _device_args())
+        total_s = time.perf_counter() - t0
+        fwd = _counts()[0]
+    finally:
+        from multi_task_breast_cancer_tpu_torch.train import loop as LP
+        LP.Engine.predict = real
+    seg = pd.read_csv(os.path.join(out, "results_segmentation.csv"))
+    cls = pd.read_csv(os.path.join(out, "results_classification.csv"))
+    n = sum(DRIVER_COUNTS.values())
+    check(len(seg) == len(cls) == n == len(os.listdir(os.path.join(out, "segs")))
+          and bool(os.listdir(os.path.join(out, "features_map"))),
+          f"evaluate: {len(seg)} / {len(cls)} result rows, want {n}")
+    check(fwd == 25 * spans["forwards"] > 0,
+          f"evaluate: {fwd} norm launches in {spans['forwards']} forwards")
+    host_s = total_s - spans["forward_s"]
+    log(f"tools (f): evaluate.main, a UCLM-style set of {n} images at {SIZE}^2, the imported "
+        f"checkpoint: {total_s:.3f} s = {total_s * 1e3 / n:.3f} ms per image: forward "
+        f"{spans['forward_s'] * 1e3 / n:.3f} ms ({spans['forwards']} forward, {fwd} norm "
+        f"launches), host (checkpoint reads, metrics, PNGs, CSVs) {host_s * 1e3 / n:.3f} ms "
+        f"per image")
+    return fwd
+
+
+def tools_holdout(root) -> None:
+    """(g) ``holdout_check.main`` on the tree's mapping.csv: the fold sizes
+    it prints are ``data/splits.py``'s."""
+    import contextlib
+    import io
+    import pandas as pd
+    from multi_task_breast_cancer_tpu_torch.data import holdout_check
+    from multi_task_breast_cancer_tpu_torch.data.splits import stratified_cv_splits
+
+    mapping = os.path.join(root, "mapping.csv")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        holdout_check.main(["--mapping", mapping] + _device_args())
+    sizes, fold = [], -1
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"--- fold (\d+) ---", line)
+        if m:
+            fold = int(m.group(1))
+        m = re.match(r"(train|val|test): n=(\d+) ", line)
+        if m:
+            sizes.append((fold, m.group(1), int(m.group(2))))
+    want = [(n, name, len(df)) for n, f in enumerate(
+        stratified_cv_splits(pd.read_csv(mapping), 1993, 4, oversampling=True))
+        for name, df in f.items()]
+    log(f"tools (g): holdout_check.main on the tree's mapping.csv (seed 1993, 4 folds): "
+        f"(fold, split, size) {sizes}; data/splits.py gives "
+        f"{'the same' if sizes == want else want}")
+    check(sizes == want, "holdout_check: fold sizes differ from data/splits.py")
+
+
+def phase_tools() -> int:
+    """The command-line tools at the ``Config()`` defaults, on the card by
+    default; returns the norm launches of ``predict`` and ``evaluate``."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config, config_to_yaml
+
+    tmp = tempfile.mkdtemp(prefix="mtbc_tools_")
+    try:
+        t0 = time.perf_counter()
+        root = tools_preprocessing(tmp)
+        tools_ssim(root)
+        cfg = Config()
+        cfg.data.input_img = root
+        cfg_path = os.path.join(tmp, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_yaml(cfg))
+        gen = torch.Generator().manual_seed(3)
+        x = (torch.rand(8, 1, SIZE, SIZE, generator=gen) * 255).to(DEVICE)
+        imported = tools_torch_import(tmp, cfg_path, x)
+        jax_file = tools_msgpack(tmp, cfg_path, x)
+        launches = tools_predict(tmp, cfg_path, root, jax_file)
+        launches += tools_evaluate(tmp, cfg_path, root, imported)
+        tools_holdout(root)
+        log(f"tools: phase {time.perf_counter() - t0:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -1412,12 +1926,13 @@ def main() -> int:
     augment = phase_augment_kernel(index_plane_lib)
     fwd, bwd, aug = phase_training()
     d_fwd, d_bwd, d_aug = phase_driver()
+    t_fwd = phase_tools()
 
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd + d_fwd, **kernel},
+         "launches": serve_launches + fwd + d_fwd + t_fwd, **kernel},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
          "launches": bwd + d_bwd, **backward},

@@ -140,17 +140,19 @@ def make_hard_busi(root, size: int = 128, seed: int = 0,
                        lambda cls: _hard_image(rng, size, cls, difficulty))
 
 
-def make_raw_busi(root, n_per_class: int = 6, size: int = 64, seed: int = 0) -> Path:
+def make_raw_busi(root, n_per_class: int = 6, size: int = 64, seed: int = 0,
+                  class_counts: Dict[str, int] | None = None) -> Path:
     """A raw ``Dataset_BUSI_with_GT``-style tree: per-class folders of
     ``cls (i).png`` + ``cls (i)_mask.png``; the first image of each tumor
-    class also gets a ``_mask_1.png``, to exercise multi-mask merging."""
+    class also gets a ``_mask_1.png``, to exercise multi-mask merging.
+    ``class_counts`` overrides ``n_per_class`` per class."""
     import cv2
     rng = np.random.default_rng(seed)
     root = Path(root)
     for cls in CLASSES:
         d = root / cls
         d.mkdir(parents=True, exist_ok=True)
-        for i in range(1, n_per_class + 1):
+        for i in range(1, (class_counts or {}).get(cls, n_per_class) + 1):
             img, mask = _blob_image(rng, size, with_tumor=(cls != "normal"))
             cv2.imwrite(str(d / f"{cls} ({i}).png"), img)
             cv2.imwrite(str(d / f"{cls} ({i})_mask.png"), mask)

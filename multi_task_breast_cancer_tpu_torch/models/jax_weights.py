@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter tree → the port's ``state_dict``.
+"""Weight bridge: the JAX package's parameter tree → the port's ``state_dict``,
+and back (``params_to_jax``, which writes JAX-format weights).
 
 The JAX tree is taken as numpy, nested (``variables["params"]``) or flat with
 ``/``-joined paths, as a JAX serving artifact's ``weights.npz`` stores it
@@ -77,6 +78,42 @@ def params_from_jax(params) -> Dict[str, torch.Tensor]:
         state[".".join(owner + [name])] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C"))  # a writable copy
     return state
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``state_dict`` → the JAX parameter tree (nested, float32
+    numpy, without the ``params`` level): the inverse of
+    :func:`params_from_jax`."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        *owner, leaf = name.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel"
+            if arr.ndim == 4:
+                arr = (_undeconv(arr) if owner and owner[-1].startswith("upsample")
+                       else _unconv(arr))
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{name}: unexpected weight shape {arr.shape}")
+        elif leaf == "deconv_kernel":
+            arr = _undeconv(arr)
+        elif leaf == "conv1x1_kernel":
+            arr = _unconv(arr)
+        node = tree
+        for key in owner:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(arr, np.float32)
+    return tree
+
+
+def _undeconv(w: np.ndarray) -> np.ndarray:
+    return w.transpose(2, 3, 0, 1)[::-1, ::-1]
+
+
+def _unconv(w: np.ndarray) -> np.ndarray:
+    return w.transpose(2, 3, 1, 0)
 
 
 def widths_from_params(params) -> Tuple[int, ...]:

@@ -52,7 +52,7 @@ def _not_ported(kind: str, architecture: str, known) -> Exception:
     if architecture in known:
         return NotImplementedError(
             f"{kind} architecture {architecture!r} is not ported to PyTorch yet: "
-            f"it is in ROADMAP.md, Queue 1, slice 4 (the rest of the zoo)")
+            f"it is in ROADMAP.md, Queue 1, item 2 (the rest of the zoo)")
     return ValueError(f"Unknown {kind} architecture {architecture!r}. "
                       f"Available: {known}")
 

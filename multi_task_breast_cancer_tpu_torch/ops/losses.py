@@ -127,7 +127,8 @@ def init_criterion_segmentation(loss_function: str = "DICE"
     if loss_function in SEG_CRITERIA:
         raise NotImplementedError(
             f"segmentation criterion {loss_function!r} is not ported to PyTorch "
-            f"yet: it is in ROADMAP.md, Queue 1, slice 4 (the remaining losses)")
+            f"yet: it is in ROADMAP.md, Queue 1, item 2 (after the zoo: the remaining "
+            f"losses)")
     raise ValueError(f"Select a loss function allowed: {SEG_CRITERIA}")
 
 

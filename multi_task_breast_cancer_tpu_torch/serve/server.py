@@ -51,29 +51,14 @@ from multi_task_breast_cancer_tpu_torch.models.registry import (
     init_multitask_model,
     init_segmentation_model,
 )
+from multi_task_breast_cancer_tpu_torch.native import nearest_resize
 from multi_task_breast_cancer_tpu_torch.ops.image_ops import build_augment_channels
 from multi_task_breast_cancer_tpu_torch.serve.post import (
     model_applies_softmax,
     postprocess,
 )
-from multi_task_breast_cancer_tpu_torch.train.checkpoint import (
-    is_torch_checkpoint,
-    load_pretrained_model,
-)
+from multi_task_breast_cancer_tpu_torch.train.checkpoint import load_pretrained_model
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
-
-
-def nearest_resize(src: np.ndarray, dh: int, dw: int) -> np.ndarray:
-    """cv2.INTER_NEAREST-semantics resize of a (H, W) uint8 image (the numpy
-    branch of ``multi_task_breast_cancer_tpu/native.py``): index =
-    int(y * (sh/dh)) with the scale computed first as a double."""
-    src = np.ascontiguousarray(src, np.uint8)
-    sh, sw = src.shape
-    ys = np.minimum((np.arange(dh, dtype=np.float64) * (sh / dh))
-                    .astype(np.int64), sh - 1)
-    xs = np.minimum((np.arange(dw, dtype=np.float64) * (sw / dw))
-                    .astype(np.int64), sw - 1)
-    return src[np.ix_(ys, xs)]
 
 
 def prepare_image(gray: np.ndarray, size: int, augmentations: Dict[str, bool]
@@ -150,7 +135,7 @@ class _TorchBackend:
         if compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {compute_dtype!r} is not ported to PyTorch yet "
-                f"(ROADMAP.md, Queue 1, slice 3); float32 only")
+                f"(ROADMAP.md, Queue 1, item 1: bf16); float32 only")
         set_float32_policy(device, compute_dtype)
         self.device = device
         self.model = model.to(device).eval()
@@ -192,11 +177,11 @@ class CheckpointBackend(_TorchBackend):
 
     ``checkpoint=None`` draws seeded weights (generator seed 0), as the JAX
     ``build_inference_state(checkpoint=None)`` gives a fresh init. A
-    checkpoint the port's driver wrote (``fold_<n>/model_<ts>_fold_<n>``,
-    ``.tar`` for segmentation) loads through
-    ``train/checkpoint.load_pretrained_model``; a ``weights.npz`` in the JAX
-    serving-artifact layout loads those weights. The JAX driver's
-    flax-msgpack checkpoints are not read."""
+    checkpoint the port's driver or the JAX driver wrote
+    (``fold_<n>/model_<ts>_fold_<n>``, ``.tar`` for segmentation; torch.save
+    or flax-msgpack) loads through ``train/checkpoint.load_pretrained_model``;
+    a ``weights.npz`` in the JAX serving-artifact layout loads those
+    weights."""
 
     def __init__(self, cfg, task: str, checkpoint: Optional[str] = None,
                  size: int = 128, max_batch: int = 64, device=None):
@@ -211,13 +196,8 @@ class CheckpointBackend(_TorchBackend):
         if checkpoint is not None:
             if Path(checkpoint).suffix == ".npz":
                 model.load_state_dict(params_from_jax(_load_npz(checkpoint)), strict=True)
-            elif is_torch_checkpoint(checkpoint):
-                load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
             else:
-                raise NotImplementedError(
-                    f"{checkpoint}: not a checkpoint of the port (torch.save) nor a "
-                    f"weights.npz; the JAX driver's flax-msgpack checkpoints are not "
-                    f"read by the port (ROADMAP.md, Queue 1)")
+                load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
         super().__init__(model, device, cfg.training.compute_dtype, [max_batch])
         self.info = {
             "task": task, "architecture": cfg.model.architecture,

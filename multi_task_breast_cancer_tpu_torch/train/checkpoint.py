@@ -14,8 +14,15 @@ kill mid-write never destroys the previous good file.
 optimizer restore is commented out, ``src/utils/models.py:29-31``);
 ``restore_checkpoint`` restores the weights, Adam's moments, the step count,
 the epoch and the resume counters. A parameter whose shape differs from the
-model's raises ``ValueError``, as the JAX ``_check_shapes`` does. The JAX
-package's flax-msgpack checkpoints are not read here (``ROADMAP.md``).
+model's raises ``ValueError``, as the JAX ``_check_shapes`` does.
+
+Both read the JAX package's flax-msgpack checkpoints too, current and legacy
+(written before ``resume_state`` existed), decoded by :mod:`.flax_msgpack`
+without flax: the weights map through ``models/jax_weights.params_from_jax``,
+and ``restore_checkpoint`` carries optax Adam's ``mu`` / ``nu`` / ``count`` and
+injected learning rate into ``torch.optim.Adam``'s (or ``AdamW``'s)
+``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``lr``, so a JAX run resumes in the
+port.
 """
 
 from __future__ import annotations
@@ -25,11 +32,12 @@ import io
 import logging
 import os
 import sys
-import zipfile
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from multi_task_breast_cancer_tpu_torch.models.jax_weights import params_from_jax
+from multi_task_breast_cancer_tpu_torch.train.flax_msgpack import msgpack_restore
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
 
 EMPTY_RESUME_STATE: Dict[str, float] = {
@@ -96,24 +104,82 @@ def save_checkpoint(path: str, state: Union[TrainState, StateSnapshot], epoch: i
 
 
 def is_torch_checkpoint(path: str) -> bool:
-    """True for a file ``torch.save`` wrote (a zip archive)."""
-    return os.path.isfile(path) and zipfile.is_zipfile(path)
+    """True for a file ``torch.save`` wrote: a zip archive, which opens with
+    a local file header (a flax-msgpack file opens with a map header)."""
+    if not os.path.isfile(path):
+        return False
+    with open(path, "rb") as f:
+        return f.read(4) == b"PK\x03\x04"
+
+
+def _read_flax(path: str) -> dict:
+    """A JAX checkpoint as the port's payload: the weights as the port's
+    ``state_dict``; optax's state kept, under ``jax_optimizer_state``, for
+    ``restore_checkpoint``; a legacy file's counters empty (``valid`` 0)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        raw = msgpack_restore(data)
+    except (ValueError, TypeError) as e:  # TypeError: a dtype name numpy lacks
+        raise ValueError(f"'{path}' is neither a torch.save checkpoint nor a "
+                         f"flax-msgpack one: {e}") from e
+    if not (isinstance(raw, dict) and "model_state_dict" in raw):
+        raise ValueError(f"'{path}' holds no model_state_dict")
+    return {
+        "epoch": int(raw["epoch"]),
+        "model_state_dict": params_from_jax(raw["model_state_dict"]),
+        "jax_optimizer_state": raw["optimizer_state_dict"],
+        "val_loss": float(raw["val_loss"]),
+        "step": int(raw.get("step", 0)),
+        "resume_state": raw.get("resume_state", dict(EMPTY_RESUME_STATE)),
+    }
 
 
 def _load(path: str, model: torch.nn.Module) -> dict:
     if not os.path.isfile(path):
         raise ValueError(f"\n\t-> No checkpoint found at '{path}'")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if is_torch_checkpoint(path):
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    else:
+        payload = _read_flax(path)
+    check_fits(payload["model_state_dict"], model)
+    return payload
+
+
+def check_fits(state_dict: Mapping[str, torch.Tensor], model: torch.nn.Module,
+               what: str = "checkpoint") -> None:
+    """Raise ``ValueError`` naming the parameters of ``state_dict`` that are
+    missing, unexpected or of another shape than ``model``'s."""
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    got = {k: tuple(v.shape) for k, v in payload["model_state_dict"].items()}
+    got = {k: tuple(v.shape) for k, v in state_dict.items()}
     bad = [(k, got.get(k), want.get(k)) for k in sorted(set(want) | set(got))
            if got.get(k) != want.get(k)]
     if bad:
-        detail = "; ".join(f"{k}: checkpoint {cs} vs model {ms}" for k, cs, ms in bad[:5])
+        detail = "; ".join(f"{k}: {what} {cs} vs model {ms}" for k, cs, ms in bad[:5])
         raise ValueError(
-            f"checkpoint does not fit this model: {len(bad)} parameter shape "
+            f"{what} does not fit this model: {len(bad)} parameter shape "
             f"mismatch(es) — wrong architecture/width? ({detail})")
-    return payload
+
+
+def _adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer) -> dict:
+    """optax ``inject_hyperparams(adam | adamw)`` state → the optimizer's
+    ``state_dict``: ``inner_state["0"]`` is ``ScaleByAdamState`` (count, mu,
+    nu), whose trees map like the weights; ``hyperparams`` holds the lr."""
+    adam = opt_state.get("inner_state", {}).get("0", {})
+    if not (isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+            and {"count", "mu", "nu"} <= set(adam)):
+        raise ValueError(
+            f"only Adam's and AdamW's state is carried over from a JAX checkpoint; "
+            f"got optax state {sorted(adam)} for {type(optimizer).__name__}")
+    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    step = torch.tensor(float(adam["count"]), dtype=torch.float32)
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                   for i, (name, _) in enumerate(model.named_parameters())}
+    for group in sd["param_groups"]:
+        group["lr"] = float(opt_state["hyperparams"]["learning_rate"])
+    return sd
 
 
 def load_pretrained_model(state: TrainState, ckpt_path: str) -> TrainState:
@@ -131,7 +197,11 @@ def restore_checkpoint(state: TrainState, ckpt_path: str
     ``valid == 0``."""
     payload = _load(ckpt_path, state.model)
     state.model.load_state_dict(payload["model_state_dict"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer_state_dict"])
+    if "jax_optimizer_state" in payload:
+        state.optimizer.load_state_dict(_adam_state_from_jax(
+            payload["jax_optimizer_state"], state.model, state.optimizer))
+    else:
+        state.optimizer.load_state_dict(payload["optimizer_state_dict"])
     state.step = int(payload["step"])
     resume = dict(EMPTY_RESUME_STATE)
     resume.update({k: float(v) for k, v in payload.get("resume_state", {}).items()})

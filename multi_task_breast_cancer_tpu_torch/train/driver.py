@@ -26,7 +26,7 @@ The best epoch's state is copied on the device (no host fetch per epoch)
 and written once per fold unless ``training.checkpoint_every_epoch``. One
 visible GPU runs the experiment: ``training.spatial_partitions > 1``, or
 ``training.data_parallel`` with more than one visible GPU, raises (the
-mesh is ``ROADMAP.md`` Queue 1, item 4).
+mesh is ``ROADMAP.md`` Queue 1, item 2: parallelism, after the zoo).
 """
 
 from __future__ import annotations
@@ -442,8 +442,8 @@ def _check_one_device(cfg: Config, device: torch.device) -> None:
             "training over more than one GPU (training.data_parallel with "
             f"{torch.cuda.device_count()} visible GPUs, training.spatial_partitions="
             f"{cfg.training.spatial_partitions}) is not ported yet: ROADMAP.md, Queue 1, "
-            "item 4. Make one GPU visible (CUDA_VISIBLE_DEVICES) and set "
-            "spatial_partitions: 1")
+            "item 2 (parallelism, after the zoo). Make one GPU visible "
+            "(CUDA_VISIBLE_DEVICES) and set spatial_partitions: 1")
 
 
 def _engine_config(cfg: Config, task: str, max_angle: float) -> EngineConfig:

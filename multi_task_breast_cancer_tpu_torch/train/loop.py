@@ -105,10 +105,12 @@ class Engine:
                  device: Optional[Union[str, torch.device]] = None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("Engine: meshes (data/spatial parallelism) are "
-                                      "not ported yet (ROADMAP.md, Queue 1, slice 4)")
+                                      "not ported yet (ROADMAP.md, Queue 1, item 2: "
+                                      "parallelism, after the zoo)")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(f"Engine: compute_dtype {cfg.compute_dtype!r} is "
-                                      "not ported yet; the port trains in float32")
+                                      "not ported yet (ROADMAP.md, Queue 1, item 1: bf16); "
+                                      "the port trains in float32")
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
         self.device = resolve_device(device)

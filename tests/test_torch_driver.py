@@ -6,7 +6,10 @@ The JAX fold initialisation is carried into the port through the seam
 ``driver.fold_init_state_dict`` (``params_from_jax`` of the JAX fold key's
 ``init``), and augmentation is off in both drivers (each module's
 ``EngineConfig`` name is monkeypatched with ``use_transforms=False``): the
-two frameworks' draws cannot match. The port runs on the CPU.
+two frameworks' draws cannot match. The port runs on the CPU. Both drivers
+call one jitted ``init`` per model (``_JitInit``, through the JAX driver's
+``create_train_state``): run op by op, ``init`` compiled each op anew and
+cost ~50 s of a case on one CPU.
 
 Held equal: fold membership (the test ids of the result CSVs) and every
 epoch's permutation; the metrics.csv header and its ``epoch`` / ``LR``
@@ -53,6 +56,20 @@ LOSS_RTOL = 1e-3
 ROUND = 5e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU runs. The gate runs six
+    workers on eight cores, and torch's default of an OpenMP thread per core
+    oversubscribed them: with five busy processes beside it, the MTnnUNet
+    CV_PROD case took 400 s with the default threads and 120 s with one;
+    alone it takes ~35 s either way."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
     return jax_synthetic.make_preprocessed_busi(tmp_path_factory.mktemp("busi"), n_per_class=8,
@@ -68,6 +85,20 @@ def _configs(tree, arch: str):
     jax = JaxConfig(model=JaxModelConfig(**kw["model"]), training=JaxTrainingConfig(**kw["training"]),
                     data=JaxDataConfig(**kw["data"]))
     return port, jax
+
+
+_JIT_INITS: dict = {}
+
+
+class _JitInit:
+    """A flax model as ``create_train_state`` sees it, with ``init`` jitted
+    once per model (flax modules compare by their fields)."""
+
+    def __init__(self, model):
+        if model not in _JIT_INITS:
+            import jax
+            _JIT_INITS[model] = jax.jit(model.init, static_argnames="train")
+        self.init = _JIT_INITS[model]
 
 
 def _run_both(tmp_path, monkeypatch, tree, task: str, mode: str, arch: str):
@@ -96,11 +127,14 @@ def _run_both(tmp_path, monkeypatch, tree, task: str, mode: str, arch: str):
     monkeypatch.setattr(driver, "plan_epoch_indices", spy("port", driver.plan_epoch_indices))
 
     jax_model = jax_driver._build_model(jax_cfg, task)
+    create_train_state = jax_driver.create_train_state
+    monkeypatch.setattr(jax_driver, "create_train_state",
+                        lambda model, *args: create_train_state(_JitInit(model), *args))
 
     def jax_fold_init(cfg, task_, seed, fold):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), fold)
-        params = jax_model.init(key, jnp.zeros((1, SIZE, SIZE, 1)), train=False)["params"]
-        return params_from_jax(jax.tree_util.tree_map(np.asarray, params))
+        params = _JitInit(jax_model).init(key, jnp.zeros((1, SIZE, SIZE, 1)), train=False)
+        return params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]))
 
     monkeypatch.setattr(driver, "fold_init_state_dict", jax_fold_init)
     jax_run = Path(jax_driver.run_experiment(jax_cfg, task, mode, run_root=str(tmp_path / "jax")))
@@ -197,13 +231,9 @@ def _metric_tolerances(jax_run: Path, port_run: Path, mode: str) -> None:
             assert diff <= tol, (n, col, diff, tol)
 
 
-@pytest.mark.parametrize("task,mode,arch", [
-    ("multitask", "CV", "MTnnUNet"),
-    ("multitask", "CV_PROD", "MTnnUNet"),
-    ("segmentation", "CV", "nnUNet"),
-    ("classification", "CV", "nnUNetClassifier"),
-])
-def test_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch):
+def check_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch):
+    """Both drivers on ``tree``: every comparison of the module docstring,
+    and the same run-dir layout."""
     jax_run, port_run, perms = _run_both(tmp_path, monkeypatch, tree, task, mode, arch)
     flips = _compare_runs(tree, jax_run, port_run, perms, task, mode)
     _metric_tolerances(jax_run, port_run, mode)
@@ -219,6 +249,17 @@ def test_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch
             assert sorted(p.name for p in (port_run / f"fold_{n}" / sub).iterdir()) == \
                 sorted(p.name for p in (jax_run / f"fold_{n}" / sub).iterdir())
     print(f"{task} {mode}: test-phase flips per fold {flips}")
+
+
+# multitask CV_PROD is in test_torch_driver_prod.py: the two MTnnUNet cases
+# are the slowest of the suite, and the gate gives each file one worker
+@pytest.mark.parametrize("task,mode,arch", [
+    ("multitask", "CV", "MTnnUNet"),
+    ("segmentation", "CV", "nnUNet"),
+    ("classification", "CV", "nnUNetClassifier"),
+])
+def test_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch):
+    check_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch)
 
 
 def _resume_config(root, task: str) -> Config:

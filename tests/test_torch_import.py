@@ -1,0 +1,158 @@
+"""The port's importer of the reference's PyTorch checkpoints
+(``models/torch_import.py``) against the JAX importer, for the nnU-Net family.
+
+The reference ``state_dict`` is built here from the reference's layer names
+and shapes at narrow widths, with seeded tensors (no reference checkpoint is
+in the repository); nnUNetClassifier's carries the dead decoders 4..1 that
+the importers drop. Held: ``params_from_jax`` of the JAX conversion equals the
+port's conversion tensor for tensor, exactly (both only rename and re-lay
+copies); the result loads strictly into the port's model built by the
+registry (so the shapes here are the models'); the CLI's checkpoint gives
+exactly the forward of the model with the converted tensors set directly
+(same CPU code, same input).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from multi_task_breast_cancer_tpu.models import torch_import as jax_import
+from multi_task_breast_cancer_tpu_torch.config import Config, ModelConfig, config_to_yaml
+from multi_task_breast_cancer_tpu_torch.models import registry, torch_import
+from multi_task_breast_cancer_tpu_torch.models.jax_weights import params_from_jax
+from multi_task_breast_cancer_tpu_torch.train.checkpoint import load_pretrained_model
+from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+WIDTHS = (4, 8, 8, 16, 16)
+
+
+def reference_state_dict(arch: str, widths=WIDTHS, n_out: int = 3, seed: int = 0) -> dict:
+    """A reference-named ``state_dict`` of seeded tensors: ``LevelBlock``s of
+    two ``ConvInNormLRelu`` (bias-free 3×3 convs), stride-2
+    ``ConvTranspose2d`` upsamplers, ``Sequential(ConvTranspose2d, Conv2d
+    1×1)`` deep-supervision heads and the ``classifier`` Sequential."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    w = widths
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def level(name, cin, mid, cout):
+        sd[f"{name}.ConvInNormLRelu1.Conv.weight"] = rnd(mid, cin, 3, 3)
+        sd[f"{name}.ConvInNormLRelu2.Conv.weight"] = rnd(cout, mid, 3, 3)
+
+    def layer(name, weight_shape, bias):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = rnd(*weight_shape), rnd(bias)
+
+    ins = (1, w[0], w[1], w[2], w[3])
+    for i in range(5):
+        level(f"encoder{i + 1}", ins[i], w[i], w[i])
+    level("bottleneck", w[4], w[4], w[4])
+    for i in range(4, -1, -1):
+        out = w[i - 1] if i else w[0] // 2
+        level(f"decoder{i + 1}", 2 * w[i], w[i - 1] if i else w[0], out)
+        layer(f"upsample{i + 1}", (w[i], w[i], 2, 2), w[i])
+    if arch in ("nnUNet", "MTnnUNet"):
+        for i, k in ((4, 8), (3, 4), (2, 2)):
+            layer(f"output{i}.0", (w[i - 2], w[i - 2], k, k), w[i - 2])
+            layer(f"output{i}.1", (1, w[i - 2], 1, 1), 1)
+        layer("output1", (1, w[0] // 2, 1, 1), 1)
+    if arch in ("MTnnUNet", "nnUNetClassifier"):
+        sd["process_encoder_5.Conv.weight"] = rnd(w[4], w[4], 3, 3)
+        sd["process_decoder_5.Conv.weight"] = rnd(w[4], w[3], 3, 3)
+        sd["classifier.0.Conv.weight"] = rnd(512, 3 * w[4], 3, 3)
+        layer("classifier.3", (256, 512), 256)
+        layer("classifier.5", (n_out, 256), n_out)
+    return sd
+
+
+def _port_model(arch: str, deep_supervision: bool = False):
+    if arch == "MTnnUNet":
+        return registry.init_multitask_model(arch, nnunet_widths=WIDTHS,
+                                             deep_supervision=deep_supervision)
+    if arch == "nnUNet":
+        return registry.init_segmentation_model(arch, nnunet_widths=WIDTHS,
+                                                deep_supervision=deep_supervision)
+    return registry.init_classification_model(arch, n_classes=3, nnunet_widths=WIDTHS)
+
+
+@pytest.mark.parametrize("arch,deep_supervision", [
+    ("MTnnUNet", False), ("MTnnUNet", True), ("nnUNet", False), ("nnUNet", True),
+    ("nnUNetClassifier", False),
+])
+def test_convert_matches_the_jax_importer(arch, deep_supervision):
+    sd = reference_state_dict(arch)
+    params, stats = jax_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision)
+    assert stats == {}
+    want = params_from_jax(params)
+    got = torch_import.convert_state_dict(arch, sd)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    _port_model(arch, deep_supervision).load_state_dict(got, strict=True)
+    if arch == "nnUNetClassifier":
+        assert "decoder4.ConvInNormLRelu1.Conv.weight" in sd and not any(
+            k.startswith(("decoder4", "upsample4")) for k in got)
+    first = next(iter(got))
+    got[first].add_(1.0)  # a copy: the reference's tensor stays as it was
+    assert torch.equal(torch_import.convert_state_dict(arch, sd)[first], want[first])
+
+
+@pytest.mark.parametrize("arch", ["BTSUNet", "FSBBTSUNet", "ResidualUNet", "BTSUNetClassifier",
+                                  "Multi_BTSUNet", "Multi_FSB_BTSUNet", "Adityan"])
+def test_the_rest_of_the_zoo_waits_for_its_models(arch):
+    assert arch in jax_import._MAPPERS
+    with pytest.raises(NotImplementedError, match="the rest of the zoo"):
+        torch_import.convert_state_dict(arch, {})
+
+
+def test_unknown_architectures_and_missing_keys_raise():
+    with pytest.raises(ValueError, match="supported architectures"):
+        torch_import.convert_state_dict("UNet", {})
+    sd = reference_state_dict("nnUNet")
+    del sd["output1.bias"]
+    with pytest.raises(KeyError, match="output1.bias"):
+        torch_import.convert_state_dict("nnUNet", sd)
+
+
+@pytest.mark.parametrize("wrapped", [True, False])
+def test_cli_writes_a_checkpoint_of_the_port(tmp_path, monkeypatch, wrapped):
+    """``main`` on the reference's ``torch.save`` dict (or a bare
+    ``state_dict``): the written checkpoint is the converted weights; a
+    config of other widths is refused; without a GPU it raises unless asked
+    for the CPU."""
+    sd = reference_state_dict("MTnnUNet")
+    ref = tmp_path / "ref_fold_0"
+    torch.save({"epoch": 7, "val_loss": 0.5, "model_state_dict": sd} if wrapped else sd, ref)
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(config_to_yaml(Config(model=ModelConfig(architecture="MTnnUNet",
+                                                           nnunet_widths=list(WIDTHS)))))
+    out = tmp_path / "model_fold_0"
+    argv = ["--config", str(cfg), "--torch-checkpoint", str(ref), "--out", str(out)]
+    torch_import.main(argv + ["--device", "cpu"])
+
+    model = _port_model("MTnnUNet")
+    model.load_state_dict(torch_import.convert_state_dict("MTnnUNet", sd))
+    loaded = load_pretrained_model(create_train_state(_port_model("MTnnUNet"), "Adam", 1e-3),
+                                   str(out)).model
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 1, 32, 32))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        (want,), want_seg = model.eval()(x)
+        (got,), got_seg = loaded.eval()(x)
+    assert torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(got_seg, want_seg))
+    payload = torch.load(out, weights_only=True)
+    assert (payload["epoch"], payload["val_loss"]) == ((7, 0.5) if wrapped else (0, float("inf")))
+
+    cfg.write_text(config_to_yaml(Config(model=ModelConfig(architecture="MTnnUNet",
+                                                           nnunet_widths=[4, 8, 8, 16, 32]))))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        torch_import.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit):  # the JAX tool's --size: the port's models take any size
+        torch_import.main(argv + ["--device", "cpu", "--size", "256"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_import.main(argv)

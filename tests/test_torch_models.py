@@ -22,6 +22,7 @@ from multi_task_breast_cancer_tpu.serve.export import _flatten_variables
 from multi_task_breast_cancer_tpu_torch.models import blocks, registry
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
+    params_to_jax,
     widths_from_params,
 )
 
@@ -121,6 +122,26 @@ def test_deconv_and_deconv_head_tap_flip(kernel):
     head.load_state_dict(bad)
     with torch.inference_mode():
         assert np.abs(_nhwc(head(_nchw(x))) - want).max() > 1e-3
+
+
+@pytest.mark.parametrize("tree", ["MTnnUNet", "DeconvHead"])
+def test_params_to_jax_inverts_params_from_jax(jax_mt, tree):
+    """``params_to_jax`` gives back the JAX tree exactly, leaf for leaf: convs,
+    dense layers and ``upsample*`` deconvs (MTnnUNet), and the fused head's
+    ``deconv_kernel`` and ``conv1x1_kernel``."""
+    if tree == "MTnnUNet":
+        params = jax.tree_util.tree_map(np.asarray, jax_mt[0]["params"])
+    else:
+        x = jnp.zeros((1, 5, 6, 3))
+        params = {"output": jax.tree_util.tree_map(
+            np.asarray, jblocks.DeconvHead(3, 2, 4).init(jax.random.PRNGKey(3), x)["params"])}
+    back = params_to_jax(params_from_jax(params))
+    want = jax.tree_util.tree_leaves_with_path(params)
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == w.shape, path
+        np.testing.assert_array_equal(g, w, err_msg=str(path))
 
 
 def test_full_width_parameter_count_and_layout():

@@ -1,5 +1,5 @@
-"""Package rules of the PyTorch port: it imports neither JAX, flax, sklearn
-nor the JAX package, its entry points run on CUDA unless the CPU is asked
+"""Package rules of the PyTorch port: it imports neither JAX, flax, msgpack,
+sklearn nor the JAX package, its entry points run on CUDA unless the CPU is asked
 for, float32 on the card means float32 (TF32 off), and its copy of the config
 loads a YAML exactly as the JAX package's does."""
 
@@ -31,14 +31,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn', 'msgpack',\n"
         "              'multi_task_breast_cancer_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45  # every module was walked, the driver's too
+    names = set(out.stdout.split())
+    assert len(names) >= 54  # every module was walked, the driver's and the tools' too
+    tools = {"predict", "evaluate", "native", "data.holdout_check", "data.preprocessing",
+             "data.ssim", "models.torch_import", "train.flax_msgpack"}
+    assert {f"multi_task_breast_cancer_tpu_torch.{m}" for m in tools} <= names
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

@@ -180,8 +180,14 @@ def test_unported_options_raise(artifact, tmp_path):
     (bf16 / "manifest.json").write_text(json.dumps(manifest))
     with pytest.raises(NotImplementedError, match="bfloat16"):
         ArtifactBackend(str(bf16), device="cpu")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    # flax-msgpack checkpoints are read now (tests/test_torch_checkpoint_msgpack.py);
+    # a file that is neither format, or none at all, is refused
+    (tmp_path / "ckpt_fold_0").write_bytes(b"\x00not a checkpoint")
+    with pytest.raises(ValueError, match="neither a torch.save checkpoint nor a flax-msgpack"):
         CheckpointBackend(_port_cfg(), "multitask", checkpoint=str(tmp_path / "ckpt_fold_0"),
+                          device="cpu")
+    with pytest.raises(ValueError, match="No checkpoint found"):
+        CheckpointBackend(_port_cfg(), "multitask", checkpoint=str(tmp_path / "absent"),
                           device="cpu")
     cfg = Config(model=ModelConfig(architecture="BTSUNetClassifier"),
                  data=DataConfig(input_img="unused", classes=CLASSES))
