@@ -25,7 +25,8 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
 3. model: the full-width MTnnUNet (widths 32…320, seeded weights), batch 64 at
    128², with the kernel against the same model with the plain norm on the
    card and against the plain model on the CPU at batch 2; exactly 25 kernel
-   launches per forward; forward time and images/s;
+   launches per forward; forward time and images/s, f32 and bf16, and device
+   time by kernel class;
 4. serving, a main path: ``InferenceServer(CheckpointBackend(...))`` answers
    one raw plane on ``/predict`` and 64 raw planes on ``/predict_batch``; the
    records must equal the backend's direct answer; the kernel's launch count
@@ -58,11 +59,37 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    the plain-norm model against a float64 gradient on the card. Reports ms per step and images/s at
    batch 2 and 64, epoch seconds and a ``torch.profiler`` breakdown of one
    step; a second profile counts the launches from the augmentation to the
-   model's first convolution: the kernel alone, no cast or copy;
+   model's first convolution: the kernel alone, no cast or copy; the
+   batch-2 step with the norm dispatched through its
+   ``torch.autograd.Function`` and through its custom operator, in turns;
+   the trained state is saved as a checkpoint for 7b;
+7a. training in bf16, a main path: the same with ``training.compute_dtype:
+   bfloat16`` (bf16 copies of the f32 masters in each forward, channel pairs
+   in one augmentation plane): the same counts and no-op checks, a step's
+   profile that must show the bf16 builds of the norm kernels (25 + 25), the
+   augmentation path (the kernel and one unpacking copy), ms per step at
+   batch 2 and 64 beside 7's f32 and the peak memory; the step-0 loss
+   against the f32 Engine's (5e-2 relative), and the bf16 forward at batch
+   2 on the card against the CPU by the rule of ``tests/test_torch_bf16.py``;
+7b. export, a main path: ``python -m ...serve export`` in a process of its
+   own on 7's checkpoint writes an f32 raw artifact and a bf16
+   ``--device-postprocess`` one, programs for the CPU and the card at
+   buckets 1, 8, 64, each carrying no weight; ``ExportedModel`` runs 1, 5,
+   64 and 100 images (25 norm launches per bucket execution; f32 equal to
+   ``CheckpointBackend``'s direct answer to 1e-4 of the output scale); the
+   card's programs against the CPU's; the compact answer against the host
+   postprocessing of a raw bf16 program's outputs, exactly; ``serve run
+   --artifact`` in a process of its own answers ``/predict`` and a raw
+   ``/predict_batch`` of 64 as ``ArtifactBackend`` does directly; images/s
+   and latency of artifact and live backends, f32 and bf16, and the download
+   bytes per image;
 8. driver, a main path: ``run_experiment(cfg, "multitask", "CV")`` at the
    ``Config()`` defaults on a 450-image 128² synthetic BUSI tree (CV 2, 2
    epochs), the ``training_multitask`` CLI in a process of its own, a killed
    and resumed run, and ``CheckpointBackend`` on the run's checkpoint;
+8a. driver in bf16: ``run_experiment`` with ``compute_dtype: bfloat16`` at
+   full width (16 images per class, CV 2, 1 epoch): launches as the fold
+   sizes predict, f32 checkpoints;
 9. tools, the command-line tools at the ``Config()`` defaults on the card by
    default: (a) ``data.preprocessing.main`` on a raw BUSI-style tree of 450
    128² images (every PNG and mapping.csv row re-read as written); (b)
@@ -83,10 +110,13 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
 10. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
    paths, error, times and bound (``previous_ms``: the norm kernels' first,
    streaming design, and the augmentation's index-plane design, timed in the
-   same run); then, last,
+   same run), f32, and under ``bf16`` the bf16 builds' launches and rows
+   (#1, #2 at batches 2 and 64; #3 at P = 1, B = 2 and 64); then, last,
    ``{"ok": true, "device": ...}``.
 
-Tolerances. f32 kernel vs plain: 1e-5 absolute (the same f32 arithmetic,
+Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
+(two bf16 forwards round at other places, so each is held to its own f32
+answer). f32 kernel vs plain: 1e-5 absolute (the same f32 arithmetic,
 summed in another order). bf16 kernel vs plain: one bf16 ulp (2^-7 of the
 value), because the two sum in different orders and an f32 result beside a
 rounding boundary may round either way. Model outputs: 1e-4 of the output's
@@ -333,9 +363,9 @@ def phase_kernel(shapes: Counter) -> dict:
     floor = launch_floor_ms()
     result = {}
     for batch in (1, 2, BATCH):
-        totals = {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0}
-        bound_kinds, max_err = set(), 0.0
+        totals = {dt: {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0} for dt in (torch.float32, torch.bfloat16)}
+        bound_kinds, max_err = {dt: set() for dt in totals}, {dt: 0.0 for dt in totals}
         log(f"kernel instance_norm_leaky_relu at batch {batch}: {len(shapes)} shapes, "
             f"{sum(shapes.values())} sites per forward; new plan vs the streaming "
             f"design in turns")
@@ -360,24 +390,23 @@ def phase_kernel(shapes: Counter) -> dict:
                                       lambda: hk._forward(xd, 1e-5, 0.01, plan=old))
                 p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_reference(xd))
                 b_ms, kind = bound_ms(xd.numel(), xd.element_size())
-                line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
-                        f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
-                        f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
-                        f"bound {b_ms:.4f} ms ({kind})")
-                if dtype == torch.float32:
-                    max_err = max(max_err, err)
-                    l_ms = time_ms(lambda: F.leaky_relu(F.instance_norm(xd), 0.01))
-                    line += f"  library {l_ms:.4f} ms"
-                    for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
-                                   ("library_ms", l_ms), ("bound_ms", b_ms)):
-                        totals[key] += sites * v
-                    bound_kinds.add(kind)
-                log(line)
-        log(f"kernel totals over one f32 forward's {sum(shapes.values())} launches at "
-            f"batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in totals.items())
-            + f", launch floor {25 * floor:.4f}")
-        result[batch] = {"max_abs_err": max_err, "bound_by": "bytes"
-                         if bound_kinds == {"bytes"} else "operations", **totals}
+                l_ms = time_ms(lambda: F.leaky_relu(F.instance_norm(xd), 0.01))
+                log(f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
+                    f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
+                    f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                    f"bound {b_ms:.4f} ms ({kind})  library {l_ms:.4f} ms")
+                max_err[dtype] = max(max_err[dtype], err)
+                for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
+                               ("library_ms", l_ms), ("bound_ms", b_ms)):
+                    totals[dtype][key] += sites * v
+                bound_kinds[dtype].add(kind)
+        result[batch] = {}
+        for dt, tot in totals.items():
+            log(f"kernel totals over one {str(dt)[6:]} forward's {sum(shapes.values())} "
+                f"launches at batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+                + f", launch floor {25 * floor:.4f}")
+            result[batch][dt] = {"max_abs_err": max_err[dt], "bound_by": "bytes"
+                                 if bound_kinds[dt] == {"bytes"} else "operations", **tot}
 
     for shape, misaligned in EXTRA_SHAPES:
         x = torch.randn(*shape, device=DEVICE, generator=g) * 2.0 + 5.0
@@ -391,7 +420,7 @@ def phase_kernel(shapes: Counter) -> dict:
             log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
                 f"{plan_text(plan):28s} err {err:.3g}  "
                 f"kernel {time_ms(lambda: hk.instance_norm_leaky_relu(xd)):.4f} ms")
-    return result[BATCH]
+    return result[BATCH][torch.float32], {b: result[b][torch.bfloat16] for b in (2, BATCH)}
 
 
 def _max_rel_err(got, want) -> float:
@@ -447,17 +476,32 @@ def phase_model(model) -> None:
             f"= {BATCH / fwd_ms * 1e3:.1f} images/s; plain-norm model {plain_ms:.3f} ms")
         profile_forward(model, x)
 
+        # bf16: the model and the input cast, outputs to f32 (the serving
+        # backends' and the exported programs' bf16 forward)
+        del plain
+        m16 = MTnnUNet()
+        m16.load_state_dict(model.state_dict())
+        m16 = m16.to(DEVICE, torch.bfloat16).eval()
+        x16 = x.to(torch.bfloat16)
+        hk.instance_norm_leaky_relu.launches = 0
+        out16 = m16(x16)
+        torch.cuda.synchronize()
+        launches = hk.instance_norm_leaky_relu.launches
+        check(launches == 25, f"{launches} kernel launches in one bf16 forward, want 25")
+        err = _max_rel_err(_flat(out16), _flat(out))
+        log(f"model bf16 forward vs f32, batch {BATCH}: max err {err:.3g} of the output scale")
+        bf16_ms = time_ms(lambda: m16(x16), reps=10)
+        log(f"model forward (batch {BATCH}, {SIZE}^2, bf16): {bf16_ms:.3f} ms = "
+            f"{BATCH / bf16_ms * 1e3:.1f} images/s; f32 {fwd_ms:.3f} ms "
+            f"({fwd_ms / bf16_ms:.2f}x)")
+        profile_forward(m16, x16)
+        del m16
+
 
 def profile_forward(model, x) -> None:
     """Device time of one forward by kernel (torch.profiler), the largest
     first: where the forward's time goes."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        model(x)
-        torch.cuda.synchronize()
-    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
-                   for e in prof.key_averages()), reverse=True)
+    rows = profile_rows(lambda: model(x))
     total = sum(r[0] for r in rows)
     if total <= 0:
         log("profile of one forward: the profiler saw no device time (not measured)")
@@ -466,6 +510,7 @@ def profile_forward(model, x) -> None:
         f"launches of {len(rows)} kernels; by kernel:")
     for ms, count, name in rows[:8]:
         log(f"  {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<3d} {name[:100]}")
+    log_classes(rows, total)
 
 
 def _post(url: str, body: bytes, headers: dict) -> tuple:
@@ -574,9 +619,9 @@ def phase_backward_kernel(shapes: Counter) -> dict:
 
     result = {}
     for batch in (2, BATCH):
-        totals = {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0}
-        kinds, max_err = set(), 0.0
+        totals = {dt: {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "bound_ms": 0.0} for dt in (torch.float32, torch.bfloat16)}
+        kinds, max_err = {dt: set() for dt in totals}, {dt: 0.0 for dt in totals}
         log(f"backward kernel instance_norm_leaky_relu_backward at batch {batch}; "
             f"new plan vs the streaming design in turns:")
         for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
@@ -601,26 +646,25 @@ def phase_backward_kernel(shapes: Counter) -> dict:
                                       lambda: hk._backward(xd, gd, 1e-5, 0.01, plan=old))
                 p_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward_reference(xd, gd))
                 b_ms, kind = bound_ms(xd.numel(), xd.element_size(), 3, BWD_FLOPS_PER_ELEMENT)
-                line = (f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
-                        f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
-                        f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
-                        f"bound {b_ms:.4f} ms ({kind})")
-                if dtype == torch.float32:
-                    max_err = max(max_err, err)
-                    xr = xd.detach().requires_grad_()
-                    yr = F.leaky_relu(F.instance_norm(xr), 0.01)
-                    l_ms = time_ms(lambda: torch.autograd.grad(yr, xr, gd, retain_graph=True))
-                    del xr, yr
-                    line += f"  library {l_ms:.4f} ms"
-                    for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
-                                   ("library_ms", l_ms), ("bound_ms", b_ms)):
-                        totals[key] += sites * v
-                    kinds.add(kind)
-                log(line)
-        log(f"backward totals over one f32 step's {sum(shapes.values())} launches at "
-            f"batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()))
-        result[batch] = {"max_abs_err": max_err, "bound_by": "bytes"
-                         if kinds == {"bytes"} else "operations", **totals}
+                xr = xd.detach().requires_grad_()
+                yr = F.leaky_relu(F.instance_norm(xr), 0.01)
+                l_ms = time_ms(lambda: torch.autograd.grad(yr, xr, gd, retain_graph=True))
+                del xr, yr
+                log(f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
+                    f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms  "
+                    f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                    f"bound {b_ms:.4f} ms ({kind})  library {l_ms:.4f} ms")
+                max_err[dtype] = max(max_err[dtype], err)
+                for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
+                               ("library_ms", l_ms), ("bound_ms", b_ms)):
+                    totals[dtype][key] += sites * v
+                kinds[dtype].add(kind)
+        result[batch] = {}
+        for dt, tot in totals.items():
+            log(f"backward totals over one {str(dt)[6:]} step's {sum(shapes.values())} "
+                f"launches at batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+            result[batch][dt] = {"max_abs_err": max_err[dt], "bound_by": "bytes"
+                                 if kinds[dt] == {"bytes"} else "operations", **tot}
 
     for shape, misaligned in EXTRA_SHAPES:
         x = kink_free(shape, g)
@@ -637,7 +681,7 @@ def phase_backward_kernel(shapes: Counter) -> dict:
             k_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward(xd, gd))
             log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
                 f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms")
-    return result[2]
+    return result[2][torch.float32], {b: result[b][torch.bfloat16] for b in (2, BATCH)}
 
 
 def _special_draws(b: int, gen):
@@ -758,10 +802,12 @@ def phase_augment_kernel(index_plane_lib) -> dict:
     entry = index_plane_entry(index_plane_lib)
     floor = launch_floor_ms()
     gen = torch.Generator().manual_seed(4)
-    main = None
+    main, bf16 = None, {}
     log("augmentation kernel fast_augment (bit-exact against the plain pipeline); every "
         "plan, then the default plan vs the index-plane design in turns:")
-    for s, p, b in ((SIZE, 2, 2), (SIZE, 2, BATCH), (256, 3, 16), (16, 2, 8)):
+    # P = 2: f32 [mask | image] planes; P = 1: bf16 channel pairs, one plane
+    for s, p, b in ((SIZE, 2, 2), (SIZE, 2, BATCH), (SIZE, 1, 2), (SIZE, 1, BATCH),
+                    (256, 3, 16), (16, 2, 8)):
         n = b + 8
         packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, p, s, s), generator=gen,
                                dtype=torch.int32).to(DEVICE)
@@ -805,10 +851,13 @@ def phase_augment_kernel(index_plane_lib) -> dict:
             f"({100 * b_ms / k_ms:.0f} % of bound, {k_ms / floor:.2f}x the floor)  "
             f"index-plane design {o_ms * 1e3:.2f} us  plain {p_ms:.4f} ms  library none  "
             f"(copy_ of the same bytes {c_ms * 1e3:.2f} us)")
+        row = {"max_abs_err": 0.0, "ms": k_ms, "previous_ms": o_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": kind, "library_ms": None}
         if main is None:
-            main = {"max_abs_err": 0.0, "ms": k_ms, "previous_ms": o_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": kind, "library_ms": None}
-    return main
+            main = row
+        if s == SIZE and p == 1:
+            bf16[b] = row
+    return main, bf16
 
 
 def synthetic_fold(n: int, seed: int):
@@ -877,9 +926,11 @@ def _same_state(a, b) -> bool:
                     for x, y in zip(a[1], b[1])))
 
 
-def phase_training() -> tuple:
+def phase_training(work: str) -> tuple:
     """The training main path; returns the launches of its two epochs
-    (forward norm, backward norm, augmentation)."""
+    (forward norm, backward norm, augmentation), its timings, and the
+    checkpoint of its trained state written under ``work`` (the export
+    phase's input)."""
     import numpy as np
     import torch
     from multi_task_breast_cancer_tpu_torch.config import Config
@@ -889,6 +940,7 @@ def phase_training() -> tuple:
         Engine, plan_epoch_indices, step_valid_mask)
     from multi_task_breast_cancer_tpu_torch.train.optim import (
         CosineAnnealingScheduler, init_lr_scheduler, set_learning_rate)
+    from multi_task_breast_cancer_tpu_torch.train.checkpoint import save_checkpoint
     from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
 
     cfg = Config()
@@ -939,6 +991,8 @@ def phase_training() -> tuple:
     check(fwd == 25 * (steps + 2) and bwd == 25 * steps and aug == steps,
           f"launch counts {launches}, want ({25 * (steps + 2)}, {25 * steps}, {steps})")
     check(state.step == steps, f"state.step {state.step} after {steps} real steps")
+    ckpt = os.path.join(work, "model_smoke_fold_0")
+    save_checkpoint(ckpt, state, epoch=2, val_loss=vm["loss"])
 
     # padding steps are no-ops: an epoch of only padding steps
     before = _snapshot(state)
@@ -962,23 +1016,64 @@ def phase_training() -> tuple:
         f"epoch of {real_steps} steps + validation {epoch_s[1]:.3f} s")
     profile_step(engine, state, train, perm[:b], gen, step_ms)
     profile_augmentation_path(engine, state, train, perm[:b], gen)
+    dispatch_cost(engine, state, train, perm, gen)
     del engine, state, train, val
     torch.cuda.empty_cache()
-    train_step_ms_64()
+    ms_64 = train_step_ms_64(cfg)
 
     comparisons(cfg, init_weights, train_ds)
-    return launches
+    return launches, {"step_ms": step_ms, "step_ms_64": ms_64}, ckpt
 
 
-def train_step_ms_64() -> None:
+def dispatch_cost(engine, state, data, perm, gen) -> None:
+    """The eager batch-2 step with the fused norm called through its
+    ``torch.autograd.Function`` (the eager path) and through its custom
+    operator (the path ``torch.export`` traces), epochs in turns (Function,
+    operator, operator, Function, twice) on the host clock: what the
+    operator's dispatch would cost the host-bound step."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models import blocks
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    def via_op(x, eps=1e-5, slope=0.01):
+        return hk.instance_norm_leaky_relu_op(x, eps, slope)
+
+    steps = len(perm) // engine.cfg.batch_size
+
+    def epoch_ms(fn) -> float:
+        blocks.instance_norm_leaky_relu = fn
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.train_epoch(state, data, perm, gen)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / steps
+        finally:
+            blocks.instance_norm_leaky_relu = hk.instance_norm_leaky_relu
+
+    epoch_ms(via_op)  # warm-up of the operator's path
+    times = {hk.instance_norm_leaky_relu: [], via_op: []}
+    for fn in (hk.instance_norm_leaky_relu, via_op, via_op, hk.instance_norm_leaky_relu) * 2:
+        times[fn].append(epoch_ms(fn))
+    fn_ms = statistics.median(times[hk.instance_norm_leaky_relu])
+    op_ms = statistics.median(times[via_op])
+    log(f"  norm dispatch, batch-{engine.cfg.batch_size} step in turns ({steps} steps an "
+        f"epoch, 4 epochs each, medians): torch.autograd.Function {fn_ms:.3f} ms, custom "
+        f"operator {op_ms:.3f} ms ({100 * (op_ms / fn_ms - 1):+.1f} %); epochs "
+        f"{[round(t, 3) for t in times[hk.instance_norm_leaky_relu]]} vs "
+        f"{[round(t, 3) for t in times[via_op]]}")
+
+
+def train_step_ms_64(cfg) -> float:
+    """ms per training step at batch 64 in ``cfg``'s compute dtype, and the
+    peak memory of that epoch."""
     import numpy as np
     import torch
-    from multi_task_breast_cancer_tpu_torch.config import Config
     from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
     from multi_task_breast_cancer_tpu_torch.train.loop import Engine, plan_epoch_indices
     from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
 
-    cfg, n = Config(), 4 * BATCH
+    n = 4 * BATCH
     engine = Engine(init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0)),
                     _engine_config(cfg, batch_size=BATCH), device=DEVICE)
     state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
@@ -986,28 +1081,74 @@ def train_step_ms_64() -> None:
     gen, rng = torch.Generator().manual_seed(1), np.random.default_rng(1)
     engine.train_epoch(state, data, plan_epoch_indices(n, BATCH, rng), gen)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, tm = engine.train_epoch(state, data, plan_epoch_indices(n, BATCH, rng), gen)
     epoch_s = time.perf_counter() - t0
     check(np.isfinite(tm["loss"]), f"batch {BATCH} training loss {tm['loss']}")
-    log(f"  batch {BATCH}: epoch of {n // BATCH} steps {epoch_s:.3f} s = "
-        f"{epoch_s * 1e3 / (n // BATCH):.3f} ms per step = {n / epoch_s:.1f} images/s; "
+    step_ms = epoch_s * 1e3 / (n // BATCH)
+    log(f"  batch {BATCH}, {cfg.training.compute_dtype}: epoch of {n // BATCH} steps "
+        f"{epoch_s:.3f} s = {step_ms:.3f} ms per step = {n / epoch_s:.1f} images/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    rows = profile_rows(lambda: engine.train_epoch(
+        state, data, plan_epoch_indices(n, BATCH, rng)[:BATCH], gen))
+    total = sum(r[0] for r in rows)
+    if total > 0:
+        log(f"  profile of one batch-{BATCH} step: {total:.3f} ms device time in "
+            f"{sum(r[1] for r in rows)} launches")
+        log_classes(rows, total, "    ")
     del engine, state, data
     torch.cuda.empty_cache()
+    return step_ms
 
 
-def profile_step(engine, state, data, perm, gen, step_ms: float) -> None:
-    """Device time of one training step by kernel (torch.profiler)."""
+def kernel_class(name: str) -> str:
+    """The class of a device kernel, by its name, for the breakdowns."""
+    n = name.lower()
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "cuDNN layout conversions"
+    if "instance_norm_leaky_relu" in n:
+        return "norm backward (#2)" if "backward" in n else "norm forward (#1)"
+    if "fast_augment" in n:
+        return "augmentation (#3)"
+    if any(k in n for k in ("xmma", "cudnn", "conv", "fft", "dgrad", "wgrad", "winograd",
+                            "gemm", "cutlass", "sgemm", "implicit")):
+        return "convolutions and GEMMs (cuDNN, cuBLAS)"
+    if any(k in n for k in ("adam", "multi_tensor", "foreach")):
+        return "optimizer"
+    return "elementwise, copies, reductions"
+
+
+def log_classes(rows, total: float, indent: str = "  ") -> dict:
+    """Device ms by kernel class over profiler rows (ms, count, name)."""
+    classes = Counter()
+    for ms, _, name in rows:
+        classes[kernel_class(name)] += ms
+    log(f"{indent}device ms by kernel class: " + "; ".join(
+        f"{k} {v:.3f} ({100 * v / total:.1f} %)" for k, v in classes.most_common()))
+    return dict(classes)
+
+
+def profile_rows(fn) -> list:
+    """(device ms, launches, kernel name) of everything ``fn`` runs on the
+    card, from ``torch.profiler``, the largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        engine.train_epoch(state, data, perm, gen)
+        fn()
         torch.cuda.synchronize()
-    rows = sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
+    return sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
                    for e in prof.key_averages()), reverse=True)
+
+
+def profile_step(engine, state, data, perm, gen, step_ms: float, bf16: bool = False) -> None:
+    """Device time of one training step by kernel and by class
+    (torch.profiler); ``bf16``: the norm kernels that ran must be their bf16
+    builds, 25 forward and 25 backward."""
+    rows = profile_rows(lambda: engine.train_epoch(state, data, perm, gen))
     total = sum(r[0] for r in rows)
     if total <= 0:
+        check(not bf16, "bf16 step profile: the profiler saw no device time")
         log("  profile of one step: the profiler saw no device time (not measured)")
         return
     ours = {name: (ms, count) for ms, count, name in rows
@@ -1019,9 +1160,19 @@ def profile_step(engine, state, data, perm, gen, step_ms: float) -> None:
         log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:100]}")
     for name, (ms, count) in ours.items():
         log(f"    port kernel {name[:60]}: {ms:.3f} ms x{count} ({100 * ms / total:.1f} %)")
+    log_classes(rows, total, "    ")
+    if bf16:
+        norm = [(n, c) for _, c, n in rows if "instance_norm_leaky_relu" in n]
+        fwd = sum(c for n, c in norm if "backward" not in n and "bfloat16" in n)
+        bwd = sum(c for n, c in norm if "backward" in n and "bfloat16" in n)
+        log(f"    bf16 builds of the norm kernels in the step: {fwd} forward, {bwd} backward "
+            f"launches (of {sum(c for _, c in norm)} norm launches)")
+        check(fwd == 25 and bwd == 25 and sum(c for _, c in norm) == 50,
+              f"bf16 step: norm kernels {norm}, want the bf16 builds 25 + 25")
 
 
-def profile_augmentation_path(engine, state, data, perm, gen) -> None:
+def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
+                              casts: int = 0) -> None:
     """The launches of one training step from the augmentation to the
     model's first convolution, in the order the card ran them. Empty-kernel
     markers are launched just before and just after ``Engine._augmented_batch``
@@ -1029,7 +1180,9 @@ def profile_augmentation_path(engine, state, data, perm, gen) -> None:
     profiler's device events between them are the augmentation path's
     launches and what runs between it and the convolution. At 128² f32 the
     path is one launch, the kernel (no cast, no copy), and nothing runs
-    between it and the convolution."""
+    between it and the convolution; at bf16 (``unpack=1``) the kernel and one
+    copy that unpacks the channel pairs, and between it and the convolution
+    only the ``casts`` casts of the f32 parameters to their bf16 copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1072,9 +1225,10 @@ def profile_augmentation_path(engine, state, data, perm, gen) -> None:
     log(f"  augmentation path of one step (profile): {len(path)} launch(es) "
         f"{[n[:60] for n in path]}; {len(between)} launch(es) between it and the first "
         f"convolution; {len(copies)} copies or casts")
-    check(len(path) == 1 and "fast_augment" in path[0] and not between and not copies,
-          "the augmentation path at 128^2 f32 must be the kernel alone, with nothing "
-          "before the first convolution")
+    check(len(path) == 1 + unpack and "fast_augment" in path[0] and len(between) == casts
+          and len(copies) == unpack + casts,
+          f"the augmentation path at 128^2 must be the kernel and {unpack} unpacking "
+          f"copies, with {casts} parameter casts before the first convolution")
 
 
 def comparisons(cfg, init_weights, train_ds) -> None:
@@ -1148,6 +1302,435 @@ def comparisons(cfg, init_weights, train_ds) -> None:
     check(not bad, f"step-0 gradients: the kernel model is further from the f64 gradient "
                    f"than the plain-norm model: {bad[:3]}")
     torch.backends.cudnn.deterministic = False
+
+
+BF16_LOSS_REL_TOL = 5e-2
+# one bf16 forward against another (card against CPU, or the port against
+# JAX in tests/test_torch_bf16.py): 5e-2 of the output scale
+BF16_CROSS_REL_TOL = 5e-2
+
+
+def _bf16_config():
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    cfg = Config()
+    cfg.training.compute_dtype = "bfloat16"
+    return cfg
+
+
+def phase_training_bf16(f32: dict) -> tuple:
+    """The training main path in bf16 (``training.compute_dtype:
+    bfloat16``, else ``Config()`` defaults): two epochs on phase 7's fold,
+    launch counts, padding no-ops, the bf16 builds in a step's profile, the
+    augmentation path (the kernel and one unpacking copy), ms per step at
+    batch 2 and 64 beside phase 7's f32 numbers, and the step-0 loss and the
+    forward against f32 and against the CPU. Returns the launches of its two
+    epochs."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.ops.losses import check_finite_loss
+    from multi_task_breast_cancer_tpu_torch.train.loop import (
+        Engine, plan_epoch_indices, step_valid_mask)
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = _bf16_config()
+    b = cfg.data.batch_size
+    model = init_multitask_model(cfg.model.architecture, generator=torch.Generator().manual_seed(0))
+    init_weights = {k: v.clone() for k, v in model.state_dict().items()}
+    engine = Engine(model, _engine_config(cfg), device=DEVICE)
+    state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+    train_ds, val_ds = synthetic_fold(TRAIN_N, 10), synthetic_fold(VAL_N, 11)
+    real_steps = -(-TRAIN_N // b)
+    max_steps = real_steps + PAD_STEPS
+    train = engine.device_data(train_ds, pad_to=TRAIN_N)
+    val = engine.device_data(val_ds, for_training=False)
+    check(train["aug_packed"].shape[1] == 1, "bf16: [mask | image] must pack into one plane")
+    step_valid = step_valid_mask(TRAIN_N, b, max_steps)
+    host_rng = np.random.default_rng(cfg.training.seed)
+    gen = torch.Generator().manual_seed(cfg.training.seed)
+    log(f"training, bf16: {cfg.model.architecture} full width, batch {b}, compute_dtype "
+        f"{cfg.training.compute_dtype}, fast augmentation on channel pairs (P = 1), "
+        f"{real_steps} real + {PAD_STEPS} padding steps per epoch")
+
+    # the main path: two epochs
+    torch.cuda.synchronize()
+    _reset_counts()
+    epoch_s = []
+    for epoch in range(2):
+        t0 = time.perf_counter()
+        perm = plan_epoch_indices(TRAIN_N, b, host_rng, pad_to_steps=max_steps)
+        state, tm, vm = engine.train_and_eval_epoch(state, train, val, perm, gen, step_valid)
+        check_finite_loss(tm["loss"])
+        check_finite_loss(vm["loss"])
+        epoch_s.append(time.perf_counter() - t0)
+        log(f"  epoch {epoch}: {epoch_s[-1]:.3f} s; train loss {tm['loss']:.5f} (seg "
+            f"{tm['seg_loss']:.5f}, cls {tm['cls_loss']:.5f}, dice {tm['dice']:.4f}); val loss "
+            f"{vm['loss']:.5f} acc {vm['acc']:.3f}")
+    fwd, bwd, aug = launches = _counts()
+    steps = 2 * real_steps
+    log(f"  launches over the two epochs: {fwd} norm forward, {bwd} norm backward, "
+        f"{aug} augmentation, for {steps} real steps and 2 validation passes")
+    check(fwd == 25 * (steps + 2) and bwd == 25 * steps and aug == steps,
+          f"bf16 launch counts {launches}, want ({25 * (steps + 2)}, {25 * steps}, {steps})")
+    check(all(p.dtype == torch.float32 for p in state.model.parameters()),
+          "bf16: the master parameters must stay f32")
+
+    before = _snapshot(state)
+    _reset_counts()
+    engine.train_epoch(state, train, plan_epoch_indices(TRAIN_N, b, host_rng)[:PAD_STEPS * b],
+                       gen, np.zeros(PAD_STEPS, np.float32))
+    check(_counts() == (0, 0, 0) and _same_state(before, _snapshot(state)),
+          "bf16: padding steps changed the state or launched a kernel")
+    log(f"  {PAD_STEPS} padding steps: no launch, state bit-identical")
+
+    perm = plan_epoch_indices(TRAIN_N, b, host_rng)
+    engine.train_epoch(state, train, perm, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_epoch(state, train, perm, gen)
+    step_ms = (time.perf_counter() - t0) * 1e3 / real_steps
+    log(f"  batch {b}, bf16: {step_ms:.3f} ms per training step = {b / step_ms * 1e3:.1f} "
+        f"images/s; f32 in phase 7 of this run {f32['step_ms']:.3f} ms")
+    profile_step(engine, state, train, perm[:b], gen, step_ms, bf16=True)
+    profile_augmentation_path(engine, state, train, perm[:b], gen, unpack=1,
+                              casts=len(list(engine.model.parameters())))
+    del engine, state, train, val
+    torch.cuda.empty_cache()
+    ms_64 = train_step_ms_64(cfg)
+    log(f"  batch {BATCH}: bf16 {ms_64:.3f} ms per step, f32 in phase 7 of this run "
+        f"{f32['step_ms_64']:.3f} ms ({f32['step_ms_64'] / ms_64:.2f}x)")
+    bf16_against_f32(init_weights, train_ds)
+    return launches
+
+
+def bf16_against_f32(init_weights, train_ds) -> None:
+    """Step-0 loss of the bf16 Engine against the f32 Engine's on the same
+    weights and batch; the bf16 forward on the card against the port's bf16
+    forward on the CPU at batch 2, by the rule of ``tests/test_torch_bf16.py``:
+    each bf16 forward is measured against its own device's f32 forward, the
+    card's distance at most twice the CPU's or 1e-2 of the output scale, and
+    card against CPU within ``BF16_CROSS_REL_TOL`` of it."""
+    from multi_task_breast_cancer_tpu_torch.models.multitask import MTnnUNet
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    losses, outs = {}, {}
+    images = train_ds.images[:2]
+    for device in (DEVICE, "cpu"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = _bf16_config()
+            cfg.training.compute_dtype = dtype
+            model = MTnnUNet()
+            model.load_state_dict(init_weights)
+            engine = Engine(model, _engine_config(cfg, use_transforms=False), device=device)
+            state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+            outs[device, dtype] = [t.cpu() for t in _flat(engine.predict(state, images))]
+            if device == DEVICE:
+                data = engine.device_data(train_ds)
+                losses[dtype] = engine.train_epoch(state, data, [0, 1])[1]["loss"]
+    rel = abs(losses["bfloat16"] - losses["float32"]) / abs(losses["float32"])
+    log(f"  step-0 loss on the card: bf16 {losses['bfloat16']:.6f}, f32 "
+        f"{losses['float32']:.6f}: {rel:.3g} relative (tol {BF16_LOSS_REL_TOL})")
+    check(rel <= BF16_LOSS_REL_TOL, "bf16 step-0 loss against f32")
+    d_card = _max_rel_err(outs[DEVICE, "bfloat16"], outs[DEVICE, "float32"])
+    d_cpu = _max_rel_err(outs["cpu", "bfloat16"], outs["cpu", "float32"])
+    d_cross = _max_rel_err(outs[DEVICE, "bfloat16"], outs["cpu", "bfloat16"])
+    log(f"  bf16 forward, batch 2, against f32 on the same device: card {d_card:.3g}, CPU "
+        f"{d_cpu:.3g} of the output scale; card against CPU {d_cross:.3g}")
+    check(d_card <= max(2 * d_cpu, 1e-2) and d_cross <= BF16_CROSS_REL_TOL,
+          "bf16 forward: card against CPU")
+
+
+def phase_driver_bf16() -> tuple:
+    """A short bf16 ``run_experiment`` at full width (CV 2, 1 epoch, 16
+    images per class); returns its launches."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+    from multi_task_breast_cancer_tpu_torch.train import driver as D
+
+    tmp = tempfile.mkdtemp(prefix="mtbc_bf16_driver_")
+    try:
+        root = make_preprocessed_busi(os.path.join(tmp, "small"),
+                                      n_per_class=DRIVER_SMALL_PER_CLASS, size=SIZE, seed=1)
+        cfg = _driver_config(root, 2, 1, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        run = D.run_experiment(cfg, "multitask", "CV", run_root=os.path.join(tmp, "runs"),
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        _check_run_dir(run, "multitask", "CV", 2, 1)
+        steps = sum(-(-tr // cfg.data.batch_size) for tr, _, _ in _fold_sizes(run))
+        want = (25 * (steps + 2 * 2), 25 * steps, steps)
+        for n in range(2):
+            d = os.path.join(run, "fold_0" if n == 0 else "fold_1")
+            (ckpt,) = [f for f in os.listdir(d) if f.startswith("model_")]
+            payload = torch.load(os.path.join(d, ckpt), map_location="cpu", weights_only=False)
+            check(all(v.dtype == torch.float32 for v in payload["model_state_dict"].values()),
+                  "bf16 driver: a checkpoint holds other than f32 masters")
+        log(f"driver, bf16: run_experiment ({DRIVER_SMALL_PER_CLASS} images per class, CV 2, "
+            f"1 epoch, full widths) {run_s:.2f} s; launches {launches}, the fold sizes predict "
+            f"{want}; checkpoints hold f32; metrics.csv {[_metric_rows(run, n)[1:] for n in range(2)]}")
+        check(launches == want, f"bf16 driver launch counts {launches}, want {want}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+EXPORT_BUCKETS = (1, 8, 64)
+EXPORT_PLATFORMS = ("cpu", "cuda")
+EXPORT_COUNTS = (1, 5, 64, 100)   # one image, a padded bucket, a full one, chunks + tail
+# the bf16 artifact's card program against its CPU program: cuDNN's bf16
+# convolutions and the CPU's round at other places, so 1e-4 of the scale
+# cannot hold; an H100 read probabilities 2.1e-4 to 8.6e-4 apart and 48 to
+# 63 of 16,384 mask pixels flipped at the threshold over four runs (PERF.md)
+BF16_PROBS_ATOL, BF16_MASK_SHARE = 3e-3, 0.01
+
+
+def _export_clis(jobs, ckpt: str, work: str) -> float:
+    """``python -m ...serve export`` for each ``(cfg, out, postprocess)`` of
+    ``jobs``, each in a process of its own, all started together, on the
+    card by default (both program platforms); returns the seconds until the
+    last one ended."""
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    t0, procs = time.perf_counter(), []
+    try:
+        for k, (cfg, out, postprocess) in enumerate(jobs):
+            cfg_path = os.path.join(work, f"export_{k}.yaml")
+            with open(cfg_path, "w") as f:
+                f.write(config_to_yaml(cfg))
+            cmd = [sys.executable, "-m", "multi_task_breast_cancer_tpu_torch.serve", "export",
+                   "--config", cfg_path, "--task", "multitask", "--checkpoint", ckpt,
+                   "--output", out, "--buckets", ",".join(map(str, EXPORT_BUCKETS)),
+                   "--size", str(SIZE), "--platforms", ",".join(EXPORT_PLATFORMS)]
+            cmd += ["--device-postprocess"] if postprocess else []
+            procs.append(subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                          stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                          text=True))
+        for proc in procs:
+            _, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"serve export exited {proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    want = sorted([f"fwd_b{b}.{p}.pt2" for b in EXPORT_BUCKETS for p in EXPORT_PLATFORMS]
+                  + ["manifest.json", "weights.npz"])
+    for _, out, _ in jobs:
+        names = sorted(os.listdir(out))
+        check(names == want, f"artifact files {names}, want {want}")
+    return time.perf_counter() - t0
+
+
+def _median_ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _start_server(artifact: str):
+    """``serve run --artifact`` in a process of its own on a free local
+    port; returns (process, port, start time)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multi_task_breast_cancer_tpu_torch.serve", "run", "--artifact",
+         artifact, "--host", "127.0.0.1", "--port", str(port), "--max-batch", str(BATCH)]
+        + _device_args(),
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    return proc, port, time.perf_counter()
+
+
+def _query_server(proc, port: int, started: float, planes) -> tuple:
+    """Wait for the server's ``/healthz``, then ``/predict`` one raw plane
+    and ``/predict_batch`` all of ``planes``: (record, batch answer, ms, ms,
+    seconds from the process's start to its first health answer)."""
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 300
+    while True:
+        try:
+            with urllib.request.urlopen(base + "/healthz", timeout=5) as resp:
+                health = json.loads(resp.read())
+            break
+        except OSError:
+            if proc.poll() is not None:
+                check(False, f"serve run exited {proc.returncode}: {proc.stderr.read()[-3000:]}")
+            check(time.monotonic() < deadline, "serve run did not come up in 300 s")
+            time.sleep(0.2)
+    up_s = time.perf_counter() - started
+    check(health["model"]["backend"] == "artifact" and DEVICE in health["model"]["device"],
+          f"serve run: {health['model']}")
+    one, one_ms = _post(base + "/predict", planes[0].tobytes(), {})
+    many, many_ms = _post(base + "/predict_batch", planes.tobytes(),
+                          {"X-Image-Count": str(len(planes))})
+    return one, many, one_ms, many_ms, up_s
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def phase_export(ckpt: str, work: str) -> tuple:
+    """``serve export`` and ``serve run --artifact`` on phase 7's
+    checkpoint: an f32 raw artifact and a bf16 device-postprocessed one, each
+    with programs for the CPU and the card at buckets 1, 8, 64. Returns the
+    norm launches of the phase's in-process executions on the card, all and
+    those of the bf16 programs."""
+    from multi_task_breast_cancer_tpu_torch.config import Config
+
+    arts = {"f32": os.path.join(work, "artifact_f32"), "bf16": os.path.join(work, "artifact_bf16")}
+    export_s = _export_clis([(Config(), arts["f32"], False), (_bf16_config(), arts["bf16"], True)],
+                            ckpt, work)
+    server = _start_server(arts["bf16"])  # comes up while the checks below run
+    try:
+        launches = _export_checks(ckpt, work, arts, export_s, server)
+    finally:
+        _stop(server[0])
+    return launches
+
+
+def _export_checks(ckpt: str, work: str, arts: dict, export_s: float, server) -> tuple:
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.serve import export as E
+    from multi_task_breast_cancer_tpu_torch.serve.post import postprocess, postprocess_compact
+    from multi_task_breast_cancer_tpu_torch.serve.server import ArtifactBackend, CheckpointBackend
+
+    for name, art in arts.items():
+        program = torch.export.load(os.path.join(art, E.program_name(BATCH, DEVICE)))
+        nodes = sum("mtbc_torch" in str(n.target) for n in program.graph.nodes
+                    if n.op == "call_function")
+        check(len(program.state_dict) == 0 and len(program.constants) == 0 and nodes == 25,
+              f"{name} artifact: the program carries weights or lacks the norm nodes ({nodes})")
+    log(f"export: serve export, f32 raw and bf16 --device-postprocess, a process each, "
+        f"started together (buckets {EXPORT_BUCKETS}, {' and '.join(EXPORT_PLATFORMS)} "
+        f"programs): {export_s:.1f} s; every program's state_dict empty, 25 norm nodes")
+
+    images = np.random.default_rng(21).integers(0, 256, (max(EXPORT_COUNTS), SIZE, SIZE, 1),
+                                                dtype=np.uint8)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    m32 = E.ExportedModel(arts["f32"], device=DEVICE)
+    m32.preload()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m32.predict(images[:1])
+    log(f"  f32 artifact: loaded (weights, {len(m32.buckets)} programs) in {load_s:.2f} s; "
+        f"first execution {time.perf_counter() - t0:.2f} s")
+    live32 = CheckpointBackend(Config(), "multitask", checkpoint=ckpt, max_batch=BATCH,
+                               device=DEVICE)
+    for n in EXPORT_COUNTS:
+        before = _counts()[0]
+        got = m32.predict(images[:n])
+        launches = _counts()[0] - before
+        runs = m32._plan(n)
+        want = live32.predict(images[:n])
+        err = _max_rel_err([torch.from_numpy(a) for a in _flat(got)],
+                           [torch.from_numpy(a) for a in _flat(want)])
+        same = all(np.array_equal(a, b) for a, b in zip(_flat(got), _flat(want)))
+        log(f"  f32 artifact, {n} images: buckets {runs}, {launches} norm launches; against "
+            f"CheckpointBackend's direct answer max err {err:.3g} of the output scale "
+            f"({'bit-equal' if same else 'not bit-equal'})")
+        check(launches == 25 * len(runs), f"export: {launches} launches for buckets {runs}")
+        check(err <= SERVE_REL_TOL, "f32 artifact against the live backend")
+
+    # the card's programs against the CPU programs of the same artifacts
+    cpu32 = E.ExportedModel(arts["f32"], device="cpu")
+    card, cpu = _flat(m32.predict(images[:1])), _flat(cpu32.predict(images[:1]))
+    err32 = _max_rel_err([torch.from_numpy(a) for a in card], [torch.from_numpy(a) for a in cpu])
+    m16 = E.ExportedModel(arts["bf16"], device=DEVICE)
+    p16 = E.ExportedModel(arts["bf16"], device="cpu").predict(images[:1])
+    before = _counts()[0]
+    c16 = m16.predict(images[:1])
+    perr16 = float(np.abs(c16["probs"] - p16["probs"]).max())
+    k16 = int((c16["mask"] != p16["mask"]).sum())
+    log(f"  card program against CPU program, 1 image: f32 max err {err32:.3g} of the output "
+        f"scale (tol {MODEL_REL_TOL}); bf16 compact: probabilities {perr16:.3g} apart (tol "
+        f"{BF16_PROBS_ATOL}), {k16} mask pixels differ (tol {BF16_MASK_SHARE:.0%})")
+    check(err32 <= MODEL_REL_TOL, "f32 artifact: card program against CPU program")
+    check(perr16 <= BF16_PROBS_ATOL and k16 <= BF16_MASK_SHARE * SIZE * SIZE,
+          "bf16 artifact: card program against CPU program")
+
+    # the compact answer against the host postprocessing of the same
+    # program's raw outputs (a bf16 raw program of the same weights)
+    raw_dir = os.path.join(work, "artifact_bf16_raw")
+    E.export_inference(_bf16_config(), "multitask", ckpt, raw_dir, buckets=(BATCH,),
+                       size=SIZE, platforms=(DEVICE,))
+    raw16 = E.ExportedModel(raw_dir, device=DEVICE).predict(images[:BATCH])
+    compact16 = m16.predict(images[:BATCH])
+    bf16_launches = _counts()[0] - before
+    check(bf16_launches == 3 * 25, f"bf16 programs: {bf16_launches} norm launches in 3 "
+                                   f"bucket executions on the card")
+    host = postprocess(raw16, "multitask", 3, True, False)
+    dev = postprocess_compact(compact16, "multitask", 3, True)
+    same = (np.array_equal(dev.masks, host.masks) and dev.pred_class == host.pred_class
+            and np.array_equal(compact16["tumor_pixels"], host.masks.sum(axis=(1, 2))))
+    log(f"  bf16 compact answer of {BATCH} images against host postprocess of the raw "
+        f"program's outputs: masks, classes and pixel counts "
+        f"{'equal' if same else 'DIFFER'}; probabilities "
+        f"{float(np.abs(dev.probs - host.probs).max()):.3g} apart")
+    check(same and np.allclose(dev.probs, host.probs, rtol=0, atol=1e-6),
+          "bf16 compact answer against host postprocess")
+    launches = _counts()[0], bf16_launches
+
+    # serve run --artifact in a process of its own
+    planes = images[:BATCH, ..., 0]
+    one, many, one_ms, many_ms, up_s = _query_server(*server, planes)
+    direct = ArtifactBackend(arts["bf16"], device=DEVICE)
+    want = direct.postprocess(direct.predict(planes[..., None]))
+    _check_records([one], direct.postprocess(direct.predict(planes[:1, ..., None])),
+                   "serve run --artifact /predict")
+    check(many["count"] == BATCH, f"/predict_batch count {many['count']}")
+    _check_records(many["predictions"], want, "serve run --artifact /predict_batch")
+    log(f"  serve run --artifact (bf16, device postprocess) in its own process: up (programs "
+        f"loaded) {up_s:.1f} s after its start; first /predict {one_ms:.1f} ms, "
+        f"/predict_batch of {BATCH} raw planes {many_ms:.1f} ms; records equal "
+        f"ArtifactBackend's direct answer")
+
+    # artifact against live backend, f32 and bf16: images/s and latency of
+    # the backend's answer (predict + postprocess), and download bytes
+    x64, x1 = images[:BATCH], images[:1]
+    cfg16 = _bf16_config()
+    backends = {"f32 artifact": ArtifactBackend(arts["f32"], device=DEVICE),
+                "f32 live": live32,
+                "bf16 artifact (device postprocess)": direct,
+                "bf16 live": CheckpointBackend(cfg16, "multitask", checkpoint=ckpt,
+                                               max_batch=BATCH, device=DEVICE)}
+    for name, be in backends.items():
+        batch_ms = _median_ms(lambda: be.postprocess(be.predict(x64)), 5)
+        one_ms = _median_ms(lambda: be.postprocess(be.predict(x1)), 10)
+        log(f"  {name}: {BATCH} images {batch_ms:.2f} ms = {BATCH / batch_ms * 1e3:.1f} "
+            f"images/s; 1 image {one_ms:.2f} ms (host clock, upload to postprocessed answer)")
+    raw = m32.predict(x64)
+    raw_b = sum(a.nbytes for a in _flat(raw)) / BATCH
+    compact_b = sum(compact16[k].nbytes for k in ("probs", "mask", "tumor_pixels")) / BATCH
+    packed_b = compact_b - compact16["mask"].nbytes / BATCH * 7 / 8
+    log(f"  download bytes per image: raw {raw_b:.0f}, compact {compact_b:.0f}, compact with "
+        f"the mask bit-packed {packed_b:.0f}")
+    del backends, m32, m16, cpu32, live32, direct
+    torch.cuda.empty_cache()
+    return launches
 
 
 DRIVER_COUNTS = {"benign": 222, "malignant": 164, "normal": 64}  # Curated BUSI
@@ -1906,6 +2489,7 @@ def phase_tools() -> int:
 
 
 def main() -> int:
+    import tempfile
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
     from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
@@ -1917,29 +2501,42 @@ def main() -> int:
     model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
     model = model.to(DEVICE).eval()
     shapes = norm_shapes(model, DEVICE)
-    kernel = phase_kernel(shapes)
+    kernel, kernel_bf16 = phase_kernel(shapes)
     phase_model(model)
     del model
     torch.cuda.empty_cache()
     serve_launches = phase_serving()
-    backward = phase_backward_kernel(shapes)
-    augment = phase_augment_kernel(index_plane_lib)
-    fwd, bwd, aug = phase_training()
+    backward, backward_bf16 = phase_backward_kernel(shapes)
+    augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
+    work = tempfile.mkdtemp(prefix="mtbc_smoke_")
+    try:
+        (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
+        h_fwd, h_bwd, h_aug = phase_training_bf16(f32_times)
+        e_fwd, e16_fwd = phase_export(ckpt, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     d_fwd, d_bwd, d_aug = phase_driver()
+    b_fwd, b_bwd, b_aug = phase_driver_bf16()
     t_fwd = phase_tools()
+
+    def bf16_rows(rows, key):
+        return {f"{key}_{b}": row for b, row in sorted(rows.items())}
 
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd + d_fwd + t_fwd, **kernel},
+         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd, **kernel,
+         "bf16": {"launches": h_fwd + e16_fwd + b_fwd, **bf16_rows(kernel_bf16, "batch")}},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
-         "launches": bwd + d_bwd, **backward},
+         "launches": bwd + h_bwd + d_bwd + b_bwd, **backward,
+         "bf16": {"launches": h_bwd + b_bwd, **bf16_rows(backward_bf16, "batch")}},
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug + d_aug, **augment}]}))
+         "launches": aug + h_aug + d_aug + b_aug, **augment,
+         "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

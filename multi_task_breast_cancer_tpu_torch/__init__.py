@@ -13,8 +13,12 @@ training so far:
   and device metrics;
 - :mod:`.train` — the epoch ``Engine``, optimizers, schedulers, train state;
 - :mod:`.data` — the in-memory fold and the exact joint augmentation;
-- :mod:`.serve` — the micro-batching HTTP server over a live model or a JAX
-  serving artifact's weights.
+- :mod:`.serve` — serving artifacts (``serve export``: ``torch.export``
+  programs) and the micro-batching HTTP server over a live model, a port
+  artifact or a JAX serving artifact's weights.
+
+Every path computes in float32 (TF32 off) or, with ``training.compute_dtype:
+bfloat16``, in bf16 with f32 master weights, losses and metrics.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`.device.resolve_device`).

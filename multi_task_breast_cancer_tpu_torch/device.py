@@ -6,6 +6,9 @@ from typing import Optional, Union
 
 import torch
 
+# the compute dtypes of ``training.compute_dtype``, by name
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` → ``cuda:0``. A CUDA device without a usable GPU raises
@@ -23,11 +26,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def set_float32_policy(device: torch.device, compute_dtype: str) -> None:
-    """``compute_dtype == "float32"`` on a CUDA device computes in float32:
-    TF32 off in cuDNN convolutions and in matmuls, which would otherwise keep
-    about 3 decimal digits and drift from the JAX reference for that reason
-    alone. The switches are process-wide; every entry point that builds a
-    model on the card (the Engine, the serving backends) calls this."""
-    if device.type == "cuda" and compute_dtype == "float32":
+    """Every float32 op on a CUDA device computes in float32: TF32 off in
+    cuDNN convolutions and in matmuls, which would otherwise keep about 3
+    decimal digits and drift from the JAX reference for that reason alone.
+    Under ``compute_dtype == "bfloat16"`` the model runs in bf16, and the f32
+    ops that remain (losses, metrics, Adam's update) stay float32 all the
+    same. The switches are process-wide; every entry point that builds a
+    model on the card (the Engine, the serving backends, the export) calls
+    this."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r} is not one of {sorted(COMPUTE_DTYPES)}")
+    if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -11,7 +11,9 @@ mode, ``src/dataset/BUSI_dataloader.py:221-244,371-377``).
 The checkpoint is the port's (``torch.save``) or the JAX driver's
 (flax-msgpack). Writes the driver's result CSVs, ``segs/`` and
 ``features_map/`` under ``--output``. Runs on ``cuda`` unless
-``--device cpu``.
+``--device cpu``, in ``training.compute_dtype`` as the driver's test phase
+does (the JAX tool builds its Engine without it, so it evaluates a bf16
+configuration in float32).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def main(argv=None) -> None:
                         alpha=cfg.training.alpha,
                         inversely_weighted=cfg.loss.inversely_weighted,
                         seg_criterion=cfg.loss.function,
-                        cls_criterion=cfg.loss.classification_criterion)
+                        cls_criterion=cfg.loss.classification_criterion,
+                        compute_dtype=cfg.training.compute_dtype)
     engine = Engine(_build_model(cfg, args.task), ecfg, device=device)
     state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
     state = load_pretrained_model(state, args.checkpoint)

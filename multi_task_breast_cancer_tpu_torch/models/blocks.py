@@ -59,7 +59,13 @@ class ConvInNormLeReLU(nn.Module):
     The norm and activation run as one fused kernel
     (:func:`~..ops.hopper_kernels.instance_norm_leaky_relu`). ``plain_norm``
     selects :class:`InstanceNorm` + ``F.leaky_relu`` instead, the twin of the
-    JAX default path; it exists to give a reference on the same device."""
+    JAX default path; it exists to give a reference on the same device.
+
+    bf16: both compute the statistics in f32. The JAX module and
+    :class:`InstanceNorm` round the normalised value to bf16 before the
+    LeakyReLU; the kernel applies the LeakyReLU in f32 and rounds once,
+    after it. On a negative value the two can differ by one bf16 ulp, which
+    the port-vs-JAX bf16 tolerance (``tests/test_torch_bf16.py``) covers."""
 
     def __init__(self, in_features: int, features: int, negative_slope: float = 0.01,
                  plain_norm: bool = False):

@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's parameter tree → the port's ``state_dict``,
-and back (``params_to_jax``, which writes JAX-format weights).
+and back (``params_to_jax``, which writes JAX-format weights;
+``flat_jax_weights``, a serving artifact's flat ``weights.npz``).
 
 The JAX tree is taken as numpy, nested (``variables["params"]``) or flat with
 ``/``-joined paths, as a JAX serving artifact's ``weights.npz`` stores it
@@ -106,6 +107,25 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(arr, np.float32)
     return tree
+
+
+def flat_jax_weights(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` as a JAX serving artifact's ``weights.npz``
+    holds it: ``/``-joined paths under ``params``
+    (``params/backbone/encoder1/block1/conv/kernel``), JAX layouts
+    (:func:`params_to_jax`). :func:`params_from_jax` reads it back."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, node) -> None:
+        for key in sorted(node):
+            path = f"{prefix}{_SEP}{key}"
+            if isinstance(node[key], Mapping):
+                walk(path, node[key])
+            else:
+                flat[path] = node[key]
+
+    walk("params", params_to_jax(state_dict))
+    return flat
 
 
 def _undeconv(w: np.ndarray) -> np.ndarray:

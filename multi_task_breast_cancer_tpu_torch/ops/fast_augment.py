@@ -131,15 +131,21 @@ def pack_channels(stack: torch.Tensor, compute_dtype: str
 
 def unpack_channels_nchw(out: torch.Tensor, fmt: AugFormat) -> torch.Tensor:
     """(B, P, S, S) int32 → (B, C, H, W) in the compute dtype: centred crop
-    and channel unpacking, the inverse of :func:`pack_channels`. A view of
-    ``out`` where it can be (f32); call ``.contiguous()`` before a kernel."""
+    and channel unpacking, the inverse of :func:`pack_channels`.
+
+    f32: a view of ``out``. bf16: one copy. Each int32 holds channel ``2p``
+    in its high half and ``2p + 1`` in its low half, so on a little-endian
+    device the int32 planes read as bf16 are (low, high) pairs: every channel
+    is a strided view, and one ``torch.stack`` writes them out channel-major,
+    (C, B, H, W) storage returned as a (B, C, H, W) view, so a one-channel
+    slice of the batch has exact NCHW strides (as the f32 planes do)."""
     oy = (fmt.canvas - fmt.height) // 2
     ox = (fmt.canvas - fmt.width) // 2
     out = out[:, :, oy:oy + fmt.height, ox:ox + fmt.width]
     if fmt.dtype == "bfloat16":
-        chans = unpack_bf16x2(out.permute(0, 2, 3, 1))            # (B,H,W,P,2)
-        chans = chans.reshape(*chans.shape[:3], 2 * fmt.n_planes)
-        return chans[..., :fmt.n_channels].permute(0, 3, 1, 2)
+        pairs = out.view(torch.bfloat16).unflatten(-1, (fmt.width, 2))  # (B,P,H,W,2)
+        chans = [pairs[:, c // 2, :, :, 1 - c % 2] for c in range(fmt.n_channels)]
+        return torch.stack(chans, dim=0).transpose(0, 1)
     return out.view(torch.float32)
 
 

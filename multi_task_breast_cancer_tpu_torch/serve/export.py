@@ -1,0 +1,324 @@
+"""Serving artifacts of the port (counterpart of
+``multi_task_breast_cancer_tpu/serve/export.py``): ``torch.export`` programs.
+
+An artifact is a directory:
+
+    manifest.json            the JAX manifest's keys (``torch_version`` in
+                             place of ``jax_version``) and ``"format":
+                             "torch.export"``
+    weights.npz              flat ``path -> array`` dump of the weights in the
+                             JAX layout (``params/backbone/.../kernel``), so a
+                             JAX tool reads it as it reads its own
+    fwd_b{B}.{platform}.pt2  one exported forward per batch bucket B and
+                             platform (``cpu``, ``cuda``)
+
+Design points, as in the JAX package:
+
+- **Fixed batch buckets**: one program per bucket; a request pads to the
+  smallest bucket that fits, so serving never traces online.
+- **Weights are an input, not a constant**: each program takes the flat
+  weights and calls the model functionally on them. The model it traces
+  holds its parameters on the ``meta`` device and is not a registered child
+  of the traced module, so no program carries a weight (its ``state_dict``
+  is empty): ``weights.npz`` can be swapped without exporting again, and N
+  buckets hold no N copies.
+- **One program per platform**: the trace records device assertions
+  (``aten._assert_tensor_metadata``), so a program runs on the device it was
+  traced for. Exporting ``cuda`` needs a card; it is never skipped.
+- **The fused norm is one node** of each program, the custom operator
+  ``mtbc_torch::instance_norm_leaky_relu`` (:mod:`..ops.hopper_kernels`): on
+  the card it launches the kernel, 25 times per MTnnUNet forward. Loading an
+  artifact imports that operator library and nothing of the model zoo.
+- **bf16**: the program casts the f32 weights and the input to bf16 and its
+  outputs to f32, as JAX's does.
+- **Device-side postprocessing** (``device_postprocess=True``): the program
+  emits the serving answer (:func:`_compact_outputs`): probabilities (f32),
+  the mask as uint8 and the pixel counts the prediction-refinement rule
+  needs. :class:`ExportedModel` bit-packs a binary mask on the device before
+  the download (``np.unpackbits`` order).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multi_task_breast_cancer_tpu_torch.device import (
+    COMPUTE_DTYPES,
+    resolve_device,
+    set_float32_policy,
+)
+from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
+    flat_jax_weights,
+    params_from_jax,
+)
+from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels  # noqa: F401  (the operator library)
+from multi_task_breast_cancer_tpu_torch.utils.trees import tree_map
+
+MANIFEST = "manifest.json"
+WEIGHTS = "weights.npz"
+FORMAT = "torch.export"
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length() if n > 1 else 1
+
+
+def program_name(bucket: int, platform: str) -> str:
+    return f"fwd_b{bucket}.{platform}.pt2"
+
+
+def _compact_outputs(out, task: str, n_classes: int,
+                     softmax_in_forward: bool) -> Dict[str, torch.Tensor]:
+    """Raw NHWC f32 outputs → the compact serving answer; a branch-for-branch
+    twin of the JAX ``_compact_outputs``. Keys: ``probs`` f32 (B, n_classes)
+    or (B, 1); ``mask`` uint8 (B, H, W), the binary mask or the per-pixel
+    label map of a semantic head; ``tumor_pixels`` int32 (B,) for a binary
+    mask; ``label_counts`` int32 (B, C) for a label map."""
+
+    def cls_probs(cls_out):
+        if isinstance(cls_out, (tuple, list)):  # mean over DS cls heads
+            logits = torch.stack(list(cls_out), 0).mean(0)
+        else:
+            logits = cls_out
+        if softmax_in_forward:  # forward already normalised (nnUNet quirk)
+            return logits
+        return torch.softmax(logits, -1) if n_classes > 2 else torch.sigmoid(logits)
+
+    compact: Dict[str, torch.Tensor] = {}
+    if task == "classification":
+        compact["probs"] = cls_probs(out)
+        return compact
+
+    seg_out = out
+    if task == "multitask":
+        if isinstance(out, (tuple, list)) and len(out) == 3:
+            cls_out, _, seg_out = out  # Adityan: (cls, reconstruction, seg)
+        else:
+            cls_out, seg_out = out
+        compact["probs"] = cls_probs(cls_out)
+    final = seg_out[-1] if isinstance(seg_out, (tuple, list)) else seg_out
+    if final.shape[-1] > 1:  # semantic: per-pixel label map + pixel vote
+        labels = final.argmax(-1).to(torch.uint8)
+        compact["mask"] = labels
+        one_hot = F.one_hot(labels.long(), final.shape[-1]).to(torch.int32)
+        compact["label_counts"] = one_hot.sum(dim=(1, 2), dtype=torch.int32)
+    else:  # binary: sigmoid(x) > 0.5  ⇔  x > 0
+        mask = (final[..., 0] > 0).to(torch.uint8)
+        compact["mask"] = mask
+        compact["tumor_pixels"] = mask.to(torch.int32).sum(dim=(1, 2), dtype=torch.int32)
+    return compact
+
+
+class _Forward(nn.Module):
+    """The exported function: (weights by ``state_dict`` name, NHWC f32
+    images) → the model's outputs as NHWC f32 (JAX's layout), or the compact
+    answer. ``model`` is kept out of the registered children, so tracing
+    lifts none of its tensors; its parameters may live on ``meta``."""
+
+    def __init__(self, model: nn.Module, compute_dtype: str, compact=None):
+        super().__init__()
+        self.__dict__["_model"] = model
+        self._dtype = COMPUTE_DTYPES[compute_dtype]
+        self._compact = compact
+
+    def forward(self, weights: Dict[str, torch.Tensor], images: torch.Tensor):
+        x = images.permute(0, 3, 1, 2).to(self._dtype, memory_format=torch.contiguous_format)
+        w = {k: v.to(self._dtype) for k, v in weights.items()}
+        out = torch.func.functional_call(self._model, w, (x,))
+        out = tree_map(lambda a: a.float().permute(0, 2, 3, 1) if a.dim() == 4 else a.float(),
+                        out)
+        return self._compact(out) if self._compact is not None else out
+
+
+def export_inference(cfg, task: str, checkpoint, out_dir, buckets: Sequence[int] = (1, 8, 64),
+                     size: int = 128, platforms: Sequence[str] = ("cpu", "cuda"),
+                     device_postprocess: bool = False) -> Path:
+    """Export a trained checkpoint (``None``: the seeded weights) into a
+    serving artifact directory, one program per bucket and platform."""
+    from multi_task_breast_cancer_tpu_torch.serve.post import model_applies_softmax
+    from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
+
+    unknown = sorted(set(platforms) - {"cpu", "cuda"})
+    if unknown:
+        raise ValueError(f"export: unknown platforms {unknown} (cpu, cuda)")
+    devices = {p: resolve_device("cuda" if p == "cuda" else "cpu") for p in platforms}
+    compute_dtype = cfg.training.compute_dtype
+    state, channels = build_inference_state(cfg, task, checkpoint=checkpoint, device="cpu")
+    model = state.model.eval()
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_classes = len(cfg.data.classes)
+    softmax_in_forward = model_applies_softmax(task, cfg.model.architecture, n_classes)
+    compact = None
+    if device_postprocess:
+        def compact(out):
+            return _compact_outputs(out, task, n_classes, softmax_in_forward)
+    fwd = _Forward(model.to("meta"), compute_dtype, compact)
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    buckets = sorted(set(int(b) for b in buckets))
+    for platform, device in devices.items():
+        set_float32_policy(device, compute_dtype)
+        on_device = {k: v.to(device) for k, v in weights.items()}
+        for b in buckets:
+            images = torch.zeros(b, size, size, channels, device=device)
+            program = torch.export.export(fwd, (on_device, images))
+            torch.export.save(program, out_dir / program_name(b, platform))
+            logging.info("exported bucket B=%d for %s", b, platform)
+
+    np.savez(out_dir / WEIGHTS, **flat_jax_weights(weights))
+    manifest = {
+        "task": task,
+        "architecture": cfg.model.architecture,
+        "n_classes": n_classes,
+        "classes": list(cfg.data.classes),
+        "size": size,
+        "channels": channels,
+        "buckets": buckets,
+        "platforms": list(platforms),
+        "compute_dtype": compute_dtype,
+        "augmentation": cfg.data.augmentation.as_dict(),
+        "pipeline_refinement": bool(cfg.training.overlap_class_based_on_seg),
+        "softmax_in_forward": softmax_in_forward,
+        "device_postprocess": bool(device_postprocess),
+        "semantic_segmentation": bool(cfg.data.semantic_segmentation),
+        "torch_version": torch.__version__,
+        "checkpoint": str(checkpoint),
+        "format": FORMAT,
+    }
+    (out_dir / MANIFEST).write_text(json.dumps(manifest, indent=2))
+    logging.info("serving artifact written to %s", out_dir)
+    return out_dir
+
+
+def _pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) uint8 {0,1} → (B, H, W//8) uint8 in ``np.unpackbits`` order
+    (big bit order): 8× fewer bytes for the mask's download."""
+    b, h, w = mask.shape
+    bits = mask.reshape(b, h, w // 8, 8).to(torch.int32)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=mask.device)
+    return (bits * weights).sum(-1, dtype=torch.int32).to(torch.uint8)
+
+
+class ExportedModel:
+    """A loaded port artifact: bucketed, padded, chunked batch inference on
+    one device (``cuda`` unless ``device="cpu"``), with the JAX
+    ``ExportedModel``'s behaviour.
+
+    ``predict`` takes any batch size: it pads up to the smallest bucket that
+    fits, or chunks by the largest bucket with the tail in the smallest
+    bucket that holds it (:meth:`_plan`). Padding rows never cross to the
+    device: the host pads to the next power of two (repeating the last
+    image) and the device the rest of the way to the bucket; outputs are
+    sliced back to the next power of two on the device before the download.
+    uint8 images are uploaded as uint8 and cast to f32 on the device (PNG
+    intensities are exact either way). A device-postprocessed artifact's
+    binary mask is bit-packed on the device and unpacked on the host.
+
+    ``data_parallel=True`` (the JAX default) with more than one visible GPU
+    raises ``NotImplementedError``: sharding batches over cards is not
+    ported (``ROADMAP.md``, Queue 1, item 2: parallelism). With one GPU, or
+    on the CPU, it is one device."""
+
+    def __init__(self, path, data_parallel: bool = True, device=None):
+        self.path = Path(path)
+        self.manifest = json.loads((self.path / MANIFEST).read_text())
+        if self.manifest.get("format") != FORMAT:
+            raise ValueError(f"{self.path}: not a {FORMAT} artifact of the port")
+        self.device = resolve_device(device)
+        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise NotImplementedError(
+                f"ExportedModel: data_parallel over {torch.cuda.device_count()} visible GPUs "
+                "is not ported yet: ROADMAP.md, Queue 1, item 2 (parallelism, after the "
+                "zoo). Make one GPU visible (CUDA_VISIBLE_DEVICES) or pass "
+                "data_parallel=False")
+        self.platform = self.device.type
+        if self.platform not in self.manifest["platforms"]:
+            raise ValueError(f"{self.path}: no {self.platform} programs (exported for "
+                             f"{self.manifest['platforms']})")
+        set_float32_policy(self.device, self.manifest["compute_dtype"])
+        with np.load(self.path / WEIGHTS) as z:
+            flat = {k: z[k] for k in z.files}
+        self.weights = {k: v.to(self.device) for k, v in params_from_jax(flat).items()}
+        self.buckets = sorted(self.manifest["buckets"])
+        self._fns: Dict[int, Any] = {}
+
+    def _fn(self, bucket: int):
+        if bucket not in self._fns:
+            program = torch.export.load(self.path / program_name(bucket, self.platform))
+            self._fns[bucket] = program.module()
+        return self._fns[bucket]
+
+    def preload(self) -> None:
+        """Load every bucket's program now instead of at its first use: a
+        server pays the deserialization at startup, not on a request."""
+        for bucket in self.buckets:
+            self._fn(bucket)
+
+    def _dispatch(self, images: np.ndarray, bucket: int):
+        """Start one bucket execution (asynchronous on the card); returns
+        (device outputs, n)."""
+        n = images.shape[0]
+        p = min(bucket, _next_pow2(n))
+        if n < p:
+            images = np.concatenate([images, np.repeat(images[-1:], p - n, axis=0)], axis=0)
+        if images.dtype != np.uint8:
+            images = images.astype(np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        if p < bucket:
+            x = torch.cat([x, x[-1:].expand(bucket - p, *x.shape[1:])])
+        with torch.inference_mode():
+            out = self._fn(bucket)(self.weights, x.to(torch.float32))
+            if isinstance(out, dict) and "tumor_pixels" in out and out["mask"].shape[-1] % 8 == 0:
+                out = dict(out)
+                out["mask_packed"] = _pack_mask_bits(out.pop("mask"))
+        return out, n
+
+    @staticmethod
+    def _fetch(dispatched):
+        def leaf(a, m):
+            # the device-side slice to the next power of two before the
+            # download: padded rows beyond it never leave the card
+            return a[:min(_next_pow2(m), a.shape[0])].cpu().numpy()[:m]
+
+        outs = [tree_map(lambda a, m=n: leaf(a, m), out) for out, n in dispatched]
+        merged = outs[0] if len(outs) == 1 else tree_map(
+            lambda *parts: np.concatenate(parts, axis=0), *outs)
+        if isinstance(merged, dict) and "mask_packed" in merged:
+            merged = dict(merged)
+            merged["mask"] = np.unpackbits(merged.pop("mask_packed"), axis=-1)
+        return merged
+
+    def _fit_bucket(self, size: int) -> int:
+        """Smallest bucket that holds ``size`` images."""
+        return next(b for b in self.buckets if b >= size)
+
+    def _plan(self, n: int) -> list:
+        """The buckets a run of ``n`` images executes: chunks of the largest
+        bucket, the tail in the smallest bucket that holds it."""
+        top, plan, i = self.buckets[-1], [], 0
+        while i < n:
+            take = min(n - i, top)
+            plan.append(self._fit_bucket(take))
+            i += take
+        return plan
+
+    def predict(self, images: np.ndarray):
+        """NHWC images (uint8 or float) → the program's outputs as numpy
+        (raw NHWC f32 outputs, or the compact dict)."""
+        n = images.shape[0]
+        if n == 0:
+            raise ValueError("empty batch: images has 0 rows")
+        top = self.buckets[-1]
+        parts = [images[i:i + top] for i in range(0, n, top)]
+        return self._fetch([self._dispatch(part, bucket)
+                            for part, bucket in zip(parts, self._plan(n))])

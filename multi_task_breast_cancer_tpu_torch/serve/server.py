@@ -13,15 +13,18 @@ uint8 bodies (``.npy`` or raw size² planes with ``X-Image-Count``), JSON
 records, and 400/413/500/504 for client faults, oversized bodies, backend
 faults and timeouts. See that module for the endpoints.
 
-Backends run the port's ``nn.Module``s (NCHW inside; NHWC float32 numpy at
-the boundary, so :mod:`.post` is the JAX package's postprocessing):
+Backends take NHWC images and answer NHWC float32 numpy, so :mod:`.post` is
+the JAX package's postprocessing; each computes in ``compute_dtype``
+(float32, or bfloat16 with f32 outputs):
 
-- :class:`CheckpointBackend`: a model from a config, with seeded weights, a
-  training checkpoint the port's driver wrote, or the ``weights.npz`` of a
-  JAX serving artifact;
-- :class:`ArtifactBackend`: a JAX serving artifact directory, read from its
-  ``manifest.json`` and ``weights.npz`` (the ``.jaxexport`` programs are not
-  used).
+- :class:`CheckpointBackend`: a live model (NCHW inside) from a config, with
+  seeded weights, a training checkpoint of the port's driver or the JAX
+  driver, or the ``weights.npz`` of a serving artifact;
+- :class:`ArtifactBackend`: a serving artifact directory. A port artifact
+  (``serve export``, :mod:`.export`) runs its exported programs, with its
+  postprocessing on the device where it was exported so; a JAX artifact is
+  rebuilt as a live model from its ``manifest.json`` and ``weights.npz``
+  (its ``.jaxexport`` programs are not used).
 """
 
 from __future__ import annotations
@@ -41,7 +44,11 @@ from urllib.parse import urlparse, parse_qs
 import numpy as np
 import torch
 
-from multi_task_breast_cancer_tpu_torch.device import resolve_device, set_float32_policy
+from multi_task_breast_cancer_tpu_torch.device import (
+    COMPUTE_DTYPES,
+    resolve_device,
+    set_float32_policy,
+)
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
     widths_from_params,
@@ -53,12 +60,15 @@ from multi_task_breast_cancer_tpu_torch.models.registry import (
 )
 from multi_task_breast_cancer_tpu_torch.native import nearest_resize
 from multi_task_breast_cancer_tpu_torch.ops.image_ops import build_augment_channels
+from multi_task_breast_cancer_tpu_torch.serve.export import ExportedModel
 from multi_task_breast_cancer_tpu_torch.serve.post import (
     model_applies_softmax,
     postprocess,
+    postprocess_compact,
 )
 from multi_task_breast_cancer_tpu_torch.train.checkpoint import load_pretrained_model
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
+from multi_task_breast_cancer_tpu_torch.utils.trees import tree_map
 
 
 def prepare_image(gray: np.ndarray, size: int, augmentations: Dict[str, bool]
@@ -109,36 +119,21 @@ def _to_numpy(out):
     return out.float().cpu().numpy()
 
 
-def _slice(out, k: int):
-    if isinstance(out, (tuple, list)):
-        return type(out)(_slice(o, k) for o in out)
-    return out[:k]
-
-
-def _concat(parts):
-    if isinstance(parts[0], (tuple, list)):
-        return type(parts[0])(_concat([p[i] for p in parts])
-                              for i in range(len(parts[0])))
-    return np.concatenate(parts, axis=0)
-
-
 class _TorchBackend:
     """One model on one device. ``predict`` runs batches of a fixed size
     from ``buckets`` (the smallest that holds a chunk; chunks of the largest
     for bigger sets), wrap-padding a short batch by repeating its images, as
     the JAX ``Engine.predict`` does. Images are uint8 (or float) NHWC, moved
     to the device as they are and cast there, NOT scaled: the models take raw
-    0-255 intensities."""
+    0-255 intensities. ``compute_dtype="bfloat16"`` casts the model and the
+    input to bf16 and the outputs to f32."""
 
     def __init__(self, model: torch.nn.Module, device, compute_dtype: str,
                  buckets: Sequence[int]) -> None:
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype!r} is not ported to PyTorch yet "
-                f"(ROADMAP.md, Queue 1, item 1: bf16); float32 only")
         set_float32_policy(device, compute_dtype)
         self.device = device
-        self.model = model.to(device).eval()
+        self.dtype = COMPUTE_DTYPES[compute_dtype]
+        self.model = model.to(device, self.dtype).eval()
         self.buckets = sorted(int(b) for b in buckets)
 
     def _forward(self, images: np.ndarray):
@@ -146,7 +141,7 @@ class _TorchBackend:
         # NHWC → NCHW with NCHW strides. With one channel the permuted view
         # already passes for contiguous, but its strides are channels-last ones,
         # and the convolutions would carry them into their outputs
-        x = x.permute(0, 3, 1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
         with torch.inference_mode():
             return _to_numpy(self.model(x))
 
@@ -162,8 +157,9 @@ class _TorchBackend:
             bucket = next(b for b in self.buckets if b >= k)
             if k < bucket:
                 part = np.concatenate([part] * -(-bucket // k), axis=0)[:bucket]
-            outs.append(_slice(self._forward(part), k))
-        return outs[0] if len(outs) == 1 else _concat(outs)
+            outs.append(tree_map(lambda a: a[:k], self._forward(part)))
+        return outs[0] if len(outs) == 1 else tree_map(
+            lambda *parts: np.concatenate(parts, axis=0), *outs)
 
     def postprocess(self, out):
         return postprocess(out, self.info["task"], self.info["n_classes"],
@@ -211,31 +207,55 @@ class CheckpointBackend(_TorchBackend):
         }
 
 
-class ArtifactBackend(_TorchBackend):
-    """A JAX serving artifact (``serve export``) run by the port: the model is
-    rebuilt from ``manifest.json`` (widths read from ``weights.npz``) and the
-    raw outputs are postprocessed on the host. That equals the artifact's
+class ArtifactBackend:
+    """A serving artifact directory (``serve export``).
+
+    A port artifact (``"format": "torch.export"`` in its manifest) runs its
+    exported programs through :class:`.export.ExportedModel`, all of them
+    loaded when the backend is built, and decodes a
+    device-postprocessed answer with :func:`.post.postprocess_compact`, as
+    the JAX backend does. A JAX artifact (no ``format``) is rebuilt as a live
+    model from ``manifest.json`` (widths read from ``weights.npz``) and its
+    raw outputs are postprocessed on the host: that equals its
     device-postprocessed answer, which the JAX tests prove equal to the raw
-    one; the ``.jaxexport`` programs are not used."""
+    one; its ``.jaxexport`` programs are not used."""
 
     def __init__(self, path: str, device=None):
         device = resolve_device(device)
         path = Path(path)
         m = json.loads((path / "manifest.json").read_text())
-        params = _load_npz(path / "weights.npz")
-        regions = 3 if (m["task"] == "segmentation"
-                        and m.get("semantic_segmentation", False)) else 1
-        model = _build_model(m["task"], m["architecture"], m["channels"],
-                             m["n_classes"], regions, widths_from_params(params))
-        model.load_state_dict(params_from_jax(params), strict=True)
-        super().__init__(model, device, m.get("compute_dtype", "float32"), m["buckets"])
+        if "format" in m:
+            self._runner = ExportedModel(path, device=device)
+            self._runner.preload()
+            device_postprocess = bool(m.get("device_postprocess", False))
+        else:
+            params = _load_npz(path / "weights.npz")
+            regions = 3 if (m["task"] == "segmentation"
+                            and m.get("semantic_segmentation", False)) else 1
+            model = _build_model(m["task"], m["architecture"], m["channels"],
+                                 m["n_classes"], regions, widths_from_params(params))
+            model.load_state_dict(params_from_jax(params), strict=True)
+            self._runner = _TorchBackend(model, device, m.get("compute_dtype", "float32"),
+                                         m["buckets"])
+            device_postprocess = False  # raw outputs, host postprocessing
         self.info = {k: m[k] for k in ("task", "architecture", "n_classes",
                                        "classes", "size", "channels", "buckets",
                                        "augmentation", "pipeline_refinement")}
         self.info["softmax_in_forward"] = bool(m.get("softmax_in_forward", False))
-        self.info["device_postprocess"] = False  # raw outputs, host postprocessing
+        self.info["device_postprocess"] = device_postprocess
         self.info["backend"] = "artifact"
         self.info["device"] = str(device)
+
+    def predict(self, images: np.ndarray):
+        return self._runner.predict(images)
+
+    def postprocess(self, out):
+        if self.info["device_postprocess"]:
+            return postprocess_compact(out, self.info["task"], self.info["n_classes"],
+                                       self.info["pipeline_refinement"])
+        return postprocess(out, self.info["task"], self.info["n_classes"],
+                           self.info["pipeline_refinement"],
+                           self.info["softmax_in_forward"])
 
 
 @dataclass

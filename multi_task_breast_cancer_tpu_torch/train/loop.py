@@ -11,8 +11,17 @@ Cross-fold padding steps (``step_valid == 0``) are skipped on the host, so
 they leave the parameters, the optimizer's moments and the step count
 untouched (the JAX scan selects the old state for them).
 
-Tasks: 'segmentation' | 'classification' | 'multitask'. Layout NCHW; f32
-only (``compute_dtype='bfloat16'`` and meshes raise ``NotImplementedError``).
+Tasks: 'segmentation' | 'classification' | 'multitask'. Layout NCHW.
+
+``compute_dtype='bfloat16'`` is JAX's whole-model cast (``_apply``,
+``_as_f32``): the master parameters stay float32 in ``torch.optim.Adam``, each
+forward runs on bf16 copies of them (``torch.func.functional_call``), so the
+gradients land on the f32 masters; inputs are cast to bf16 right after the row
+gather (before the exact augmentation; the fast augmentation packs bf16
+channel pairs); outputs are cast to f32 before the losses, the metrics and
+``predict``'s result. Losses and metrics only ever see f32. No
+``torch.autocast``: its per-op allow-list is not JAX's whole-model cast.
+Meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,13 +35,17 @@ from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.data.augment import joint_transform_stack_batch
 from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
-from multi_task_breast_cancer_tpu_torch.device import resolve_device, set_float32_policy
+from multi_task_breast_cancer_tpu_torch.device import (
+    COMPUTE_DTYPES,
+    resolve_device,
+    set_float32_policy,
+)
 from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
 from multi_task_breast_cancer_tpu_torch.ops.fused_loss import fused_dice_criterion
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
-
+from multi_task_breast_cancer_tpu_torch.utils.trees import tree_map
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -107,16 +120,13 @@ class Engine:
             raise NotImplementedError("Engine: meshes (data/spatial parallelism) are "
                                       "not ported yet (ROADMAP.md, Queue 1, item 2: "
                                       "parallelism, after the zoo)")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(f"Engine: compute_dtype {cfg.compute_dtype!r} is "
-                                      "not ported yet (ROADMAP.md, Queue 1, item 1: bf16); "
-                                      "the port trains in float32")
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
         self.device = resolve_device(device)
         set_float32_policy(self.device, cfg.compute_dtype)
         self.model = model.to(self.device)
         self.cfg = cfg
+        self._dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self._aug_fmt = None  # (AugFormat, n_mask) of the packed fold, set by device_data
         self._seg_crit = (fused_dice_criterion if cfg.seg_criterion == "DICE"
                           else L.init_criterion_segmentation(cfg.seg_criterion))
@@ -127,8 +137,20 @@ class Engine:
     # forward + loss
     # ------------------------------------------------------------------
 
+    def _apply(self, model: nn.Module, x: torch.Tensor):
+        """The model's forward on ``x`` (already in the compute dtype), its
+        outputs in f32. bf16: the forward runs on bf16 copies of the f32
+        parameters, through which the gradients reach the f32 masters."""
+        if self._dtype == torch.float32:
+            return model(x)
+        params = {name: p.to(self._dtype) for name, p in model.named_parameters()}
+        return tree_map(lambda a: a.float(), torch.func.functional_call(model, params, (x,)))
+
     def _losses(self, out, masks, cls_targets) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Losses of f32 outputs against f32 masks (a bf16 batch's masks,
+        0/1, are cast exactly)."""
         cfg = self.cfg
+        masks = masks.float()
         if cfg.task == "segmentation":
             loss = L.apply_criterion_binary_segmentation(
                 self._seg_crit, masks, out, cfg.inversely_weighted)
@@ -172,7 +194,7 @@ class Engine:
         out: Dict[str, torch.Tensor] = {}
         if "seg_out" in aux:
             out["dice"] = M.dice_from_logits_batch(
-                masks, self._final_seg_head(aux["seg_out"]).detach())
+                masks.float(), self._final_seg_head(aux["seg_out"]).detach())
         if "cls_out" in aux:
             logits = self._mean_cls_head(aux["cls_out"]).detach()
             preds = M.predicted_labels_from_logits(logits, self.cfg.n_classes)
@@ -210,10 +232,10 @@ class Engine:
 
     def _augmented_batch(self, data, rows: torch.Tensor, draws, step: int):
         """Rows ``rows`` (int32) of the fold, augmented with step ``step``'s
-        draws: (images, masks) as NCHW-contiguous f32 tensors. On the fast
-        path at f32 with the canvas equal to the image, a one-channel image
-        or mask is a view of the kernel's plane-major output: the kernel is
-        the path's only launch."""
+        draws: (images, masks) as NCHW-contiguous tensors in the compute
+        dtype. On the fast path with the canvas equal to the image, a
+        one-channel image or mask is a view of the kernel's plane-major output
+        (f32) or of the one copy that unpacks its bf16 channel pairs."""
         cfg = self.cfg
         if cfg.use_transforms and cfg.fast_augmentation:
             fmt, n_mask = self._aug_fmt
@@ -221,8 +243,10 @@ class Engine:
             out = FA.fast_augment(data["aug_packed"], rows, factors)
             stack = FA.unpack_channels_nchw(out, fmt)
             return self._nchw(stack[:, n_mask:]), self._nchw(stack[:, :n_mask])
-        imgs = data["images"].index_select(0, rows).float()
-        msks = data["masks"].index_select(0, rows).float()
+        # the cast right after the row gather, before the augmentation, as
+        # the JAX Engine casts (exact for uint8 data)
+        imgs = data["images"].index_select(0, rows).to(self._dtype)
+        msks = data["masks"].index_select(0, rows).to(self._dtype)
         if cfg.use_transforms:
             n_mask = msks.shape[1]
             fh, fv, angle = (d[step] for d in draws["flips_angles"])
@@ -316,7 +340,7 @@ class Engine:
             lint = data["labels_int"].index_select(0, rows)
             imgs, msks = self._augmented_batch(data, rows, draws, k)
             opt.zero_grad(set_to_none=True)
-            out = model(imgs)
+            out = self._apply(model, imgs)
             loss, aux = self._losses(out, msks, ctgt)
             loss.backward()
             opt.step()
@@ -341,8 +365,9 @@ class Engine:
         n_cm = max(self.cfg.n_classes, 2)
         model = state.model
         model.eval()
-        images, masks = self._nchw(data["images"].float()), self._nchw(data["masks"].float())
-        loss, aux = self._losses(model(images), masks, data["cls_targets"])
+        images = self._nchw(data["images"].to(self._dtype))
+        masks = self._nchw(data["masks"].float())
+        loss, aux = self._losses(self._apply(model, images), masks, data["cls_targets"])
         sm = self._step_metrics(aux, masks, data["labels_int"],
                                 torch.zeros((n_cm, n_cm), device=self.device))
         zero = torch.zeros((), device=self.device)
@@ -388,9 +413,9 @@ class Engine:
         """Batched inference on NHWC images (numpy or tensor, as the JAX
         Engine takes them); sets larger than ``max_batch`` run in chunks.
         ``pad_to`` wrap-pads the batch and trims the outputs back. Returns the
-        model's output structure, NCHW tensors on the Engine's device."""
+        model's output structure, NCHW f32 tensors on the Engine's device."""
         x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
-        x = self._nchw(x.to(self.device).permute(0, 3, 1, 2).float())
+        x = self._nchw(x.to(self.device).permute(0, 3, 1, 2).to(self._dtype))
         n = x.shape[0]
         if n == 0:
             raise ValueError("predict: empty batch (images has 0 rows)")
@@ -398,8 +423,8 @@ class Engine:
             x = x[torch.arange(pad_to, device=self.device) % n]
         model = state.model
         model.eval()
-        outs = [model(x[i:i + max_batch]) for i in range(0, x.shape[0], max_batch)]
-        return _tree_map(lambda *parts: torch.cat(parts, dim=0)[:n], *outs)
+        outs = [self._apply(model, x[i:i + max_batch]) for i in range(0, x.shape[0], max_batch)]
+        return tree_map(lambda *parts: torch.cat(parts, dim=0)[:n], *outs)
 
     # ------------------------------------------------------------------
     # data
@@ -456,10 +481,3 @@ class Engine:
             data["aug_packed"] = planes.to(self.device)
         return data
 
-
-def _tree_map(fn, *trees):
-    """``fn`` over matching leaves of nested tuples/lists of tensors."""
-    first = trees[0]
-    if isinstance(first, (tuple, list)):
-        return type(first)(_tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)

@@ -1,3 +1,4 @@
 """Run bookkeeping of the port: logging, seeding and result sheets
 (:mod:`.miscellany`), the XLSX writer (:mod:`.xlsx`), evolution plots
-(:mod:`.visualization`) and tracing hooks (:mod:`.profiling`)."""
+(:mod:`.visualization`), tracing hooks (:mod:`.profiling`) and leafwise maps
+over nested outputs (:mod:`.trees`)."""

@@ -192,13 +192,13 @@ def test_engine_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert Engine(model, _cfg(), device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw,err", [({"compute_dtype": "bfloat16"}, NotImplementedError),
+@pytest.mark.parametrize("kw,err", [({"seg_criterion": "GeneralizedDICE"}, NotImplementedError),
                                     ({"task": "detection"}, ValueError)])
 def test_engine_rejects_what_is_not_ported(kw, err):
     model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
-    cfg = _cfg(**{k: v for k, v in kw.items() if k != "task"})
-    if "task" in kw:
-        cfg.task = kw["task"]
+    cfg = _cfg()
+    for k, v in kw.items():
+        setattr(cfg, k, v)
     with pytest.raises(err):
         Engine(model, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -77,6 +77,13 @@ def test_pack_bf16x2_covers_every_bit_pattern():
     expected = (pairs[:, 0].astype(np.int64) & 0xFFFF) << 16 | (pairs[:, 1].astype(np.int64) & 0xFFFF)
     np.testing.assert_array_equal(got.numpy(), expected.astype(np.uint32).view(np.int32))
     np.testing.assert_array_equal(FA.unpack_bf16x2(got).view(torch.int16).numpy(), pairs)
+    # the Engine's unpacking reads the int32 planes as bf16 pairs in memory:
+    # the same bits as the arithmetic inverse, for every pattern
+    fmt = FA.AugFormat(n_channels=2, n_planes=1, dtype="bfloat16", height=256, width=256,
+                       canvas=256)
+    planes = FA.unpack_channels_nchw(got.reshape(1, 1, 256, 256), fmt)
+    np.testing.assert_array_equal(planes.reshape(2, -1).T.contiguous().view(torch.int16).numpy(),
+                                  pairs)
 
 
 def test_plan_canvas_matches_jax():
