@@ -107,11 +107,31 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    ``evaluate.main`` over the tree as a UCLM-style set (ms per image, forward
    vs host); (g) ``data.holdout_check.main`` (its fold sizes are
    ``data/splits.py``'s);
+9a. the zoo: the BTS family, the UNet++ family and Adityan at full width
+   (width 24, deep supervision where the architecture has it, seeded
+   weights, 128²): each model's parameter count against JAX's
+   (``ZOO_PARAMETERS``), its norm launches per forward at batches 2 and 64
+   and per batch-2 backward (``ZOO_NORMS``), its forward against the
+   plain-norm model on the card
+   (batch 64) and the plain model on the CPU (batch 2), and its device time
+   at batch 64; kernels #1 and #2 against their twins at the BTS family's
+   12 site shapes the flagship does not give them (batches 2 and 64, f32
+   and bf16) and each BTS model's kernel time per forward and backward,
+   summed over its sites, beside the bound; an epoch of Multi_BTSUNet and of MTUNetPlusPlus at the
+   ``Config()`` defaults (launch counts exact, a padding step a no-op, step
+   ms, step-0 gradients against f64); and a main path:
+   ``training_multitask`` (the CLI's ``run_entry``) with Multi_BTSUNet on a
+   96-image tree, 2 folds × 2 epochs (launches as the fold sizes predict),
+   then ``CheckpointBackend`` over its checkpoint behind ``InferenceServer``
+   answering ``/predict_batch`` as ``Engine.predict`` does;
 10. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
    paths, error, times and bound (``previous_ms``: the norm kernels' first,
    streaming design, and the augmentation's index-plane design, timed in the
-   same run), f32, and under ``bf16`` the bf16 builds' launches and rows
-   (#1, #2 at batches 2 and 64; #3 at P = 1, B = 2 and 64); then, last,
+   same run), f32, under ``bf16`` the bf16 builds' launches and rows
+   (#1, #2 at batches 2 and 64; #3 at P = 1, B = 2 and 64), and under
+   ``zoo`` the norm kernels' per-architecture launches counted on the card,
+   sites, and times and bounds summed over the sites (``sites_*``, 9a);
+   then, last,
    ``{"ok": true, "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
@@ -171,9 +191,22 @@ BF16_REL_TOL = 2.0 ** -7
 MODEL_REL_TOL = 1e-4
 BWD_FLOPS_PER_ELEMENT = 17  # stats 4; xhat, select, two sums 6; dx 7
 GRAD_REL_TOL = 1e-4
+ZERO_GRAD_REL = 1e-6  # a gradient at most this share of the model's largest is zero
 LOSS_REL_TOL = 1e-4
 PARAM_REL_TOL = 0.1
 TRAIN_N, VAL_N, PAD_STEPS = 48, 12, 2
+
+# the zoo at full width (width 24, deep supervision on where the architecture
+# has it, 128²): parameters as the JAX package counts them, and fused-norm
+# launches per forward (tests/test_torch_zoo.py holds both on the CPU)
+ZOO_PARAMETERS = {
+    "BTSUNet": 1_636_107, "FSBBTSUNet": 2_009_960, "UnetPlusPlus": 2_410_180,
+    "BTSUNetClassifier": 4_139_599, "UNetPlusPlusClassifier": 13_741_131,
+    "Multi_BTSUNet": 15_381_262, "Multi_FSB_BTSUNet": 15_754_601,
+    "MTUNetPlusPlus": 14_927_455, "Adityan": 3_353_629}
+ZOO_NORMS = {"BTSUNet": 17, "FSBBTSUNet": 25, "UnetPlusPlus": 0, "BTSUNetClassifier": 10,
+             "UNetPlusPlusClassifier": 0, "Multi_BTSUNet": 19, "Multi_FSB_BTSUNet": 27,
+             "MTUNetPlusPlus": 0, "Adityan": 0}
 
 
 def log(*args) -> None:
@@ -352,23 +385,26 @@ def misaligned_copy(t):
     return out
 
 
-def phase_kernel(shapes: Counter) -> dict:
-    """Kernel #1 at every site's shape, batches 1, 2 and 64; returns batch
-    64's totals over one forward's 25 launches (the serving path's shapes)."""
+def phase_kernel(shapes: Counter, batches: tuple = (1, 2, BATCH), extras: bool = True,
+                 per_shape: dict = None) -> dict:
+    """Kernel #1 at every site's shape and ``batches``; returns the totals
+    over the sites' launches at each batch and type, and fills ``per_shape``
+    (keyed by batch, type and (C, H, W)) with each shape's numbers.
+    ``extras``: also the launch floor and the shapes off the model's path."""
     import torch
     import torch.nn.functional as F
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
     g = torch.Generator(device=DEVICE).manual_seed(0)
-    floor = launch_floor_ms()
+    floor = launch_floor_ms() if extras else 0.0
     result = {}
-    for batch in (1, 2, BATCH):
+    per_shape = {} if per_shape is None else per_shape
+    for batch in batches:
         totals = {dt: {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "bound_ms": 0.0} for dt in (torch.float32, torch.bfloat16)}
         bound_kinds, max_err = {dt: set() for dt in totals}, {dt: 0.0 for dt in totals}
         log(f"kernel instance_norm_leaky_relu at batch {batch}: {len(shapes)} shapes, "
-            f"{sum(shapes.values())} sites per forward; new plan vs the streaming "
-            f"design in turns")
+            f"{sum(shapes.values())} sites; new plan vs the streaming design in turns")
         for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
             # offset planes: the two-pass variance must not lose the centred part
             x = torch.randn(batch, c, h, w, device=DEVICE, generator=g) * 2.0 + 5.0
@@ -396,17 +432,23 @@ def phase_kernel(shapes: Counter) -> dict:
                     f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
                     f"bound {b_ms:.4f} ms ({kind})  library {l_ms:.4f} ms")
                 max_err[dtype] = max(max_err[dtype], err)
-                for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
-                               ("library_ms", l_ms), ("bound_ms", b_ms)):
+                numbers = {"ms": k_ms, "previous_ms": s_ms, "plain_ms": p_ms,
+                           "library_ms": l_ms, "bound_ms": b_ms}
+                per_shape[batch, dtype, (c, h, w)] = {**numbers, "bound_by": kind, "err": err,
+                                                      "plan": plan_text(plan)}
+                for key, v in numbers.items():
                     totals[dtype][key] += sites * v
                 bound_kinds[dtype].add(kind)
         result[batch] = {}
         for dt, tot in totals.items():
-            log(f"kernel totals over one {str(dt)[6:]} forward's {sum(shapes.values())} "
-                f"launches at batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
-                + f", launch floor {25 * floor:.4f}")
+            log(f"kernel totals over the {sum(shapes.values())} {str(dt)[6:]} launches of "
+                f"these sites at batch {batch}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+                + (f", launch floor {25 * floor:.4f}" if extras else ""))
             result[batch][dt] = {"max_abs_err": max_err[dt], "bound_by": "bytes"
                                  if bound_kinds[dt] == {"bytes"} else "operations", **tot}
+    if not extras:
+        return result
 
     for shape, misaligned in EXTRA_SHAPES:
         x = torch.randn(*shape, device=DEVICE, generator=g) * 2.0 + 5.0
@@ -420,7 +462,7 @@ def phase_kernel(shapes: Counter) -> dict:
             log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
                 f"{plan_text(plan):28s} err {err:.3g}  "
                 f"kernel {time_ms(lambda: hk.instance_norm_leaky_relu(xd)):.4f} ms")
-    return result[BATCH][torch.float32], {b: result[b][torch.bfloat16] for b in (2, BATCH)}
+    return result
 
 
 def _max_rel_err(got, want) -> float:
@@ -439,14 +481,24 @@ def _flat(out):
     return [cls, *seg]
 
 
+def plain_twin(model):
+    """A copy of ``model`` whose ConvInNormLeReLU blocks take the plain norm
+    (``InstanceNorm`` + ``F.leaky_relu``) instead of the kernel."""
+    import copy
+    from multi_task_breast_cancer_tpu_torch.models.blocks import ConvInNormLeReLU, InstanceNorm
+    twin = copy.deepcopy(model)
+    for m in twin.modules():
+        if isinstance(m, ConvInNormLeReLU):
+            m.norm = InstanceNorm()
+    return twin
+
+
 def phase_model(model) -> None:
     import torch
     from multi_task_breast_cancer_tpu_torch.models.multitask import MTnnUNet
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
-    plain = MTnnUNet(plain_norm=True)
-    plain.load_state_dict(model.state_dict())
-    plain = plain.to(DEVICE).eval()
+    plain = plain_twin(model).eval()
     g = torch.Generator().manual_seed(1)
     x = (torch.rand(BATCH, 1, SIZE, SIZE, generator=g) * 255).round().to(DEVICE)
 
@@ -464,9 +516,8 @@ def phase_model(model) -> None:
             f"{err:.3g} of the output scale (tol {MODEL_REL_TOL})")
         check(err <= MODEL_REL_TOL, "model outputs: kernel vs plain norm")
 
-        cpu = MTnnUNet(plain_norm=True)
-        cpu.load_state_dict(model.state_dict())
-        err = _max_rel_err([t[:2] for t in _flat(out)], _flat(cpu.eval()(x[:2].cpu())))
+        cpu = plain_twin(model).cpu()
+        err = _max_rel_err([t[:2] for t in _flat(out)], _flat(cpu(x[:2].cpu())))
         log(f"model: card vs CPU, batch 2: max err {err:.3g} of the output scale")
         check(err <= MODEL_REL_TOL, "model outputs: card vs CPU")
 
@@ -598,11 +649,13 @@ def kink_free(shape, gen):
     return (5.0 + 2.0 * z.gather(2, order)).reshape(batch, c, h, w)
 
 
-def phase_backward_kernel(shapes: Counter) -> dict:
+def phase_backward_kernel(shapes: Counter, extras: bool = True,
+                          per_shape: dict = None) -> dict:
     """Kernel #2 against its plain version at every norm site's shape, at a
     training step's batch (2) and at 64, beside the streaming design in
-    turns. Returns batch 2's totals over one step's 25 launches (the
-    training path's shapes)."""
+    turns. Returns the totals over the sites' launches at each batch and
+    type, and fills ``per_shape`` as :func:`phase_kernel` does. ``extras``:
+    also the shapes off the model's path."""
     import torch
     import torch.nn.functional as F
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
@@ -618,6 +671,7 @@ def phase_backward_kernel(shapes: Counter) -> dict:
                 err.max().item(), scale)
 
     result = {}
+    per_shape = {} if per_shape is None else per_shape
     for batch in (2, BATCH):
         totals = {dt: {"ms": 0.0, "previous_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                        "bound_ms": 0.0} for dt in (torch.float32, torch.bfloat16)}
@@ -655,16 +709,22 @@ def phase_backward_kernel(shapes: Counter) -> dict:
                     f"streaming {s_ms:.4f} ms  plain {p_ms:.4f} ms  "
                     f"bound {b_ms:.4f} ms ({kind})  library {l_ms:.4f} ms")
                 max_err[dtype] = max(max_err[dtype], err)
-                for key, v in (("ms", k_ms), ("previous_ms", s_ms), ("plain_ms", p_ms),
-                               ("library_ms", l_ms), ("bound_ms", b_ms)):
+                numbers = {"ms": k_ms, "previous_ms": s_ms, "plain_ms": p_ms,
+                           "library_ms": l_ms, "bound_ms": b_ms}
+                per_shape[batch, dtype, (c, h, w)] = {**numbers, "bound_by": kind, "err": err,
+                                                      "plan": plan_text(plan)}
+                for key, v in numbers.items():
                     totals[dtype][key] += sites * v
                 kinds[dtype].add(kind)
         result[batch] = {}
         for dt, tot in totals.items():
-            log(f"backward totals over one {str(dt)[6:]} step's {sum(shapes.values())} "
-                f"launches at batch {batch}: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()))
+            log(f"backward totals over the {sum(shapes.values())} {str(dt)[6:]} launches of "
+                f"these sites at batch {batch}: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()))
             result[batch][dt] = {"max_abs_err": max_err[dt], "bound_by": "bytes"
                                  if kinds[dt] == {"bytes"} else "operations", **tot}
+    if not extras:
+        return result
 
     for shape, misaligned in EXTRA_SHAPES:
         x = kink_free(shape, g)
@@ -681,7 +741,7 @@ def phase_backward_kernel(shapes: Counter) -> dict:
             k_ms = time_ms(lambda: hk.instance_norm_leaky_relu_backward(xd, gd))
             log(f"  {'misaligned ' * misaligned}{shape} {str(dtype)[6:]:8s} "
                 f"{plan_text(plan):28s} err {err:.3g}  kernel {k_ms:.4f} ms")
-    return result[2][torch.float32], {b: result[b][torch.bfloat16] for b in (2, BATCH)}
+    return result
 
 
 def _special_draws(b: int, gen):
@@ -1244,8 +1304,9 @@ def comparisons(cfg, init_weights, train_ds) -> None:
     for name, device, plain in (("kernels on the card", DEVICE, False),
                                 ("plain norm on the card", DEVICE, True),
                                 ("CPU", "cpu", True)):
-        model = MTnnUNet(plain_norm=plain)
+        model = MTnnUNet()
         model.load_state_dict(init_weights)
+        model = plain_twin(model) if plain else model
         engine = Engine(model, _engine_config(cfg, use_transforms=False), device=device)
         state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
         data = engine.device_data(train_ds)
@@ -1280,8 +1341,9 @@ def comparisons(cfg, init_weights, train_ds) -> None:
     grads = {}
     for name, plain, dtype in (("kernel", False, torch.float32), ("plain", True, torch.float32),
                                ("f64", True, torch.float64)):
-        model = MTnnUNet(plain_norm=plain)
+        model = MTnnUNet()
         model.load_state_dict(init_weights)
+        model = plain_twin(model) if plain else model
         model = model.to(DEVICE, dtype)
         x, m, t = (b.to(dtype) for b in batch)
         loss, _ = engine._losses(model(x), m, t)
@@ -2487,11 +2549,377 @@ def phase_tools() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# the zoo: the BTS family, the UNet++ family and Adityan
+# ---------------------------------------------------------------------------
+
+ZOO_BATCHES = (2, BATCH)
+ZOO_TRAINED = ("Multi_BTSUNet", "MTUNetPlusPlus")
+ZOO_TRAIN_N, ZOO_VAL_N = 8, 4               # 4 real steps and 1 padding step at batch 2
+ZOO_DRIVER_PER_CLASS, ZOO_DRIVER_EPOCHS = 32, 2
+
+
+def _zoo_task(arch: str) -> str:
+    from multi_task_breast_cancer_tpu_torch.models import registry as R
+    return next(t for t, archs in (("segmentation", R.SEGMENTATION_ARCHS),
+                                   ("classification", R.CLASSIFICATION_ARCHS),
+                                   ("multitask", R.MULTITASK_ARCHS)) if arch in archs)
+
+
+def zoo_model(arch: str):
+    """The registry's model at full width (``model.width`` 24 and
+    ``deep_supervision: True``, the config's defaults, where the architecture
+    takes them; 128²), its weights drawn from generator seed 0, on the CPU."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models import registry as R
+    task = _zoo_task(arch)
+    kw = {} if task == "classification" or arch == "Adityan" else {"deep_supervision": True}
+    return getattr(R, f"init_{task}_model")(arch, width=24, generator=torch.Generator()
+                                            .manual_seed(0), **kw)
+
+
+def _leaves(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _leaves(o)]
+    return [out]
+
+
+def zoo_forwards() -> dict:
+    """Each architecture at full width: its parameter count, the norm
+    kernel's launches per forward at batches 2 and 64 and the backward
+    kernel's per batch-2 backward, the forward against the plain-norm model
+    on the card (batch 64) and the plain model on the CPU (batch 2), and its
+    device time at batch 64. Returns the launches counted on the card:
+    architecture → (per batch-64 forward, per batch-2 backward)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import count_parameters
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    g = torch.Generator().manual_seed(5)
+    x = (torch.rand(BATCH, 1, SIZE, SIZE, generator=g) * 255).round()
+    counted = {}
+    for arch, params in ZOO_PARAMETERS.items():
+        model = zoo_model(arch).eval()
+        n = count_parameters(model)
+        check(n == params, f"{arch}: {n} parameters, JAX counts {params}")
+        with torch.inference_mode():
+            cpu = _leaves(plain_twin(model)(x[:2]))
+        # moved outside inference mode: the backward below needs its parameters
+        model, xd = model.to(DEVICE), x.to(DEVICE)
+        with torch.inference_mode():
+            for b in ZOO_BATCHES:
+                hk.instance_norm_leaky_relu.launches = 0
+                out = _leaves(model(xd[:b]))
+                torch.cuda.synchronize()
+                launches = hk.instance_norm_leaky_relu.launches
+                check(launches == ZOO_NORMS[arch],
+                      f"{arch}: {launches} norm launches in a batch-{b} forward, "
+                      f"want {ZOO_NORMS[arch]}")
+            err_cpu = _max_rel_err([t[:2] for t in out], cpu)
+            check(err_cpu <= MODEL_REL_TOL, f"{arch}: card vs CPU, max err {err_cpu:.3g}")
+            fwd_ms = time_ms(lambda: model(xd), reps=5)
+            plain_text = "no fused norm: the model is its plain twin"
+            if ZOO_NORMS[arch]:
+                plain = plain_twin(model)
+                err = _max_rel_err(out, _leaves(plain(xd)))
+                check(err <= MODEL_REL_TOL, f"{arch}: kernel vs plain norm, max err {err:.3g}")
+                plain_text = (f"plain-norm model: err {err:.3g}, "
+                              f"{time_ms(lambda: plain(xd), reps=5):.3f} ms")
+                del plain
+        hk.instance_norm_leaky_relu_backward.launches = 0
+        sum(t.sum() for t in _leaves(model(xd[:2]))).backward()
+        torch.cuda.synchronize()
+        counted[arch] = (launches, hk.instance_norm_leaky_relu_backward.launches)
+        check(counted[arch][1] == ZOO_NORMS[arch],
+              f"{arch}: {counted[arch][1]} backward norm launches in a batch-2 backward, "
+              f"want {ZOO_NORMS[arch]}")
+        log(f"  {arch:22s} {n:>10,d} params, {ZOO_NORMS[arch]:2d} norm launches per forward "
+            f"and per backward; card vs CPU err {err_cpu:.3g}; forward at {BATCH}: "
+            f"{fwd_ms:.3f} ms = {BATCH / fwd_ms * 1e3:.1f} images/s; {plain_text}")
+        del model, out
+        torch.cuda.empty_cache()
+    return counted
+
+
+def zoo_kernels(counted: dict) -> dict:
+    """Kernels #1 and #2 at every norm site shape of the BTS family that the
+    flagship does not give them, batches 2 and 64, f32 and bf16; then each
+    BTS architecture's row per forward (#1, batch 64) and per backward (#2,
+    batch 2), f32: ``launches`` as ``zoo_forwards`` counted them on the card
+    (``counted``), ``sites`` its norm sites, and ``sites_ms`` (with the
+    bound's, the plain version's and the library call's) the sum over its
+    sites of each site shape's time measured alone."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+
+    flagship = norm_shapes(init_multitask_model("MTnnUNet"), "cpu")
+    sites = {a: norm_shapes(zoo_model(a), "cpu") for a, n in ZOO_NORMS.items() if n}
+    new = Counter()
+    for counts in sites.values():
+        new.update(s for s in counts if s not in flagship)
+    new = Counter(dict.fromkeys(new, 1))
+    log(f"zoo: {len(new)} norm site shapes the flagship does not give the kernels: "
+        f"{sorted(new)}")
+    fwd, bwd = {}, {}
+    phase_kernel(new, batches=ZOO_BATCHES, extras=False, per_shape=fwd)
+    phase_backward_kernel(new, extras=False, per_shape=bwd)
+    rows = {}
+    for arch, counts in sites.items():
+        rows[arch] = {}
+        for i, (name, table, b) in enumerate((("forward", fwd, BATCH), ("backward", bwd, 2))):
+            tot = {f"sites_{k}": sum(n * table[b, torch.float32, s][k] for s, n in counts.items())
+                   for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+            rows[arch][name] = {"batch": b, "launches": counted[arch][i],
+                                "sites": sum(counts.values()), **tot}
+            log(f"  {arch:18s} #{i + 1} f32 at batch {b}, {counted[arch][i]} launches counted, "
+                f"{sum(counts.values())} sites; summed over the sites: kernel "
+                f"{tot['sites_ms']:.4f} ms, bound {tot['sites_bound_ms']:.4f} ms "
+                f"({100 * tot['sites_bound_ms'] / tot['sites_ms']:.0f} %), plain "
+                f"{tot['sites_plain_ms']:.4f} ms, library {tot['sites_library_ms']:.4f} ms")
+    return rows
+
+
+def step0_gradients(arch: str, cfg, init: dict, train_ds, runs) -> dict:
+    """The step-0 loss's gradient of the model ``init`` on the first batch
+    of ``train_ds``, for each ``(name, device, dtype, plain)`` of ``runs``:
+    name → parameter name → the gradient in f64 on the host."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+
+    grads = {}
+    for name, device, dtype, plain in runs:
+        model = zoo_model(arch)
+        model.load_state_dict(init)
+        model = (plain_twin(model) if plain else model).to(device, dtype)
+        engine = Engine(model, _engine_config(cfg, use_transforms=False), device=device)
+        data = engine.device_data(train_ds)
+        rows = torch.arange(cfg.data.batch_size, device=device)
+        x, m, t = (data[k].index_select(0, rows).to(dtype)
+                   for k in ("images", "masks", "cls_targets"))
+        loss, _ = engine._losses(model(engine._nchw(x)), m, t)
+        loss.backward()
+        grads[name] = {k: p.grad.double().cpu() for k, p in model.named_parameters()
+                       if p.grad is not None}
+        del model, engine, data
+    return grads
+
+
+def zoo_gradients(arch: str, cfg, init: dict, train_ds) -> None:
+    """Step-0 gradients of the model on the card against a float64 gradient
+    (the plain model in f64 on the card), tensor by tensor, each at its own
+    scale, beside the CPU's f32 gradient; cuDNN deterministic, as in phase 7.
+    A tensor whose f64 gradient is zero but for rounding (at most
+    ``ZERO_GRAD_REL`` of the model's largest: a conv bias before an instance
+    norm) has no scale to hold it to and is left out, by name in the log.
+    With fused norms, phase 7's rule: at most 1e-4 of the tensor's scale or
+    twice the plain-norm model's distance on the card (the same sums, so the
+    kernels' share alone). Without (UNet++, Adityan), the card's
+    convolutions and autograd are held to the CPU's: at most 1e-4 of the
+    scale, twice the CPU's distance, or the card's own f32 rounding of sums
+    of ``K = B·H·W`` terms, ``2^-24·sqrt(K)`` of the model's largest
+    gradient. The CPU sums in other orders than the card, so its distance
+    alone is no measure of the card's rounding: on an H100 about a third of
+    MTUNetPlusPlus's tensors are further from f64 than twice the CPU's
+    distance, all within that rounding."""
+    import math
+    import torch
+
+    runs = [("card", DEVICE, torch.float32, False), ("f64", DEVICE, torch.float64, True),
+            ("CPU", "cpu", torch.float32, True)]
+    if ZOO_NORMS[arch]:
+        runs.append(("plain norm on the card", DEVICE, torch.float32, True))
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = step0_gradients(arch, cfg, init, train_ds, runs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    largest = max(g.abs().max().item() for g in grads["f64"].values())
+    zero = sorted(k for k, g in grads["f64"].items()
+                  if g.abs().max().item() <= ZERO_GRAD_REL * largest)
+    scale = {k: g.abs().max().item() for k, g in grads["f64"].items() if k not in zero}
+    dist = {k: {n: (grads[n][k] - grads["f64"][k]).abs().max().item()
+                for n, *_ in runs if n != "f64"} for k in scale}
+    ref = runs[-1][0]  # the plain-norm model on the card, or the CPU
+    rounding = 0.0 if ZOO_NORMS[arch] else (
+        2.0 ** -24 * math.sqrt(cfg.data.batch_size * SIZE * SIZE) * largest)
+    bad = [(k, d["card"] / scale[k], d[ref] / scale[k]) for k, d in dist.items()
+           if d["card"] > max(GRAD_REL_TOL * scale[k], 2 * d[ref], rounding)]
+    by_rounding = sum(max(GRAD_REL_TOL * scale[k], 2 * d[ref]) < d["card"] <= rounding
+                      for k, d in dist.items())
+    worst = {n: max(d[n] / scale[k] for k, d in dist.items()) for n in dist[next(iter(dist))]}
+    log(f"  {arch} step-0 gradients over {len(dist)} tensors, max distance to the f64 "
+        f"gradient of each tensor's scale: " + ", ".join(f"{n} {v:.3g}" for n, v in worst.items())
+        + f"; held to: {ref}" + (f" or the card's rounding {rounding:.3g} ({by_rounding} "
+                                 f"tensors by it alone; largest card distance "
+                                 f"{max(d['card'] for d in dist.values()):.3g})"
+                                 if rounding else "")
+        + f"; {len(zero)} left out, their f64 gradient at most {ZERO_GRAD_REL:g} of the "
+        f"largest ({largest:.3g}): {zero}")
+    check(not bad, f"{arch} step-0 gradients: the card is further from f64 than the "
+                   f"{ref} (tensor, card, {ref}, of its scale): {bad[:3]}")
+
+
+def zoo_training(arch: str) -> tuple:
+    """An epoch of batch-2 steps through the Engine at the ``Config()``
+    defaults with ``arch`` (fast augmentation on, f32): launch counts exact,
+    losses finite, a padding step a no-op, ms per step; step-0 gradients.
+    Returns the launches of the epoch."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.ops.losses import check_finite_loss
+    from multi_task_breast_cancer_tpu_torch.train.loop import (
+        Engine, plan_epoch_indices, step_valid_mask)
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    cfg.model.architecture = arch
+    b = cfg.data.batch_size
+    model = zoo_model(arch)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    engine = Engine(model, _engine_config(cfg), device=DEVICE)
+    state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+    train_ds, val_ds = synthetic_fold(ZOO_TRAIN_N, 20), synthetic_fold(ZOO_VAL_N, 21)
+    real = ZOO_TRAIN_N // b
+    train = engine.device_data(train_ds)
+    val = engine.device_data(val_ds, for_training=False)
+    rng, gen = np.random.default_rng(0), torch.Generator().manual_seed(0)
+    perm = plan_epoch_indices(ZOO_TRAIN_N, b, rng, pad_to_steps=real + 1)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    state, tm, vm = engine.train_and_eval_epoch(state, train, val, perm, gen,
+                                                step_valid_mask(ZOO_TRAIN_N, b, real + 1))
+    torch.cuda.synchronize()
+    launches = _counts()
+    n = ZOO_NORMS[arch]
+    want = (n * (real + 1), n * real, real)
+    check(launches == want, f"{arch}: launch counts {launches}, want {want}")
+    check_finite_loss(tm["loss"])
+    check_finite_loss(vm["loss"])
+    before = _snapshot(state)
+    _reset_counts()
+    engine.train_epoch(state, train, perm[:b], gen, np.zeros(1, np.float32))
+    check(_counts() == (0, 0, 0) and _same_state(before, _snapshot(state)),
+          f"{arch}: a padding step changed the state or launched a kernel")
+    perm = plan_epoch_indices(ZOO_TRAIN_N, b, rng)
+    engine.train_epoch(state, train, perm, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_epoch(state, train, perm, gen)
+    step_ms = (time.perf_counter() - t0) * 1e3 / real
+    log(f"  {arch}: {real} steps + a padding step + validation: launches {launches} "
+        f"(want {want}); train loss {tm['loss']:.5f} (seg {tm['seg_loss']:.5f}, cls "
+        f"{tm['cls_loss']:.5f}), val loss {vm['loss']:.5f}; the padding step a no-op; "
+        f"{step_ms:.3f} ms per batch-{b} step (host clock)")
+    del engine, state, train, val
+    torch.cuda.empty_cache()
+    zoo_gradients(arch, cfg, init, train_ds)
+    return launches
+
+
+def zoo_driver() -> tuple:
+    """``training_multitask`` (the CLI's ``run_entry``, on the card by
+    default) with Multi_BTSUNet at width 24, deep supervision and fast
+    augmentation on a synthetic 128² tree, 2 folds × ``ZOO_DRIVER_EPOCHS``;
+    then ``CheckpointBackend`` over fold 0's checkpoint behind
+    ``InferenceServer`` answering ``/predict_batch``. Returns the launches
+    of the run and the requests."""
+    import tempfile
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch._entry import run_entry
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    from multi_task_breast_cancer_tpu_torch.data.loader import load_datasets
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.serve.server import (
+        CheckpointBackend, InferenceServer)
+    from multi_task_breast_cancer_tpu_torch.train import driver as D
+    from multi_task_breast_cancer_tpu_torch.train import loop as LP
+    from multi_task_breast_cancer_tpu_torch.train.inference import to_host
+
+    tmp = tempfile.mkdtemp(prefix="mtbc_zoo_")
+    try:
+        root = make_preprocessed_busi(os.path.join(tmp, "busi"), size=SIZE, seed=2,
+                                      n_per_class=ZOO_DRIVER_PER_CLASS)
+        cfg = _driver_config(root, DRIVER_CV, ZOO_DRIVER_EPOCHS)
+        cfg.model.architecture = "Multi_BTSUNet"
+        cfg_path = os.path.join(tmp, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(config_to_yaml(cfg))
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        run = run_entry("multitask", "CV", ["--config", cfg_path,
+                                            "--run-root", os.path.join(tmp, "runs")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        _check_run_dir(run, "multitask", "CV", DRIVER_CV, ZOO_DRIVER_EPOCHS)
+        sizes = _fold_sizes(run)
+        b, n = cfg.data.batch_size, ZOO_NORMS["Multi_BTSUNet"]
+        steps = sum(ZOO_DRIVER_EPOCHS * -(-tr // b) for tr, _, _ in sizes)
+        passes = DRIVER_CV * (ZOO_DRIVER_EPOCHS + 1)
+        want = (n * (steps + passes), n * steps, steps)
+        log(f"zoo driver: training_multitask, Multi_BTSUNet width 24 with deep supervision, "
+            f"{3 * ZOO_DRIVER_PER_CLASS} images at {SIZE}^2, CV {DRIVER_CV}, "
+            f"{ZOO_DRIVER_EPOCHS} epochs: {run_s:.1f} s; fold sizes {sizes}; launches "
+            f"{launches}, the fold sizes predict {want}")
+        check(launches == want, f"zoo driver launch counts {launches}, want {want}")
+
+        images = load_datasets(cfg.training, cfg.data, mode="CV")[0].test.images[:8]
+        fold0 = os.path.join(run, "fold_0")
+        ckpt = next(os.path.join(fold0, f) for f in os.listdir(fold0) if f.startswith("model_"))
+        backend = CheckpointBackend(cfg, "multitask", checkpoint=ckpt, size=SIZE, max_batch=8,
+                                    device=DEVICE)
+        planes = images[..., 0].astype(np.uint8)
+        with InferenceServer(backend, port=0, max_batch=8) as srv:
+            hk.instance_norm_leaky_relu.launches = 0
+            payload, ms = _post(f"http://127.0.0.1:{srv.port}/predict_batch", planes.tobytes(),
+                                {"X-Image-Count": str(len(planes))})
+            served = hk.instance_norm_leaky_relu.launches
+            forwards = srv.batcher.stats["batches"]
+        check(served == n * forwards and forwards >= 1,
+              f"{served} norm launches for {forwards} served forwards")
+        raw = backend.predict(planes[..., None])
+        _check_records(payload["predictions"], backend.postprocess(raw), "zoo /predict_batch")
+        state, _ = D.build_inference_state(cfg, "multitask", checkpoint=ckpt, device=DEVICE)
+        engine = LP.Engine(state.model, D._engine_config(cfg, "multitask", 360.0), device=DEVICE)
+        direct = to_host(engine.predict(state, images))
+        err = _max_rel_err([torch.from_numpy(a) for a in _leaves(raw)],
+                           [torch.from_numpy(a) for a in _leaves(direct)])
+        log(f"  /predict_batch of {len(planes)} raw planes on fold 0's checkpoint: {ms:.1f} ms, "
+            f"{forwards} forward(s), {served} norm launches; records == the backend's direct "
+            f"answer; backend vs Engine.predict max err {err:.3g} of the output scale "
+            f"(tol {SERVE_REL_TOL})")
+        check(err <= SERVE_REL_TOL, "zoo: served answer differs from Engine.predict")
+        fwd, bwd, aug = launches
+        return fwd + served, bwd, aug
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_zoo() -> tuple:
+    """The zoo: forwards, the kernels at the BTS family's new shapes,
+    training steps, and the slice's path (the driver, then serving). Returns
+    the launches on its main paths and the kernels' per-architecture rows."""
+    t0 = time.perf_counter()
+    log("zoo: the nine architectures at full width (width 24, deep supervision where the "
+        "config has it, seeded weights, 128^2)")
+    rows = zoo_kernels(zoo_forwards())
+    runs = [zoo_training(arch) for arch in ZOO_TRAINED] + [zoo_driver()]
+    launches = tuple(sum(r[i] for r in runs) for i in range(3))
+    log(f"zoo: phase {time.perf_counter() - t0:.1f} s; launches on its main paths {launches}")
+    return launches, rows
+
 
 def main() -> int:
     import tempfile
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
+    F32, BF16 = torch.float32, torch.bfloat16
     from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
 
     index_plane_lib = phase_device()
@@ -2501,12 +2929,14 @@ def main() -> int:
     model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
     model = model.to(DEVICE).eval()
     shapes = norm_shapes(model, DEVICE)
-    kernel, kernel_bf16 = phase_kernel(shapes)
+    totals = phase_kernel(shapes)
+    kernel, kernel_bf16 = totals[BATCH][F32], {b: totals[b][BF16] for b in (2, BATCH)}
     phase_model(model)
     del model
     torch.cuda.empty_cache()
     serve_launches = phase_serving()
-    backward, backward_bf16 = phase_backward_kernel(shapes)
+    totals = phase_backward_kernel(shapes)
+    backward, backward_bf16 = totals[2][F32], {b: totals[b][BF16] for b in (2, BATCH)}
     augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
     work = tempfile.mkdtemp(prefix="mtbc_smoke_")
     try:
@@ -2518,6 +2948,7 @@ def main() -> int:
     d_fwd, d_bwd, d_aug = phase_driver()
     b_fwd, b_bwd, b_aug = phase_driver_bf16()
     t_fwd = phase_tools()
+    (z_fwd, z_bwd, z_aug), zoo_rows = phase_zoo()
 
     def bf16_rows(rows, key):
         return {f"{key}_{b}": row for b, row in sorted(rows.items())}
@@ -2526,16 +2957,18 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd, **kernel,
-         "bf16": {"launches": h_fwd + e16_fwd + b_fwd, **bf16_rows(kernel_bf16, "batch")}},
+         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd + z_fwd,
+         **kernel, "bf16": {"launches": h_fwd + e16_fwd + b_fwd, **bf16_rows(kernel_bf16, "batch")},
+         "zoo": {a: r["forward"] for a, r in zoo_rows.items()}},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
-         "launches": bwd + h_bwd + d_bwd + b_bwd, **backward,
-         "bf16": {"launches": h_bwd + b_bwd, **bf16_rows(backward_bf16, "batch")}},
+         "launches": bwd + h_bwd + d_bwd + b_bwd + z_bwd, **backward,
+         "bf16": {"launches": h_bwd + b_bwd, **bf16_rows(backward_bf16, "batch")},
+         "zoo": {a: r["backward"] for a, r in zoo_rows.items()}},
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug + h_aug + d_aug + b_aug, **augment,
+         "launches": aug + h_aug + d_aug + b_aug + z_aug, **augment,
          "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

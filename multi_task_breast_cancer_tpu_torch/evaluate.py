@@ -55,7 +55,8 @@ def main(argv=None) -> None:
                         seg_criterion=cfg.loss.function,
                         cls_criterion=cfg.loss.classification_criterion,
                         compute_dtype=cfg.training.compute_dtype)
-    engine = Engine(_build_model(cfg, args.task), ecfg, device=device)
+    engine = Engine(_build_model(cfg, args.task, size=folds[0].test.images.shape[1]), ecfg,
+                    device=device)
     state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
     state = load_pretrained_model(state, args.checkpoint)
 

@@ -1,6 +1,10 @@
-"""Building blocks of the nnU-Net family (PyTorch, NCHW).
+"""Building blocks of the model zoo (PyTorch, NCHW).
 
-Twins of ``multi_task_breast_cancer_tpu/models/blocks.py``. Module and
+Twins of ``multi_task_breast_cancer_tpu/models/blocks.py``: the BTS and
+nnU-Net families' ``ConvInNormLeReLU`` stack (the fused norm kernel), and the
+MONAI-equivalent ``MonaiConv`` / ``TwoConv`` / ``Down`` / ``UpCat`` of the
+UNet++ family (biased conv → affine InstanceNorm → LeakyReLU(0.1), plain
+PyTorch, as JAX runs them without a kernel). Module and
 parameter names follow the JAX parameter tree (``conv``, ``block1``,
 ``deconv_kernel``, …) so :mod:`.jax_weights` maps one onto the other by path.
 Initialisation follows the JAX initialisers (:func:`init_weights`), drawn
@@ -37,29 +41,63 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2)
 
 
-class InstanceNorm(nn.Module):
-    """Per-sample, per-channel normalisation over H, W (affine=False,
-    eps=1e-5). Statistics in f32 even for bf16 input; the result is cast back
-    to the input's dtype before any activation, as the JAX module does."""
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    return F.avg_pool2d(x, k, stride=k)
 
-    def __init__(self, eps: float = 1e-5):
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, C)."""
+    return x.mean(dim=(2, 3))
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2× nearest-neighbour upsample (each pixel repeated on H and W)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, H·W·C) in the (h, w, c) order of the JAX models'
+    NHWC flatten, so a dense layer after it keeps JAX's weight layout
+    (transposed)."""
+    return x.permute(0, 2, 3, 1).flatten(1)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over H, W (eps=1e-5).
+    Statistics in f32 even for bf16 input; the result is cast back to the
+    input's dtype before the affine and any activation, as the JAX module
+    does. ``affine=True`` (the UNet++ family's MONAI norm) adds the
+    per-channel ``scale`` and ``bias`` of ``features`` channels."""
+
+    def __init__(self, features: int = 0, affine: bool = False, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        if affine:
+            if features <= 0:
+                raise ValueError("InstanceNorm(affine=True) needs its channel count")
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.scale = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         centered = xf - xf.mean(dim=(2, 3), keepdim=True)
         var = (centered * centered).mean(dim=(2, 3), keepdim=True)
-        return (centered * torch.rsqrt(var + self.eps)).to(x.dtype)
+        y = (centered * torch.rsqrt(var + self.eps)).to(x.dtype)
+        if self.scale is None:
+            return y
+        return y * self.scale[:, None, None] + self.bias[:, None, None]
 
 
 class ConvInNormLeReLU(nn.Module):
     """conv3x3(bias=False) → InstanceNorm → LeakyReLU(0.01).
 
     The norm and activation run as one fused kernel
-    (:func:`~..ops.hopper_kernels.instance_norm_leaky_relu`). ``plain_norm``
-    selects :class:`InstanceNorm` + ``F.leaky_relu`` instead, the twin of the
-    JAX default path; it exists to give a reference on the same device.
+    (:func:`~..ops.hopper_kernels.instance_norm_leaky_relu`). Setting
+    ``norm`` to an :class:`InstanceNorm` selects it + ``F.leaky_relu``
+    instead, the twin of the JAX default path; ``chip_smoke.plain_twin``
+    does so to give a reference on the same device.
 
     bf16: both compute the statistics in f32. The JAX module and
     :class:`InstanceNorm` round the normalised value to bf16 before the
@@ -67,12 +105,11 @@ class ConvInNormLeReLU(nn.Module):
     after it. On a negative value the two can differ by one bf16 ulp, which
     the port-vs-JAX bf16 tolerance (``tests/test_torch_bf16.py``) covers."""
 
-    def __init__(self, in_features: int, features: int, negative_slope: float = 0.01,
-                 plain_norm: bool = False):
+    def __init__(self, in_features: int, features: int, negative_slope: float = 0.01):
         super().__init__()
         self.conv = conv3x3(in_features, features)
         self.negative_slope = negative_slope
-        self.norm = InstanceNorm() if plain_norm else None
+        self.norm = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -84,11 +121,10 @@ class ConvInNormLeReLU(nn.Module):
 class LevelBlock(nn.Module):
     """Two stacked ConvInNormLeReLU blocks."""
 
-    def __init__(self, in_features: int, mid_features: int, out_features: int,
-                 plain_norm: bool = False):
+    def __init__(self, in_features: int, mid_features: int, out_features: int):
         super().__init__()
-        self.block1 = ConvInNormLeReLU(in_features, mid_features, plain_norm=plain_norm)
-        self.block2 = ConvInNormLeReLU(mid_features, out_features, plain_norm=plain_norm)
+        self.block1 = ConvInNormLeReLU(in_features, mid_features)
+        self.block2 = ConvInNormLeReLU(mid_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block2(self.block1(x))
@@ -120,6 +156,78 @@ class DeconvHead(nn.Module):
                                   stride=self.kernel)
 
 
+class MLPHead(nn.Module):
+    """Flatten (in JAX's (h, w, c) order) → Linear(hidden) → ReLU →
+    Linear(n_out). ``in_features`` is C·H·W of the tensor it flattens."""
+
+    def __init__(self, in_features: int, hidden: int, n_out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, n_out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(flatten_hwc(x))))
+
+
+# ---------------------------------------------------------------------------
+# MONAI basic_unet-equivalent blocks (UNet++ family)
+# ---------------------------------------------------------------------------
+
+
+class MonaiConv(nn.Module):
+    """conv3x3(bias=True) → InstanceNorm(affine=True) → dropout →
+    LeakyReLU(0.1)."""
+
+    def __init__(self, in_features: int, features: int, dropout: float = 0.0,
+                 negative_slope: float = 0.1):
+        super().__init__()
+        self.conv = conv3x3(in_features, features, use_bias=True)
+        self.norm = InstanceNorm(features, affine=True)
+        self.dropout = nn.Dropout(dropout)
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.dropout(self.norm(self.conv(x))), self.negative_slope)
+
+
+class TwoConv(nn.Module):
+    """Two MonaiConv blocks."""
+
+    def __init__(self, in_features: int, features: int, dropout: float = 0.0):
+        super().__init__()
+        self.conv_0 = MonaiConv(in_features, features, dropout)
+        self.conv_1 = MonaiConv(features, features, dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv_1(self.conv_0(x))
+
+
+class Down(nn.Module):
+    """MaxPool(2) → TwoConv."""
+
+    def __init__(self, in_features: int, features: int, dropout: float = 0.0):
+        super().__init__()
+        self.convs = TwoConv(in_features, features, dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.convs(max_pool_2x2(x))
+
+
+class UpCat(nn.Module):
+    """Deconv 2× upsample of ``x`` (``in_features`` channels, halved when
+    ``halves``) → concat ``[skip, up]`` → TwoConv."""
+
+    def __init__(self, in_features: int, skip_features: int, out_features: int,
+                 halves: bool = True, dropout: float = 0.0):
+        super().__init__()
+        up_features = in_features // 2 if halves else in_features
+        self.upsample = deconv(in_features, up_features, 2)
+        self.convs = TwoConv(skip_features + up_features, out_features, dropout)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.convs(torch.cat([skip, self.upsample(x)], dim=1))
+
+
 def _kaiming_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     """He normal, JAX ``variance_scaling(2.0, "fan_in", "normal")``."""
     w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
@@ -138,9 +246,13 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter as the JAX initialisers do (fan_in counted over
     the kernel taps and input channels, as JAX counts it): convs He normal,
-    transposed convs and dense layers LeCun normal, biases zero."""
+    transposed convs and dense layers LeCun normal, biases zero, an affine
+    norm's scale one."""
     for m in model.modules():
-        if isinstance(m, DeconvHead):
+        if isinstance(m, InstanceNorm) and m.scale is not None:
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, DeconvHead):
             c, _, k, _ = m.deconv_kernel.shape
             _lecun_normal_(m.deconv_kernel, k * k * c, generator)
             _kaiming_normal_(m.conv1x1_kernel, c, generator)

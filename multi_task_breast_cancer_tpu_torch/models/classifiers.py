@@ -1,8 +1,9 @@
-"""Classification models (PyTorch, NCHW): the nnU-Net head that ``MTnnUNet``
-shares and the ``NNUNetClassifier`` built on it; twins of
-``NNUNetClassifierHead`` and ``NNUNetClassifier`` in
-``multi_task_breast_cancer_tpu/models/classifiers.py``, with the JAX
-parameter tree's module names."""
+"""Classification models (PyTorch, NCHW): ``BTSUNetClassifier``, the nnU-Net
+head that ``MTnnUNet`` shares and the ``NNUNetClassifier`` built on it;
+twins of ``BTSUNetClassifier``, ``NNUNetClassifierHead`` and
+``NNUNetClassifier`` in ``multi_task_breast_cancer_tpu/models/classifiers.py``,
+with the JAX parameter tree's module names (``UNetPlusPlusClassifier`` lives
+in :mod:`.unetpp`)."""
 
 from __future__ import annotations
 
@@ -15,22 +16,47 @@ from torch import nn
 from multi_task_breast_cancer_tpu_torch.models.blocks import (
     ConvInNormLeReLU,
     LevelBlock,
+    MLPHead,
     deconv,
     max_pool_2x2,
 )
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNET_WIDTHS
 
 
+class BTSUNetClassifier(nn.Module):
+    """BTS encoder (four pooled levels and a level block, 10 fused norms) →
+    Flatten → MLP(256). The flatten sees ``8·width`` channels at
+    ``size/16``²: 8·8·192 features at 128² and width 24."""
+
+    def __init__(self, in_features: int = 1, n_classes: int = 3, width: int = 24,
+                 size: int = 128):
+        super().__init__()
+        w = tuple(width * 2 ** i for i in range(4))
+        self.enc1 = LevelBlock(in_features, w[0] // 2, w[0])
+        self.enc2 = LevelBlock(w[0], w[1] // 2, w[1])
+        self.enc3 = LevelBlock(w[1], w[2] // 2, w[2])
+        self.enc4 = LevelBlock(w[2], w[3] // 2, w[3])
+        self.enc5 = LevelBlock(w[3], w[3], w[3])
+        self.classifier = MLPHead(w[3] * (size // 16) ** 2, 256,
+                                  1 if n_classes == 2 else n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.enc1(x)
+        x = self.enc2(max_pool_2x2(x))
+        x = self.enc3(max_pool_2x2(x))
+        x = self.enc4(max_pool_2x2(x))
+        return self.classifier(self.enc5(max_pool_2x2(x)))
+
+
 class NNUNetClassifierHead(nn.Module):
     """cat(proc(e5), up5, proc(d5)) → ConvINLReLU(512) → GAP → MLP(256)."""
 
-    def __init__(self, n_out: int = 3, widths: Tuple[int, ...] = NNUNET_WIDTHS,
-                 plain_norm: bool = False):
+    def __init__(self, n_out: int = 3, widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()
         w = widths
-        self.process_encoder_5 = ConvInNormLeReLU(w[4], w[4], plain_norm=plain_norm)
-        self.process_decoder_5 = ConvInNormLeReLU(w[3], w[4], plain_norm=plain_norm)
-        self.cls_conv = ConvInNormLeReLU(3 * w[4], 512, plain_norm=plain_norm)
+        self.process_encoder_5 = ConvInNormLeReLU(w[4], w[4])
+        self.process_decoder_5 = ConvInNormLeReLU(w[3], w[4])
+        self.cls_conv = ConvInNormLeReLU(3 * w[4], 512)
         self.fc1 = nn.Linear(512, 256)
         self.fc2 = nn.Linear(256, n_out)
 
@@ -51,21 +77,20 @@ class NNUNetClassifier(nn.Module):
     logits."""
 
     def __init__(self, in_features: int = 1, n_classes: int = 3,
-                 widths: Tuple[int, ...] = NNUNET_WIDTHS, apply_softmax: bool = True,
-                 plain_norm: bool = False):
+                 widths: Tuple[int, ...] = NNUNET_WIDTHS, apply_softmax: bool = True):
         super().__init__()
-        w, p = widths, plain_norm
+        w = widths
         self.n_classes = n_classes
         self.apply_softmax = apply_softmax
-        self.encoder1 = LevelBlock(in_features, w[0], w[0], p)
-        self.encoder2 = LevelBlock(w[0], w[1], w[1], p)
-        self.encoder3 = LevelBlock(w[1], w[2], w[2], p)
-        self.encoder4 = LevelBlock(w[2], w[3], w[3], p)
-        self.encoder5 = LevelBlock(w[3], w[4], w[4], p)
-        self.bottleneck = LevelBlock(w[4], w[4], w[4], p)
+        self.encoder1 = LevelBlock(in_features, w[0], w[0])
+        self.encoder2 = LevelBlock(w[0], w[1], w[1])
+        self.encoder3 = LevelBlock(w[1], w[2], w[2])
+        self.encoder4 = LevelBlock(w[2], w[3], w[3])
+        self.encoder5 = LevelBlock(w[3], w[4], w[4])
+        self.bottleneck = LevelBlock(w[4], w[4], w[4])
         self.upsample5 = deconv(w[4], w[4], 2)
-        self.decoder5 = LevelBlock(2 * w[4], w[3], w[3], p)
-        self.cls_head = NNUNetClassifierHead(1 if n_classes == 2 else n_classes, widths, p)
+        self.decoder5 = LevelBlock(2 * w[4], w[3], w[3])
+        self.cls_head = NNUNetClassifierHead(1 if n_classes == 2 else n_classes, widths)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         e1 = self.encoder1(x)

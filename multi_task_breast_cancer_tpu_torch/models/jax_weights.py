@@ -14,13 +14,19 @@ the port's module names; only layouts change:
   ``lax.conv_transpose`` (no kernel transpose) applies tap ``(k-1-a, k-1-b)``
   where ``ConvTranspose2d`` applies ``(a, b)``. That holds for the
   ``upsample*`` layers (``nn.ConvTranspose``) and for ``DeconvHead``'s
-  ``deconv_kernel`` alike. In the nnU-Net family the ``upsample*`` modules
-  are the only transposed convs named ``kernel``.
+  ``deconv_kernel`` alike. Every transposed conv named ``kernel`` sits in a
+  module whose name starts with ``upsample``: the nnU-Net family's and
+  Adityan's ``upsample1-5``, the UNet++ ``UpCat``s' ``upsample``;
+- an affine norm's ``scale`` and ``bias`` and every bias keep their layout.
+
+The BTS models flatten NCHW maps in JAX's (h, w, c) order
+(``blocks.flatten_hwc``), so a dense layer after a flatten is a plain
+transpose too.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -136,12 +142,36 @@ def _unconv(w: np.ndarray) -> np.ndarray:
     return w.transpose(2, 3, 1, 0)
 
 
-def widths_from_params(params) -> Tuple[int, ...]:
-    """The nnU-Net family's five level widths, read from the encoder kernels
-    (a serving artifact's manifest does not record ``nnunet_widths``). The
-    segmentation and multitask models keep the encoder under ``backbone``;
-    ``NNUNetClassifier`` at the top level."""
+def size_knobs_from_params(params) -> Dict[str, Any]:
+    """The size knobs a model is built with, read from its weights (a JAX
+    serving artifact's manifest records none of them), as factory keyword
+    arguments:
+
+    - the nnU-Net family: ``nnunet_widths``, the five encoder widths (under
+      ``backbone`` in the segmentation and multitask models);
+    - the BTS family: ``width``, the first level's width (``encoder1``,
+      ``trunk/encoder1`` or the classifier's ``enc1``), and, with a
+      segmentation head, ``deep_supervision``: whether ``output3`` exists;
+    - Adityan: ``width`` (``encoder1/conv1``);
+    - the UNet++ family (fixed widths): ``deep_supervision``, whether
+      ``final_conv_0_1`` exists. ``MTUNetPlusPlus`` holds all four heads
+      either way, so it reads as deep-supervised; its served answer (the
+      finest head and the mean of one class head) is the same both ways.
+    """
     flat = _flat(params)
-    prefix = "backbone/" if "backbone/encoder1/block2/conv/kernel" in flat else ""
-    return tuple(int(flat[f"{prefix}encoder{i}/block2/conv/kernel"].shape[-1])
-                 for i in range(1, 6))
+    for prefix in ("backbone/", ""):
+        if f"{prefix}encoder5/block2/conv/kernel" in flat:
+            return {"nnunet_widths": tuple(
+                int(flat[f"{prefix}encoder{i}/block2/conv/kernel"].shape[-1])
+                for i in range(1, 6))}
+    for first in ("encoder1/block2", "trunk/encoder1/block2", "enc1/block2"):
+        if f"{first}/conv/kernel" in flat:
+            knobs = {"width": int(flat[f"{first}/conv/kernel"].shape[-1])}
+            if "output1/kernel" in flat:
+                knobs["deep_supervision"] = "output3/deconv_kernel" in flat
+            return knobs
+    if "encoder1/conv1/kernel" in flat:
+        return {"width": int(flat["encoder1/conv1/kernel"].shape[-1])}
+    if "final_conv_0_4/kernel" in flat:
+        return {"deep_supervision": "final_conv_0_1/kernel" in flat}
+    return {}

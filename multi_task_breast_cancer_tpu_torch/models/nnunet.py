@@ -27,26 +27,25 @@ class NNUNetBackbone(nn.Module):
     """Encoder + bottleneck + full decoder. Returns every intermediate tensor
     the seg heads and the multitask classification head read."""
 
-    def __init__(self, in_features: int = 1, widths: Tuple[int, ...] = NNUNET_WIDTHS,
-                 plain_norm: bool = False):
+    def __init__(self, in_features: int = 1, widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()
-        w, p = widths, plain_norm
-        self.encoder1 = LevelBlock(in_features, w[0], w[0], p)
-        self.encoder2 = LevelBlock(w[0], w[1], w[1], p)
-        self.encoder3 = LevelBlock(w[1], w[2], w[2], p)
-        self.encoder4 = LevelBlock(w[2], w[3], w[3], p)
-        self.encoder5 = LevelBlock(w[3], w[4], w[4], p)
-        self.bottleneck = LevelBlock(w[4], w[4], w[4], p)
+        w = widths
+        self.encoder1 = LevelBlock(in_features, w[0], w[0])
+        self.encoder2 = LevelBlock(w[0], w[1], w[1])
+        self.encoder3 = LevelBlock(w[1], w[2], w[2])
+        self.encoder4 = LevelBlock(w[2], w[3], w[3])
+        self.encoder5 = LevelBlock(w[3], w[4], w[4])
+        self.bottleneck = LevelBlock(w[4], w[4], w[4])
         self.upsample5 = deconv(w[4], w[4], 2)
-        self.decoder5 = LevelBlock(2 * w[4], w[3], w[3], p)
+        self.decoder5 = LevelBlock(2 * w[4], w[3], w[3])
         self.upsample4 = deconv(w[3], w[3], 2)
-        self.decoder4 = LevelBlock(2 * w[3], w[2], w[2], p)
+        self.decoder4 = LevelBlock(2 * w[3], w[2], w[2])
         self.upsample3 = deconv(w[2], w[2], 2)
-        self.decoder3 = LevelBlock(2 * w[2], w[1], w[1], p)
+        self.decoder3 = LevelBlock(2 * w[2], w[1], w[1])
         self.upsample2 = deconv(w[1], w[1], 2)
-        self.decoder2 = LevelBlock(2 * w[1], w[0], w[0], p)
+        self.decoder2 = LevelBlock(2 * w[1], w[0], w[0])
         self.upsample1 = deconv(w[0], w[0], 2)
-        self.decoder1 = LevelBlock(2 * w[0], w[0], w[0] // 2, p)
+        self.decoder1 = LevelBlock(2 * w[0], w[0], w[0] // 2)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         e1 = self.encoder1(x)
@@ -86,9 +85,9 @@ class NNUNet2021(nn.Module):
     """Segmentation nnU-Net; returns the 4-head coarse→fine tuple."""
 
     def __init__(self, in_features: int = 1, regions: int = 1,
-                 widths: Tuple[int, ...] = NNUNET_WIDTHS, plain_norm: bool = False):
+                 widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()
-        self.backbone = NNUNetBackbone(in_features, widths, plain_norm)
+        self.backbone = NNUNetBackbone(in_features, widths)
         self.heads = SegHeads(regions, widths)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -1,11 +1,14 @@
 """Model factories of the port (twin of
 ``multi_task_breast_cancer_tpu/models/registry.py``).
 
-The port has the nnU-Net family: ``MTnnUNet``, ``nnUNet`` and
-``nnUNetClassifier``; every other architecture of the JAX zoo raises
-``NotImplementedError``. Factories return
-a model on the CPU with its parameters drawn as the JAX initialisers draw
-them, from an explicit ``torch.Generator`` (seed 0 when none is given).
+Every classification and multitask architecture of the JAX registry builds;
+of the segmentation ones, UNet, AttentionUNet, ResidualUNet, SegResNet and
+SwinUNETR raise ``NotImplementedError`` (``ROADMAP.md``, Queue 1). Factories
+return a model on the CPU with its parameters drawn as the JAX initialisers
+draw them, from an explicit ``torch.Generator`` (seed 0 when none is given).
+``size`` is the input side, which the BTS flatten heads need
+(BTSUNetClassifier, Multi_BTSUNet, Multi_FSB_BTSUNet); JAX infers it at
+``init``.
 """
 
 from __future__ import annotations
@@ -18,16 +21,45 @@ import torch
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.models.blocks import init_weights
-from multi_task_breast_cancer_tpu_torch.models.classifiers import NNUNetClassifier
-from multi_task_breast_cancer_tpu_torch.models.multitask import MTnnUNet
+from multi_task_breast_cancer_tpu_torch.models.bts_unet import BTSUNet
+from multi_task_breast_cancer_tpu_torch.models.classifiers import (
+    BTSUNetClassifier,
+    NNUNetClassifier,
+)
+from multi_task_breast_cancer_tpu_torch.models.fsb_bts_unet import FSBBTSUNet
+from multi_task_breast_cancer_tpu_torch.models.multitask import (
+    Adityan,
+    MTnnUNet,
+    MultiBTSUNet,
+    MultiFSBBTSUNet,
+)
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNet2021
+from multi_task_breast_cancer_tpu_torch.models.unetpp import (
+    BasicUNetPlusPlus,
+    MTUNetPlusPlus,
+    UNetPlusPlusClassifier,
+)
 
 SEGMENTATION_ARCHS = ("BTSUNet", "nnUNet", "UNet", "AttentionUNet", "ResidualUNet",
                       "UnetPlusPlus", "FSBBTSUNet", "SegResNet", "SwinUNETR")
 CLASSIFICATION_ARCHS = ("BTSUNetClassifier", "UNetPlusPlusClassifier", "nnUNetClassifier")
 MULTITASK_ARCHS = ("Multi_BTSUNet", "MTUNetPlusPlus", "MTnnUNet", "Multi_FSB_BTSUNet", "Adityan")
 
-_DEFAULT_WIDTH = 24  # ModelConfig.width: an untouched config forwards it
+# architectures whose feature sizes are fixed (model.width is ignored; the
+# nnU-Net family takes model.nnunet_widths) and whose deep supervision is
+# fixed (always on for the nnU-Nets, absent elsewhere): the reference's
+# factory ignores these knobs silently, the factories here warn
+_WIDTH_IGNORED = {"nnUNet", "UnetPlusPlus", "SegResNet", "SwinUNETR",
+                  "UNetPlusPlusClassifier", "nnUNetClassifier",
+                  "MTUNetPlusPlus", "MTnnUNet"}
+_DS_FIXED = {"UNet": False, "AttentionUNet": False, "ResidualUNet": False,
+             "SegResNet": False, "SwinUNETR": False,
+             "nnUNet": True, "MTnnUNet": True, "Adityan": False}
+
+# not a deliberate override: None (the knob was not passed) and the
+# ModelConfig default, which the driver always forwards
+_DEFAULT_WIDTH = 24
+_FACTORY_WIDTH = 48  # the width when the factory is called without one
 
 
 def count_parameters(model: nn.Module) -> int:
@@ -57,10 +89,31 @@ def _not_ported(kind: str, architecture: str, known) -> Exception:
                       f"Available: {known}")
 
 
-def _nnunet_widths(architecture: str, width, nnunet_widths) -> dict:
-    if width not in (None, _DEFAULT_WIDTH):
-        logging.warning("model.width=%s is ignored by %s (fixed feature sizes; "
-                        "use model.nnunet_widths)", width, architecture)
+def _warn_ignored_knobs(architecture: str, width=None, deep_supervision=None) -> None:
+    if width not in (None, _DEFAULT_WIDTH) and architecture in _WIDTH_IGNORED:
+        logging.warning(
+            "model.width=%s is ignored by %s (fixed feature sizes%s)",
+            width, architecture,
+            "; use model.nnunet_widths" if "nnUNet" in architecture else "")
+    fixed = _DS_FIXED.get(architecture)
+    if deep_supervision is not None and fixed is not None and deep_supervision != fixed:
+        logging.warning(
+            "model.deep_supervision=%s is ignored by %s (deep supervision "
+            "is %s for this architecture)", deep_supervision, architecture,
+            "always on" if fixed else "not available")
+
+
+def _reject_nnunet_widths(architecture: str, nnunet_widths) -> None:
+    """``model.nnunet_widths`` applies to the nnU-Net family only: training
+    another architecture at its default widths would hide a config mistake."""
+    if nnunet_widths is not None:
+        raise ValueError(
+            f"model.nnunet_widths is only valid for the nnU-Net family "
+            f"(nnUNet / nnUNetClassifier / MTnnUNet), not {architecture!r}; "
+            f"use model.width for this architecture")
+
+
+def _nnunet_kw(nnunet_widths) -> dict:
     if nnunet_widths is None:
         return {}
     widths = tuple(int(w) for w in nnunet_widths)
@@ -71,39 +124,81 @@ def _nnunet_widths(architecture: str, width, nnunet_widths) -> dict:
     return {"widths": widths}
 
 
+def _knobs(architecture: str, nnunet_family: tuple, width, deep_supervision,
+           nnunet_widths) -> tuple:
+    """Warn about knobs the architecture ignores, refuse nnU-Net widths
+    elsewhere; the width and deep supervision the model is built with."""
+    _warn_ignored_knobs(architecture, width, deep_supervision)
+    if architecture not in nnunet_family:
+        _reject_nnunet_widths(architecture, nnunet_widths)
+    return (_FACTORY_WIDTH if width is None else width,
+            False if deep_supervision is None else deep_supervision)
+
+
+def _seeded(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    return init_weights(model, generator or torch.Generator().manual_seed(0))
+
+
 def init_segmentation_model(architecture: str, sequences: int = 1, regions: int = 1,
                             width: Optional[int] = None,
                             deep_supervision: Optional[bool] = None,
                             nnunet_widths=None,
                             generator: Optional[torch.Generator] = None) -> nn.Module:
-    """``nnUNet`` (always 4-head deep supervision; ``deep_supervision`` is
+    """``nnUNet`` always has 4-head deep supervision (``deep_supervision`` is
     ignored, as in JAX)."""
-    if architecture != "nnUNet":
+    logging.info("Creating %s model (fed with %d sequences)", architecture, sequences)
+    width, ds = _knobs(architecture, ("nnUNet",), width, deep_supervision, nnunet_widths)
+    if architecture == "BTSUNet":
+        model = BTSUNet(sequences, regions, width, ds)
+    elif architecture == "FSBBTSUNet":
+        model = FSBBTSUNet(sequences, regions, width, ds)
+    elif architecture == "UnetPlusPlus":
+        model = BasicUNetPlusPlus(sequences, regions, deep_supervision=ds)
+    elif architecture == "nnUNet":
+        model = NNUNet2021(sequences, regions, **_nnunet_kw(nnunet_widths))
+    else:
         raise _not_ported("segmentation", architecture, SEGMENTATION_ARCHS)
-    model = NNUNet2021(sequences, regions, **_nnunet_widths(architecture, width, nnunet_widths))
-    return init_weights(model, generator or torch.Generator().manual_seed(0))
+    return _seeded(model, generator)
 
 
 def init_multitask_model(architecture: str, sequences: int = 1, regions: int = 1,
                          n_classes: int = 3, width: Optional[int] = None,
                          deep_supervision: Optional[bool] = None,
-                         nnunet_widths=None,
+                         nnunet_widths=None, size: int = 128,
                          generator: Optional[torch.Generator] = None) -> nn.Module:
-    """``MTnnUNet`` (always 4-head deep supervision)."""
-    if architecture != "MTnnUNet":
+    """``MTnnUNet`` always has 4-head deep supervision; ``Multi_FSB_BTSUNet``
+    (1 logit) and ``Adityan`` (3 logits) ignore ``n_classes``, as in JAX."""
+    logging.info("Creating %s model (fed with %d sequences)", architecture, sequences)
+    width, ds = _knobs(architecture, ("MTnnUNet",), width, deep_supervision, nnunet_widths)
+    if architecture == "Multi_BTSUNet":
+        model = MultiBTSUNet(sequences, regions, n_classes, width, ds, size)
+    elif architecture == "MTUNetPlusPlus":
+        model = MTUNetPlusPlus(sequences, regions, n_classes, deep_supervision=ds)
+    elif architecture == "MTnnUNet":
+        model = MTnnUNet(sequences, regions, n_classes, **_nnunet_kw(nnunet_widths))
+    elif architecture == "Multi_FSB_BTSUNet":
+        model = MultiFSBBTSUNet(sequences, regions, width, ds, size)
+    elif architecture == "Adityan":
+        model = Adityan(sequences, regions, width)
+    else:
         raise _not_ported("multitask", architecture, MULTITASK_ARCHS)
-    model = MTnnUNet(sequences, regions, n_classes,
-                     **_nnunet_widths(architecture, width, nnunet_widths))
-    return init_weights(model, generator or torch.Generator().manual_seed(0))
+    return _seeded(model, generator)
 
 
 def init_classification_model(architecture: str, sequences: int = 1, n_classes: int = 3,
                               width: Optional[int] = None, nnunet_widths=None,
+                              size: int = 128,
                               generator: Optional[torch.Generator] = None) -> nn.Module:
-    """``nnUNetClassifier`` (softmax in the forward when multiclass, as the
-    reference's)."""
-    if architecture != "nnUNetClassifier":
+    """``nnUNetClassifier`` applies softmax in its forward when multiclass,
+    as the reference's does."""
+    logging.info("Creating %s model (fed with %d sequences)", architecture, sequences)
+    width, _ = _knobs(architecture, ("nnUNetClassifier",), width, None, nnunet_widths)
+    if architecture == "BTSUNetClassifier":
+        model = BTSUNetClassifier(sequences, n_classes, width, size)
+    elif architecture == "UNetPlusPlusClassifier":
+        model = UNetPlusPlusClassifier(sequences, n_classes)
+    elif architecture == "nnUNetClassifier":
+        model = NNUNetClassifier(sequences, n_classes, **_nnunet_kw(nnunet_widths))
+    else:
         raise _not_ported("classification", architecture, CLASSIFICATION_ARCHS)
-    model = NNUNetClassifier(sequences, n_classes,
-                             **_nnunet_widths(architecture, width, nnunet_widths))
-    return init_weights(model, generator or torch.Generator().manual_seed(0))
+    return _seeded(model, generator)

@@ -1,6 +1,8 @@
 """Import the reference's own PyTorch checkpoints (twin of
-``multi_task_breast_cancer_tpu/models/torch_import.py``), for the nnU-Net
-family: nnUNet, MTnnUNet and nnUNetClassifier.
+``multi_task_breast_cancer_tpu/models/torch_import.py``), for every custom
+reference architecture the port builds: BTSUNet, FSBBTSUNet, nnUNet,
+BTSUNetClassifier, nnUNetClassifier, MTnnUNet, Multi_BTSUNet,
+Multi_FSB_BTSUNet and Adityan.
 
 Users of the reference codebase (caumente/multi_task_breast_cancer) carry
 their trained weights over instead of retraining: :func:`convert_state_dict`
@@ -20,18 +22,27 @@ taps flipped, ``Linear`` (O, I) → (I, O)); the port's modules keep torch's
 layouts and the reference's tap order (``models/jax_weights.py`` undoes
 exactly those conversions), so here only the names change and every tensor is
 copied as it is, to float32 on the CPU (a copy: the result must not track a
-live model's storage). ``tests/test_torch_import.py`` holds the port's result
-equal, tensor for tensor, to ``params_from_jax`` of the JAX conversion.
+live model's storage). One exception: a ``Linear`` after the reference's
+``Flatten`` of a (B, C, H, W) map (the BTS classification heads) reads its
+input in (c, h, w) order, the port's ``MLPHead`` flattens in JAX's (h, w, c)
+order (``blocks.flatten_hwc``), so that weight's input axis is permuted, as
+JAX's ``_dense_after_flatten`` does; ``width`` (the config's
+``model.width``) gives its channel count. ``tests/test_torch_import.py``
+holds the port's result equal, tensor for tensor, to ``params_from_jax`` of
+the JAX conversion.
 
 nnUNetClassifier's decoders 4..1 are dead code in the reference's forward
-(``nnUNet_classifier.py:106-109``) and are dropped. The other architectures
-the JAX importer maps wait for the rest of the zoo (``ROADMAP.md``, Queue 1).
+(``nnUNet_classifier.py:106-109``) and are dropped. ResidualUNet, which the
+JAX importer maps, waits for the model itself (``ROADMAP.md``, Queue 1); the
+MONAI factory models (UNet++ family among them) have no reference source to
+map from.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 from typing import Callable, Dict, Iterator, Mapping, Tuple
 
 import torch
@@ -41,15 +52,29 @@ from multi_task_breast_cancer_tpu_torch.device import resolve_device
 from multi_task_breast_cancer_tpu_torch.train.checkpoint import check_fits, save_checkpoint
 from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
 
-Pairs = Iterator[Tuple[str, str]]  # (port name, reference name)
+# (port name, reference name[, a function of the reference's tensor])
+Pairs = Iterator[Tuple]
 
 # the JAX importer's architectures that the port does not build yet
-_ZOO = ("BTSUNet", "FSBBTSUNet", "ResidualUNet", "BTSUNetClassifier",
-        "Multi_BTSUNet", "Multi_FSB_BTSUNet", "Adityan")
+_ZOO = ("ResidualUNet",)
 
 
 def _t(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().to("cpu", torch.float32).clone()
+
+
+def _hwc_inputs(channels: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A ``Linear`` weight (O, C·H·W) read after a flatten of (C, H, W), in
+    the (h, w, c) input order of ``MLPHead`` (square H = W, inferred)."""
+    def permute(w: torch.Tensor) -> torch.Tensor:
+        hw = w.shape[1] // channels
+        side = math.isqrt(hw)
+        if side * side * channels != w.shape[1]:
+            raise ValueError(f"cannot split a flattened input of {w.shape[1]} features "
+                             f"into {channels} channels of a square map")
+        return (w.reshape(-1, channels, side, side).permute(0, 2, 3, 1)
+                .reshape(w.shape[0], -1).contiguous())
+    return permute
 
 
 def _cinl(port: str, ref: str) -> Pairs:
@@ -98,17 +123,17 @@ def _nnunet_cls_head() -> Pairs:
     yield from _layer("cls_head.fc2", "classifier.5")
 
 
-def _map_nnunet() -> Pairs:
+def _map_nnunet(**_) -> Pairs:
     yield from _nnunet_backbone("backbone.")
     yield from _nnunet_seg_heads()
 
 
-def _map_mtnnunet() -> Pairs:
+def _map_mtnnunet(**_) -> Pairs:
     yield from _map_nnunet()
     yield from _nnunet_cls_head()
 
 
-def _map_nnunet_classifier() -> Pairs:
+def _map_nnunet_classifier(**_) -> Pairs:
     for i in range(1, 6):
         yield from _levelblock(f"encoder{i}", f"encoder{i}")
     yield from _levelblock("bottleneck", "bottleneck")
@@ -117,16 +142,109 @@ def _map_nnunet_classifier() -> Pairs:
     yield from _nnunet_cls_head()
 
 
-_MAPPERS: Dict[str, Callable[[], Pairs]] = {
+def _bts_trunk(port: str, fsb: bool = False) -> Pairs:
+    for name in ("encoder1", "encoder2", "encoder3", "encoder4",
+                 "bottleneck", "decoder3", "decoder2", "decoder1"):
+        yield from _levelblock(port + name, name)
+    yield from _cinl(port + "bottleneck2", "bottleneck2")
+    if fsb:
+        for name in ("npl1", "npl2", "npl3", "npl4"):
+            yield from _levelblock(port + name, name)
+
+
+def _bts_seg_heads(deep_supervision: bool, fsb: bool = False) -> Pairs:
+    yield from _layer("output1", "output1")
+    if deep_supervision:
+        yield from _deconv_head("output3", "output3")
+        yield from _deconv_head("output2", "output2")
+        if fsb:
+            for name in ("input1", "out_npl1", "out_npl2", "out_npl3", "out_npl4"):
+                yield from _layer(name, f"{name}.0")
+
+
+def _flattened_mlp(port: str, channels: int) -> Pairs:
+    """The reference's ``classifier`` Sequential (Flatten, Linear, ReLU,
+    Linear) → ``MLPHead``."""
+    permute = _hwc_inputs(channels)
+    yield f"{port}.fc1.weight", "classifier.1.weight", permute
+    yield f"{port}.fc1.bias", "classifier.1.bias"
+    yield from _layer(f"{port}.fc2", "classifier.3")
+
+
+def _bts_cls_head(width: int) -> Pairs:
+    yield from _cinl("cls_head.process_bottleneck2", "process_bottleneck2")
+    yield from _cinl("cls_head.process_features_map", "process_features_map")
+    yield from _flattened_mlp("cls_head.classifier", 8 * width)
+
+
+def _map_btsunet(*, deep_supervision=False, **_) -> Pairs:
+    yield from _bts_trunk("")
+    yield from _bts_seg_heads(deep_supervision)
+
+
+def _map_fsb(*, deep_supervision=False, **_) -> Pairs:
+    yield from _bts_trunk("", fsb=True)
+    yield from _bts_seg_heads(deep_supervision, fsb=True)
+
+
+def _map_bts_classifier(*, width=24, **_) -> Pairs:
+    for i in range(5):
+        yield from _levelblock(f"enc{i + 1}", f"encoder.{2 * i}")
+    yield from _flattened_mlp("classifier", 8 * width)
+
+
+def _map_multi_bts(*, deep_supervision=False, width=24, **_) -> Pairs:
+    yield from _bts_trunk("trunk.")
+    yield from _bts_cls_head(width)
+    yield from _bts_seg_heads(deep_supervision)
+
+
+def _map_multi_fsb(*, deep_supervision=False, width=24, **_) -> Pairs:
+    yield from _bts_trunk("trunk.", fsb=True)
+    yield from _bts_cls_head(width)
+    yield from _bts_seg_heads(deep_supervision, fsb=True)
+
+
+def _convrelu_level(port: str, ref: str) -> Pairs:
+    """Adityan's level: two biased ConvReLU (``AdityanNetwork.py:19-39``)."""
+    yield from _layer(f"{port}.conv1", f"{ref}.ConvRelu1.Conv")
+    yield from _layer(f"{port}.conv2", f"{ref}.ConvRelu2.Conv")
+
+
+def _map_adityan(**_) -> Pairs:
+    for name in ("encoder1", "encoder2", "encoder3", "encoder4", "bottleneck",
+                 "decoder4", "decoder3", "decoder2", "segmap", "recmap"):
+        yield from _convrelu_level(name, name)
+    for i in range(1, 5):
+        yield from _layer(f"upsample{i}", f"upsample{i}")
+    yield from _layer("seg_out", "seg_out")
+    yield from _layer("rec_out", "rec_out")
+    yield from _layer("cls_conv", "classmap.3.Conv")
+    yield from _layer("cls_fc1", "classmap.6")
+    yield from _layer("cls_fc2", "classmap.8")
+
+
+_MAPPERS: Dict[str, Callable[..., Pairs]] = {
+    "BTSUNet": _map_btsunet,
+    "FSBBTSUNet": _map_fsb,
     "nnUNet": _map_nnunet,
+    "BTSUNetClassifier": _map_bts_classifier,
     "nnUNetClassifier": _map_nnunet_classifier,
     "MTnnUNet": _map_mtnnunet,
+    "Multi_BTSUNet": _map_multi_bts,
+    "Multi_FSB_BTSUNet": _map_multi_fsb,
+    "Adityan": _map_adityan,
 }
 
 
-def convert_state_dict(architecture: str, state_dict: Mapping) -> Dict[str, torch.Tensor]:
+def convert_state_dict(architecture: str, state_dict: Mapping, *,
+                       deep_supervision: bool = False,
+                       width: int = 24) -> Dict[str, torch.Tensor]:
     """A reference ``state_dict`` → the port's ``state_dict`` of the
-    same-named architecture (float32 CPU copies)."""
+    same-named architecture (float32 CPU copies). ``deep_supervision`` and
+    ``width`` are the checkpoint's ``model.deep_supervision`` and
+    ``model.width``: the BTS family's heads depend on the first, the
+    flattened classification heads' input order on the second."""
     if architecture in _ZOO:
         raise NotImplementedError(
             f"importing reference weights for {architecture!r} waits for the "
@@ -136,13 +254,18 @@ def convert_state_dict(architecture: str, state_dict: Mapping) -> Dict[str, torc
             f"cannot import torch weights for {architecture!r}: supported "
             f"architectures are {sorted(_MAPPERS)} (the MONAI factory models "
             f"have no custom reference source to map from)")
+    out = {}
     try:
-        return {port: _t(state_dict[ref]) for port, ref in _MAPPERS[architecture]()}
+        for port, ref, *fn in _MAPPERS[architecture](deep_supervision=deep_supervision,
+                                                     width=width):
+            t = _t(state_dict[ref])
+            out[port] = fn[0](t) if fn else t
     except KeyError as e:
         raise KeyError(
             f"state_dict key {e.args[0]!r} not found while importing "
-            f"{architecture!r} — is the checkpoint from the same "
-            f"architecture/configuration?") from e
+            f"{architecture!r} (deep_supervision={deep_supervision}) — is the "
+            f"checkpoint from the same architecture/configuration?") from e
+    return out
 
 
 def main(argv=None) -> None:
@@ -154,6 +277,7 @@ def main(argv=None) -> None:
     parser.add_argument("--torch-checkpoint", required=True,
                         help="reference checkpoint (torch.save dict or raw state_dict)")
     parser.add_argument("--out", required=True, help="output checkpoint path (the port's format)")
+    parser.add_argument("--size", type=int, default=128)
     parser.add_argument("--device", default=None, help="default: cuda")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -167,8 +291,10 @@ def main(argv=None) -> None:
     val_loss = float(ckpt.get("val_loss", float("inf"))) if isinstance(ckpt, dict) else float("inf")
 
     cfg = load_config(args.config)
-    converted = convert_state_dict(cfg.model.architecture, sd)
-    state, _ = build_inference_state(cfg, args.task, device=device)
+    converted = convert_state_dict(cfg.model.architecture, sd,
+                                   deep_supervision=cfg.model.deep_supervision,
+                                   width=cfg.model.width)
+    state, _ = build_inference_state(cfg, args.task, device=device, size=args.size)
     check_fits(converted, state.model, "converted weights")
     state.model.load_state_dict(converted, strict=True)
     save_checkpoint(args.out, state, epoch=epoch, val_loss=val_loss)

@@ -77,7 +77,7 @@ def main(argv=None) -> None:
     logging.info("loaded %d images (%d channels)", len(images), images.shape[-1])
 
     state, channels = build_inference_state(cfg, args.task, checkpoint=args.checkpoint,
-                                            device=device)
+                                            device=device, size=args.size)
     if channels != images.shape[-1]:
         raise SystemExit(f"config expects {channels} input channels, "
                          f"loaded images have {images.shape[-1]}")

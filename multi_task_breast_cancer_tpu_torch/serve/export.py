@@ -60,7 +60,7 @@ from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
 )
 from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels  # noqa: F401  (the operator library)
-from multi_task_breast_cancer_tpu_torch.utils.trees import tree_map
+from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
 
 MANIFEST = "manifest.json"
 WEIGHTS = "weights.npz"
@@ -99,10 +99,7 @@ def _compact_outputs(out, task: str, n_classes: int,
 
     seg_out = out
     if task == "multitask":
-        if isinstance(out, (tuple, list)) and len(out) == 3:
-            cls_out, _, seg_out = out  # Adityan: (cls, reconstruction, seg)
-        else:
-            cls_out, seg_out = out
+        cls_out, seg_out = multitask_pair(out)
         compact["probs"] = cls_probs(cls_out)
     final = seg_out[-1] if isinstance(seg_out, (tuple, list)) else seg_out
     if final.shape[-1] > 1:  # semantic: per-pixel label map + pixel vote
@@ -151,7 +148,8 @@ def export_inference(cfg, task: str, checkpoint, out_dir, buckets: Sequence[int]
         raise ValueError(f"export: unknown platforms {unknown} (cpu, cuda)")
     devices = {p: resolve_device("cuda" if p == "cuda" else "cpu") for p in platforms}
     compute_dtype = cfg.training.compute_dtype
-    state, channels = build_inference_state(cfg, task, checkpoint=checkpoint, device="cpu")
+    state, channels = build_inference_state(cfg, task, checkpoint=checkpoint, device="cpu",
+                                            size=size)
     model = state.model.eval()
     weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
     n_classes = len(cfg.data.classes)

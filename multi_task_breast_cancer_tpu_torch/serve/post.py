@@ -15,6 +15,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair
+
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-x))
@@ -99,10 +101,7 @@ def postprocess(out, task: str, n_classes: int, pr_enabled: bool,
     else:
         seg_out = out
         if task == "multitask":
-            if isinstance(out, (tuple, list)) and len(out) == 3:
-                cls_out, _, seg_out = out
-            else:
-                cls_out, seg_out = out
+            cls_out, seg_out = multitask_pair(out)
             logits = _cls_logits_np(cls_out)
             probs = _softmax(logits) if n_classes > 2 else _sigmoid(logits)
         final = np.asarray(seg_out[-1] if isinstance(seg_out, (tuple, list))

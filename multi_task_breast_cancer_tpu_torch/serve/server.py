@@ -51,7 +51,7 @@ from multi_task_breast_cancer_tpu_torch.device import (
 )
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
-    widths_from_params,
+    size_knobs_from_params,
 )
 from multi_task_breast_cancer_tpu_torch.models.registry import (
     init_classification_model,
@@ -87,12 +87,13 @@ def prepare_image(gray: np.ndarray, size: int, augmentations: Dict[str, bool]
 
 
 def _build_model(task: str, architecture: str, channels: int, n_classes: int,
-                 regions: int, nnunet_widths, width=None, deep_supervision=None):
+                 regions: int, size: int, nnunet_widths=None, width=None,
+                 deep_supervision=None):
     if task == "multitask":
         return init_multitask_model(architecture, sequences=channels,
                                     n_classes=n_classes, width=width,
                                     deep_supervision=deep_supervision,
-                                    nnunet_widths=nnunet_widths)
+                                    nnunet_widths=nnunet_widths, size=size)
     if task == "segmentation":
         return init_segmentation_model(architecture, sequences=channels,
                                        regions=regions, width=width,
@@ -101,7 +102,7 @@ def _build_model(task: str, architecture: str, channels: int, n_classes: int,
     if task == "classification":
         return init_classification_model(architecture, sequences=channels,
                                          n_classes=n_classes, width=width,
-                                         nnunet_widths=nnunet_widths)
+                                         nnunet_widths=nnunet_widths, size=size)
     raise ValueError(f"unknown task {task!r}")
 
 
@@ -186,7 +187,7 @@ class CheckpointBackend(_TorchBackend):
         n_classes = len(cfg.data.classes)
         regions = 3 if (task == "segmentation" and cfg.data.semantic_segmentation) else 1
         model = _build_model(task, cfg.model.architecture, channels, n_classes,
-                             regions, cfg.model.nnunet_widths,
+                             regions, size, cfg.model.nnunet_widths,
                              width=cfg.model.width,
                              deep_supervision=cfg.model.deep_supervision)
         if checkpoint is not None:
@@ -215,7 +216,8 @@ class ArtifactBackend:
     loaded when the backend is built, and decodes a
     device-postprocessed answer with :func:`.post.postprocess_compact`, as
     the JAX backend does. A JAX artifact (no ``format``) is rebuilt as a live
-    model from ``manifest.json`` (widths read from ``weights.npz``) and its
+    model from ``manifest.json`` (widths and deep supervision read from
+    ``weights.npz``, :func:`~..models.jax_weights.size_knobs_from_params`) and its
     raw outputs are postprocessed on the host: that equals its
     device-postprocessed answer, which the JAX tests prove equal to the raw
     one; its ``.jaxexport`` programs are not used."""
@@ -233,7 +235,8 @@ class ArtifactBackend:
             regions = 3 if (m["task"] == "segmentation"
                             and m.get("semantic_segmentation", False)) else 1
             model = _build_model(m["task"], m["architecture"], m["channels"],
-                                 m["n_classes"], regions, widths_from_params(params))
+                                 m["n_classes"], regions, m["size"],
+                                 **size_knobs_from_params(params))
             model.load_state_dict(params_from_jax(params), strict=True)
             self._runner = _TorchBackend(model, device, m.get("compute_dtype", "float32"),
                                          m["buckets"])

@@ -102,9 +102,11 @@ def input_channels(cfg: Config) -> int:
     return cfg.model.sequences + cfg.data.augmentation.n_active()
 
 
-def _build_model(cfg: Config, task: str, generator: Optional[torch.Generator] = None):
-    """The task's model on the CPU, its weights drawn from ``generator``.
-    ``data.semantic_segmentation`` gives the segmentation head 3 channels."""
+def _build_model(cfg: Config, task: str, generator: Optional[torch.Generator] = None,
+                 size: int = 128):
+    """The task's model on the CPU, its weights drawn from ``generator``, for
+    ``size``² inputs. ``data.semantic_segmentation`` gives the segmentation
+    head 3 channels."""
     sequences = input_channels(cfg)
     n_classes = len(cfg.data.classes)
     nw = cfg.model.nnunet_widths
@@ -117,26 +119,27 @@ def _build_model(cfg: Config, task: str, generator: Optional[torch.Generator] = 
     if task == "classification":
         return init_classification_model(cfg.model.architecture, sequences=sequences,
                                          n_classes=n_classes, width=cfg.model.width,
-                                         nnunet_widths=nw, generator=generator)
+                                         nnunet_widths=nw, size=size, generator=generator)
     return init_multitask_model(cfg.model.architecture, sequences=sequences,
                                 n_classes=n_classes, width=cfg.model.width,
                                 deep_supervision=cfg.model.deep_supervision,
-                                nnunet_widths=nw, generator=generator)
+                                nnunet_widths=nw, size=size, generator=generator)
 
 
-def fold_init_state_dict(cfg: Config, task: str, seed: int, fold: int) -> Dict[str, torch.Tensor]:
+def fold_init_state_dict(cfg: Config, task: str, seed: int, fold: int,
+                         size: int = 128) -> Dict[str, torch.Tensor]:
     """Fold ``fold``'s initial weights (CPU), from the generator seeded with
     ``derive_seed(seed, fold)``."""
     gen = torch.Generator().manual_seed(derive_seed(seed, fold))
-    return _build_model(cfg, task, gen).state_dict()
+    return _build_model(cfg, task, gen, size).state_dict()
 
 
 def build_inference_state(cfg: Config, task: str, checkpoint: Optional[str] = None,
-                          device=None):
-    """Model and fresh train state on ``device`` (+ optional checkpoint
-    weights): the recipe the deployment paths share with training. Returns
-    ``(state, channels)``."""
-    model = _build_model(cfg, task).to(resolve_device(device))
+                          device=None, size: int = 128):
+    """Model for ``size``² inputs and fresh train state on ``device`` (+
+    optional checkpoint weights): the recipe the deployment paths share with
+    training. Returns ``(state, channels)``."""
+    model = _build_model(cfg, task, size=size).to(resolve_device(device))
     state = create_train_state(model, cfg.optimizer.opt, cfg.optimizer.lr)
     if checkpoint is not None:
         state = load_pretrained_model(state, checkpoint)
@@ -152,7 +155,7 @@ def quick_test_dice(engine: Engine, state: TrainState, test_ds, fill_holes: bool
     images = test_ds.images if device_images is None else device_images
     out = engine.predict(state, images, pad_to=pad_to)
     if engine.cfg.task == "multitask":
-        out = out[-1]
+        out = out[-1]  # (cls, seg) or Adityan's (cls, rec, seg): seg is last
     final = out[-1] if isinstance(out, (tuple, list)) else out
     final = I.to_host(final)
     if final.shape[-1] > 1:
@@ -531,7 +534,9 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             f"but the dataset provides {actual_ch} input channel(s)")
 
     header = METRIC_HEADERS[(task, mode)]
-    engine = Engine(_build_model(cfg, task), _engine_config(cfg, task, max_angle), device=device)
+    size = folds[0].train.images.shape[1]
+    engine = Engine(_build_model(cfg, task, size=size), _engine_config(cfg, task, max_angle),
+                    device=device)
 
     # cross-fold padding, as the JAX driver wires it: every fold's train data
     # and plan padded to the largest fold (padding steps are no-ops), and
@@ -562,7 +567,7 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             Path(f"{run_path}/fold_{n}/{sub}").mkdir(parents=True, exist_ok=True)
 
         def fresh_state() -> TrainState:
-            engine.model.load_state_dict(fold_init_state_dict(cfg, task, seed, n))
+            engine.model.load_state_dict(fold_init_state_dict(cfg, task, seed, n, size))
             return create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
 
         state = fresh_state()

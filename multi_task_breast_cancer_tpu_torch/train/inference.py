@@ -36,6 +36,7 @@ from multi_task_breast_cancer_tpu_torch.ops.metrics import (
     calculate_metrics,
     calculate_metrics_multiclass_segmentation,
 )
+from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair
 
 SEG_RESULT_COLUMNS = ["patient_id", "Haussdorf distance", "DICE", "Sensitivity",
                       "Specificity", "Accuracy", "Jaccard index", "Precision", "class"]
@@ -97,7 +98,7 @@ def _forward_seg(engine, state, test_ds: ArrayDataset, pad_to=None):
     outputs), NHWC numpy."""
     out = to_host(engine.predict(state, test_ds.images, pad_to=pad_to))
     if engine.cfg.task == "multitask":
-        cls_out, seg_out = out
+        cls_out, seg_out = multitask_pair(out)
     else:
         cls_out, seg_out = None, out
     return cls_out, seg_out

@@ -45,7 +45,7 @@ from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
 from multi_task_breast_cancer_tpu_torch.ops.fused_loss import fused_dice_criterion
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
-from multi_task_breast_cancer_tpu_torch.utils.trees import tree_map
+from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -159,7 +159,7 @@ class Engine:
             self._check_cls_head(out)
             return L.apply_criterion_classification(self._cls_crit, cls_targets, out), \
                 {"cls_out": out}
-        cls, seg = out
+        cls, seg = multitask_pair(out)
         self._check_cls_head(cls)
         seg_loss, cls_loss = L.apply_criterion_multitask(
             self._seg_crit, masks, seg, self._cls_crit, cls_targets, cls,
@@ -170,14 +170,18 @@ class Engine:
 
     def _check_cls_head(self, cls_out) -> None:
         """A head whose logit count disagrees with ``n_classes`` would train
-        silently wrong through broadcasting: fail instead."""
+        silently wrong through broadcasting: fail instead. Multi_FSB_BTSUNet
+        hard-codes one logit (with 3 classes its cross-entropy would be
+        identically zero), Adityan three."""
         head = cls_out[0] if isinstance(cls_out, (tuple, list)) else cls_out
         expected = self.cfg.n_classes if self.cfg.n_classes > 2 else 1
         if head.shape[-1] != expected:
             raise ValueError(
                 f"classification head emits {head.shape[-1]} logits but "
                 f"n_classes={self.cfg.n_classes} needs {expected} (binary "
-                "collapses to 1 logit)")
+                "collapses to 1 logit — reference parity). Architectures "
+                "with hard-coded heads (Multi_FSB_BTSUNet: 1, Adityan: 3) "
+                "only support the matching class count.")
 
     @staticmethod
     def _final_seg_head(seg_out):

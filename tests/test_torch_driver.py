@@ -131,9 +131,9 @@ def _run_both(tmp_path, monkeypatch, tree, task: str, mode: str, arch: str):
     monkeypatch.setattr(jax_driver, "create_train_state",
                         lambda model, *args: create_train_state(_JitInit(model), *args))
 
-    def jax_fold_init(cfg, task_, seed, fold):
+    def jax_fold_init(cfg, task_, seed, fold, size=SIZE):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), fold)
-        params = _JitInit(jax_model).init(key, jnp.zeros((1, SIZE, SIZE, 1)), train=False)
+        params = _JitInit(jax_model).init(key, jnp.zeros((1, size, size, 1)), train=False)
         return params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]))
 
     monkeypatch.setattr(driver, "fold_init_state_dict", jax_fold_init)

@@ -1,10 +1,15 @@
 """The port's importer of the reference's PyTorch checkpoints
-(``models/torch_import.py``) against the JAX importer, for the nnU-Net family.
+(``models/torch_import.py``) against the JAX importer, for the nnU-Net
+family, the BTS family and Adityan.
 
-The reference ``state_dict`` is built here from the reference's layer names
-and shapes at narrow widths, with seeded tensors (no reference checkpoint is
-in the repository); nnUNetClassifier's carries the dead decoders 4..1 that
-the importers drop. Held: ``params_from_jax`` of the JAX conversion equals the
+The nnU-Net family's reference ``state_dict`` is built here from the
+reference's layer names and shapes at narrow widths, with seeded tensors (no
+reference checkpoint is in the repository); nnUNetClassifier's carries the
+dead decoders 4..1 that the importers drop. The BTS family's and Adityan's
+take the reference names the port's mappers read and the port model's
+shapes (a reference layer and the port's share its layout): a name the JAX
+importer reads that the port's omits fails the JAX conversion, a name only
+the port reads fails the comparison. Held: ``params_from_jax`` of the JAX conversion equals the
 port's conversion tensor for tensor, exactly (both only rename and re-lay
 copies); the result loads strictly into the port's model built by the
 registry (so the shapes here are the models'); the CLI's checkpoint gives
@@ -101,12 +106,59 @@ def test_convert_matches_the_jax_importer(arch, deep_supervision):
     assert torch.equal(torch_import.convert_state_dict(arch, sd)[first], want[first])
 
 
-@pytest.mark.parametrize("arch", ["BTSUNet", "FSBBTSUNet", "ResidualUNet", "BTSUNetClassifier",
-                                  "Multi_BTSUNet", "Multi_FSB_BTSUNet", "Adityan"])
+@pytest.mark.parametrize("arch", ["ResidualUNet"])
 def test_the_rest_of_the_zoo_waits_for_its_models(arch):
     assert arch in jax_import._MAPPERS
     with pytest.raises(NotImplementedError, match="the rest of the zoo"):
         torch_import.convert_state_dict(arch, {})
+
+
+ZOO_WIDTH, ZOO_SIZE = 4, 32
+
+
+def _zoo_model(arch: str, deep_supervision: bool):
+    if arch in registry.SEGMENTATION_ARCHS:
+        return registry.init_segmentation_model(arch, width=ZOO_WIDTH,
+                                                deep_supervision=deep_supervision)
+    if arch in registry.CLASSIFICATION_ARCHS:
+        return registry.init_classification_model(arch, width=ZOO_WIDTH, size=ZOO_SIZE)
+    return registry.init_multitask_model(arch, width=ZOO_WIDTH, size=ZOO_SIZE,
+                                         deep_supervision=deep_supervision)
+
+
+def zoo_reference_state_dict(arch: str, deep_supervision: bool, seed: int = 0) -> dict:
+    """Seeded tensors under the reference's names, in the port model's shapes."""
+    shapes = {k: v.shape for k, v in _zoo_model(arch, deep_supervision).state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    return {ref: torch.randn(shapes[port], generator=gen) for port, ref, *_ in
+            torch_import._MAPPERS[arch](deep_supervision=deep_supervision, width=ZOO_WIDTH)}
+
+
+@pytest.mark.parametrize("arch,deep_supervision", [
+    ("BTSUNet", False), ("BTSUNet", True), ("FSBBTSUNet", False), ("FSBBTSUNet", True),
+    ("BTSUNetClassifier", False), ("Multi_BTSUNet", True), ("Multi_FSB_BTSUNet", False),
+    ("Multi_FSB_BTSUNet", True), ("Adityan", False),
+])
+def test_zoo_convert_matches_the_jax_importer(arch, deep_supervision):
+    """Tensor for tensor equal to ``params_from_jax`` of JAX's conversion,
+    the flattened dense layers' (c, h, w) → (h, w, c) permutation (JAX's
+    ``_dense_after_flatten``) included; loads strictly into the registry's
+    model."""
+    sd = zoo_reference_state_dict(arch, deep_supervision)
+    params, stats = jax_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision,
+                                                  width=ZOO_WIDTH)
+    assert stats == {}
+    want = params_from_jax(params)
+    got = torch_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision,
+                                          width=ZOO_WIDTH)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    _zoo_model(arch, deep_supervision).load_state_dict(got, strict=True)
+    dense = [k for k in got if k.endswith("classifier.fc1.weight")]
+    assert bool(dense) == arch.startswith(("BTSUNetClassifier", "Multi"))
+    for k in dense:  # the permutation is not the identity
+        assert not torch.equal(got[k], sd["classifier.1.weight"])
 
 
 def test_unknown_architectures_and_missing_keys_raise():
@@ -133,6 +185,9 @@ def test_cli_writes_a_checkpoint_of_the_port(tmp_path, monkeypatch, wrapped):
     out = tmp_path / "model_fold_0"
     argv = ["--config", str(cfg), "--torch-checkpoint", str(ref), "--out", str(out)]
     torch_import.main(argv + ["--device", "cpu"])
+    # --size, as the JAX tool's: MTnnUNet takes any size (a flatten head does not)
+    torch_import.main(argv[:-1] + [str(tmp_path / "at_256"), "--device", "cpu",
+                                   "--size", "256"])
 
     model = _port_model("MTnnUNet")
     model.load_state_dict(torch_import.convert_state_dict("MTnnUNet", sd))
@@ -151,8 +206,27 @@ def test_cli_writes_a_checkpoint_of_the_port(tmp_path, monkeypatch, wrapped):
                                                            nnunet_widths=[4, 8, 8, 16, 32]))))
     with pytest.raises(ValueError, match="shape mismatch"):
         torch_import.main(argv + ["--device", "cpu"])
-    with pytest.raises(SystemExit):  # the JAX tool's --size: the port's models take any size
-        torch_import.main(argv + ["--device", "cpu", "--size", "256"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_import.main(argv)
+
+
+def test_cli_imports_a_flatten_head_at_its_size(tmp_path):
+    """BTSUNetClassifier's dense layer fixes the input side: ``--size 32``
+    imports a 32² reference checkpoint, the default 128 is refused."""
+    sd = zoo_reference_state_dict("BTSUNetClassifier", False)
+    ref = tmp_path / "ref_fold_0"
+    torch.save(sd, ref)
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(config_to_yaml(Config(model=ModelConfig(architecture="BTSUNetClassifier",
+                                                           width=ZOO_WIDTH))))
+    argv = ["--config", str(cfg), "--task", "classification", "--torch-checkpoint", str(ref),
+            "--device", "cpu"]
+    torch_import.main(argv + ["--out", str(tmp_path / "out"), "--size", str(ZOO_SIZE)])
+    loaded = load_pretrained_model(
+        create_train_state(_zoo_model("BTSUNetClassifier", False), "Adam", 1e-3),
+        str(tmp_path / "out")).model
+    want = torch_import.convert_state_dict("BTSUNetClassifier", sd, width=ZOO_WIDTH)
+    assert all(torch.equal(loaded.state_dict()[k], v) for k, v in want.items())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        torch_import.main(argv + ["--out", str(tmp_path / "out128")])

@@ -23,7 +23,7 @@ from multi_task_breast_cancer_tpu_torch.models import blocks, registry
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
     params_to_jax,
-    widths_from_params,
+    size_knobs_from_params,
 )
 
 WIDTHS = (4, 8, 8, 16, 16)
@@ -60,7 +60,7 @@ def test_mtnnunet_forward_matches_jax(jax_mt, layout):
     variables, x, want_cls, want_seg = jax_mt
     params = (jax.tree_util.tree_map(np.asarray, variables["params"]) if layout == "nested"
               else _flatten_variables(variables))
-    model = registry.init_multitask_model("MTnnUNet", nnunet_widths=widths_from_params(params))
+    model = registry.init_multitask_model("MTnnUNet", **size_knobs_from_params(params))
     model.load_state_dict(params_from_jax(params), strict=True)
     with torch.inference_mode():
         (cls,), seg = model(_nchw(x))
@@ -156,7 +156,7 @@ def test_full_width_parameter_count_and_layout():
     converted = params_from_jax(zeros)
     assert {k: tuple(v.shape) for k, v in converted.items()} == \
            {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert widths_from_params(zeros) == (32, 64, 128, 256, 320)
+    assert size_knobs_from_params(zeros) == {"nnunet_widths": (32, 64, 128, 256, 320)}
 
 
 def test_init_is_seeded_and_matches_jax_scales():
@@ -176,9 +176,9 @@ def test_init_is_seeded_and_matches_jax_scales():
 
 
 @pytest.mark.parametrize("factory,arch", [
-    (registry.init_multitask_model, "Multi_BTSUNet"),
-    (registry.init_multitask_model, "Adityan"),
-    (registry.init_segmentation_model, "BTSUNet"),
+    (registry.init_segmentation_model, "ResidualUNet"),
+    (registry.init_segmentation_model, "UNet"),
+    (registry.init_segmentation_model, "SegResNet"),
     (registry.init_segmentation_model, "SwinUNETR"),
 ])
 def test_unported_architectures_raise(factory, arch):

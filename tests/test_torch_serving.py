@@ -203,10 +203,10 @@ def test_unported_options_raise(artifact, tmp_path):
     with pytest.raises(ValueError, match="No checkpoint found"):
         CheckpointBackend(_port_cfg(), "multitask", checkpoint=str(tmp_path / "absent"),
                           device="cpu")
-    cfg = Config(model=ModelConfig(architecture="BTSUNetClassifier"),
+    cfg = Config(model=ModelConfig(architecture="ResidualUNet"),
                  data=DataConfig(input_img="unused", classes=CLASSES))
-    with pytest.raises(NotImplementedError, match="BTSUNetClassifier"):
-        CheckpointBackend(cfg, "classification", device="cpu")
+    with pytest.raises(NotImplementedError, match="ResidualUNet"):
+        CheckpointBackend(cfg, "segmentation", device="cpu")
 
 
 def test_checkpoint_backend_serves_a_training_checkpoint(tmp_path):
