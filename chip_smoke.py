@@ -124,14 +124,32 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    96-image tree, 2 folds × 2 epochs (launches as the fold sizes predict),
    then ``CheckpointBackend`` over its checkpoint behind ``InferenceServer``
    answering ``/predict_batch`` as ``Engine.predict`` does;
+9b. the seg zoo: ResidualUNet, UNet, AttentionUNet (width 24), SegResNet and
+   SwinUNETR (fixed sizes) at 128², seeded weights: parameter and
+   batch-statistic counts against JAX's (``SEG_ZOO_PARAMETERS``,
+   ``SEG_ZOO_BATCH_STATS``), eval forwards at batches 2 and 64 with no
+   norm-kernel launch (none of the five has the site), card against CPU at
+   batch 2, forward ms at 64; four batch-2 steps and a padding step of each
+   at the ``Config()`` defaults (the augmentation kernel once per real step
+   and never on the padding step, ResidualUNet's batch statistics moved by
+   the real steps and left by the padding step, a second run from the same
+   generators bit-identical, ms per step); one step per segmentation
+   criterion, card against CPU, and the Hausdorff distance fields equal on
+   both; and a main path: ``training_segmentation`` (the CLI's
+   ``run_entry``) with ResidualUNet and with SwinUNETR on a 96-image tree, 2
+   folds × 2 epochs (launches as the fold sizes predict), a killed and
+   resumed ResidualUNet run (rows and checkpoints identical), and
+   ResidualUNet's checkpoint served over HTTP and through ``serve export`` /
+   ``serve run --artifact`` (equal to the live backend to 1e-4 of scale);
 10. a JSON line ``{"kernels": [...]}`` with each kernel's launches on the main
    paths, error, times and bound (``previous_ms``: the norm kernels' first,
    streaming design, and the augmentation's index-plane design, timed in the
    same run), f32, under ``bf16`` the bf16 builds' launches and rows
-   (#1, #2 at batches 2 and 64; #3 at P = 1, B = 2 and 64), and under
-   ``zoo`` the norm kernels' per-architecture launches counted on the card,
-   sites, and times and bounds summed over the sites (``sites_*``, 9a);
-   then, last,
+   (#1, #2 at batches 2 and 64; #3 at P = 1, B = 2 and 64), under ``zoo``
+   the norm kernels' per-architecture launches counted on the card, sites,
+   and times and bounds summed over the sites (``sites_*``, 9a), and under
+   ``seg_zoo`` each kernel's launches per seg-zoo architecture (9b: 0 for
+   #1 and #2; #3 per four steps, with the forward and step ms); then, last,
    ``{"ok": true, "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
@@ -207,6 +225,13 @@ ZOO_PARAMETERS = {
 ZOO_NORMS = {"BTSUNet": 17, "FSBBTSUNet": 25, "UnetPlusPlus": 0, "BTSUNetClassifier": 10,
              "UNetPlusPlusClassifier": 0, "Multi_BTSUNet": 19, "Multi_FSB_BTSUNet": 27,
              "MTUNetPlusPlus": 0, "Adityan": 0}
+# the rest of the segmentation zoo at full width (width 24; SegResNet and
+# SwinUNETR at their fixed sizes; 128²): parameters and batch-statistic
+# values as the JAX package counts them (tests/test_torch_seg_zoo.py holds
+# them to jax.eval_shape on the CPU); none has a fused-norm site
+SEG_ZOO_PARAMETERS = {"ResidualUNet": 1_304_449, "UNet": 363_967, "AttentionUNet": 1_095_544,
+                      "SegResNet": 395_985, "SwinUNETR": 6_311_899}
+SEG_ZOO_BATCH_STATS = {"ResidualUNet": 2_784}
 
 
 def log(*args) -> None:
@@ -1829,10 +1854,13 @@ def _metric_rows(run, fold: int) -> list:
 
 
 def _check_run_dir(run, task: str, mode: str, folds: int, epochs: int) -> None:
-    """The JAX driver's run-dir layout and file contracts."""
+    """The JAX driver's run-dir layout and file contracts (a segmentation run
+    writes no classification results, its checkpoints end in ``.tar`` and
+    its loss plot lies in ``plots/``)."""
     from multi_task_breast_cancer_tpu_torch.train.driver import METRIC_HEADERS
-    for name in ("config.yaml", "execution.log", "model.txt",
-                 "results_segmentation.xlsx", "classification_results.xlsx"):
+    seg = task == "segmentation"
+    for name in ("config.yaml", "execution.log", "model.txt", "results_segmentation.xlsx",
+                 *(() if seg else ("classification_results.xlsx",))):
         check(os.path.isfile(os.path.join(run, name)), f"run dir: no {name}")
     for n in range(folds):
         d = os.path.join(run, f"fold_{n}")
@@ -1841,10 +1869,12 @@ def _check_run_dir(run, task: str, mode: str, folds: int, epochs: int) -> None:
               f"fold {n} metrics.csv: {rows}")
         values = [float(v) for r in rows[1:] for v in r.split(",")]
         check(all(math.isfinite(v) for v in values), f"fold {n}: a loss or metric is not finite")
-        ckpts = [f for f in os.listdir(d) if f.startswith("model_") and f.endswith(f"_fold_{n}")]
+        suffix = f"_fold_{n}" + (".tar" if seg else "")
+        ckpts = [f for f in os.listdir(d) if f.startswith("model_") and f.endswith(suffix)]
         check(len(ckpts) == 1, f"fold {n}: checkpoints {ckpts}")
-        for name in ("results_segmentation.csv", "results_classification.csv", ".fold_complete",
-                     "loss_evolution.png"):
+        for name in ("results_segmentation.csv", ".fold_complete") + (
+                ("plots/loss_evolution.png",) if seg else
+                ("results_classification.csv", "loss_evolution.png")):
             check(os.path.isfile(os.path.join(d, name)), f"fold {n}: no {name}")
         for sub in ("segs", "features_map"):
             check(bool(os.listdir(os.path.join(d, sub))), f"fold {n}: {sub}/ is empty")
@@ -2010,17 +2040,23 @@ def phase_driver_cli(tmp, root) -> None:
         f"{time.perf_counter() - t0:.1f} s; {device_line.split('--- ')[-1]}")
 
 
-def phase_driver_resume(tmp, root) -> None:
+def phase_driver_resume(tmp, root, task: str = "multitask", arch: str = "") -> None:
     """A run killed after fold 0's first epoch and resumed with
     ``resume_dir`` ends with the uninterrupted run's metrics.csv rows, bit for
-    bit as text (cuDNN deterministic; the kernels sum in a fixed order)."""
+    bit as text (cuDNN deterministic; the kernels sum in a fixed order), and,
+    for ``arch`` (the config's default without), with its checkpoints' bytes."""
     import torch
     from multi_task_breast_cancer_tpu_torch.train import driver as D
-    cfg = lambda: _driver_config(root, 2, 2, checkpoint_every_epoch=True)  # noqa: E731
+
+    def cfg():
+        c = _driver_config(root, 2, 2, checkpoint_every_epoch=True)
+        c.model.architecture = arch or c.model.architecture
+        return c
+
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
     try:
-        whole = D.run_experiment(cfg(), "multitask", "CV", run_root=os.path.join(tmp, "whole"),
+        whole = D.run_experiment(cfg(), task, "CV", run_root=os.path.join(tmp, "whole"),
                                  device=DEVICE)
         real_profile = D.maybe_profile
 
@@ -2031,7 +2067,7 @@ def phase_driver_resume(tmp, root) -> None:
 
         D.maybe_profile = kill
         try:
-            D.run_experiment(cfg(), "multitask", "CV", run_root=os.path.join(tmp, "killed"),
+            D.run_experiment(cfg(), task, "CV", run_root=os.path.join(tmp, "killed"),
                              device=DEVICE)
             check(False, "the simulated kill did not fire")
         except RuntimeError as e:
@@ -2041,7 +2077,7 @@ def phase_driver_resume(tmp, root) -> None:
         (killed,) = os.listdir(os.path.join(tmp, "killed"))
         killed = os.path.join(tmp, "killed", killed)
         check(len(_metric_rows(killed, 0)) == 2, "the killed run wrote more than epoch 0")
-        resumed = D.run_experiment(cfg(), "multitask", "CV", resume_dir=killed, device=DEVICE)
+        resumed = D.run_experiment(cfg(), task, "CV", resume_dir=killed, device=DEVICE)
     finally:
         torch.backends.cudnn.deterministic = False
     diff, same = 0.0, True
@@ -2051,10 +2087,20 @@ def phase_driver_resume(tmp, root) -> None:
         for ra, rb in zip(a[1:], b[1:]):
             diff = max([diff] + [abs(float(x) - float(y))
                                  for x, y in zip(ra.split(","), rb.split(","))])
-    log(f"driver resume: killed after fold 0's first epoch, resumed in place: metrics.csv "
-        f"rows of both folds {'identical' if same else 'DIFFER'} to the uninterrupted run's "
-        f"(largest difference {diff:.3g}; tolerance: identical text); "
-        f"three runs in {time.perf_counter() - t0:.1f} s")
+    ckpts = ""
+    if arch:
+        def ckpt_bytes(run):
+            return [open(os.path.join(run, f"fold_{n}", f), "rb").read() for n in range(2)
+                    for f in sorted(os.listdir(os.path.join(run, f"fold_{n}")))
+                    if f.startswith("model_")]
+        same_ckpts = ckpt_bytes(whole) == ckpt_bytes(resumed)
+        ckpts = f"; checkpoints {'byte-identical' if same_ckpts else 'DIFFER'}"
+        check(same_ckpts, "resumed checkpoints differ from the uninterrupted run's")
+    log(f"driver resume ({arch or cfg().model.architecture}, {task}): killed after fold 0's "
+        f"first epoch, resumed in place: metrics.csv rows of both folds "
+        f"{'identical' if same else 'DIFFER'} to the uninterrupted run's (largest difference "
+        f"{diff:.3g}; tolerance: identical text){ckpts}; three runs in "
+        f"{time.perf_counter() - t0:.1f} s")
     check(same, "resumed metrics.csv rows differ from the uninterrupted run's")
 
 
@@ -2331,8 +2377,8 @@ def tools_msgpack(tmp, cfg_path, x) -> str:
     from multi_task_breast_cancer_tpu_torch.train.checkpoint import restore_checkpoint
     from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_state
 
-    params = params_to_jax(init_multitask_model(
-        "MTnnUNet", generator=torch.Generator().manual_seed(2)).state_dict())
+    seeded = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(2))
+    params = params_to_jax(seeded.state_dict(), seeded)
     rng = np.random.default_rng(2)
 
     def moments(tree, square):
@@ -2371,7 +2417,7 @@ def tools_msgpack(tmp, cfg_path, x) -> str:
     state, epoch, val_loss, rs = restore_checkpoint(
         build_inference_state(cfg, "multitask", device=DEVICE)[0], path)
     read_s = time.perf_counter() - t0
-    want_mu = params_from_jax(mu)
+    want_mu = params_from_jax(mu, state.model)
     adam = [state.optimizer.state[p] for p in state.model.parameters()]
     names = [n for n, _ in state.model.named_parameters()]
     check((epoch, val_loss, state.step, rs) == (6, 0.5, 7, resume)
@@ -2382,7 +2428,8 @@ def tools_msgpack(tmp, cfg_path, x) -> str:
     model, _ = build_inference_state(cfg, "multitask", checkpoint=path, device=DEVICE)
     npz_model = init_multitask_model("MTnnUNet")
     with np.load(npz) as z:
-        npz_model.load_state_dict(params_from_jax({k: z[k] for k in z.files}), strict=True)
+        npz_model.load_state_dict(params_from_jax({k: z[k] for k in z.files}, npz_model),
+                                  strict=True)
     got, want = _forward(model.model, x), _forward(npz_model.to(DEVICE), x)
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     import importlib.util
@@ -2915,6 +2962,339 @@ def phase_zoo() -> tuple:
     return launches, rows
 
 
+SEG_ZOO_TRAIN_N = 8                              # 4 real steps and 1 padding step at batch 2
+SEG_ZOO_DRIVER = ("ResidualUNet", "SwinUNETR")   # training_segmentation through the CLI
+SEG_ZOO_DRIVER_PER_CLASS, SEG_ZOO_DRIVER_EPOCHS = 32, 2
+SEG_ZOO_CRITERION_ARCH = "UNet"                  # the cheapest, for one step per criterion
+
+
+def seg_zoo_model(arch: str):
+    """The registry's segmentation model at full width (``model.width`` 24;
+    SegResNet and SwinUNETR at their fixed sizes; 128²), its weights drawn
+    from generator seed 0, on the CPU."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_segmentation_model
+    return init_segmentation_model(arch, width=24, size=SIZE,
+                                   generator=torch.Generator().manual_seed(0))
+
+
+def seg_zoo_forwards() -> dict:
+    """Each model's parameter and batch-statistic counts, its eval forward on
+    the card at batches 2 and 64 with no norm-kernel launch, card against
+    CPU at batch 2, and its forward's device time at batch 64. Returns the
+    norm launches counted per architecture, and the forward ms."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import count_parameters
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    g = torch.Generator().manual_seed(6)
+    x = (torch.rand(BATCH, 1, SIZE, SIZE, generator=g) * 255).round()
+    counted, fwd = {}, {}
+    for arch, params in SEG_ZOO_PARAMETERS.items():
+        model = seg_zoo_model(arch).eval()
+        n, stats = count_parameters(model), sum(b.numel() for b in model.buffers())
+        check(n == params and stats == SEG_ZOO_BATCH_STATS.get(arch, 0),
+              f"{arch}: {n} parameters and {stats} batch statistics, JAX counts {params} and "
+              f"{SEG_ZOO_BATCH_STATS.get(arch, 0)}")
+        with torch.inference_mode():
+            cpu = model(x[:2])
+        model, xd = model.to(DEVICE), x.to(DEVICE)
+        with torch.inference_mode():
+            hk.instance_norm_leaky_relu.launches = 0
+            outs = [model(xd[:b]) for b in ZOO_BATCHES]
+            torch.cuda.synchronize()
+            counted[arch] = hk.instance_norm_leaky_relu.launches
+            check(counted[arch] == 0, f"{arch}: {counted[arch]} norm launches, it has no site")
+            check(all(o.shape == (b, 1, SIZE, SIZE) and bool(torch.isfinite(o).all())
+                      for o, b in zip(outs, ZOO_BATCHES)), f"{arch}: outputs malformed")
+            err = _max_rel_err([outs[0]], [cpu])
+            check(err <= MODEL_REL_TOL, f"{arch}: card vs CPU, max err {err:.3g}")
+            fwd[arch] = time_ms(lambda: model(xd), reps=5)
+        log(f"  {arch:14s} {n:>9,d} params, {stats:>5,d} batch statistics, 0 norm launches per "
+            f"forward; card vs CPU err {err:.3g} (tol {MODEL_REL_TOL}); forward at {BATCH}: "
+            f"{fwd[arch]:.3f} ms = {BATCH / fwd[arch] * 1e3:.1f} images/s")
+        del model, outs
+        torch.cuda.empty_cache()
+    return counted, fwd
+
+
+def seg_zoo_training(arch: str, train_ds) -> tuple:
+    """Four batch-2 steps and one cross-fold padding step through the Engine
+    at the ``Config()`` defaults (fused DICE, fast augmentation, f32; the
+    dropout masks from a generator on the card): the augmentation kernel
+    once per real step and never on the padding step, no norm kernel; the
+    batch statistics (ResidualUNet) move on the real steps and stay on the
+    padding step, which leaves the whole state bit-identical; a second run
+    from the same weights and generators ends bit-identical to the first
+    (cuDNN deterministic); ms per step on the host clock. Returns the
+    launches of the first run."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.ops.losses import check_finite_loss
+    from multi_task_breast_cancer_tpu_torch.train.loop import (
+        Engine, plan_epoch_indices, step_valid_mask)
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    cfg.model.architecture = arch
+    b = cfg.data.batch_size
+    real = SEG_ZOO_TRAIN_N // b
+    model = seg_zoo_model(arch)
+    init, buffers = model.state_dict(), [k for k, _ in model.named_buffers()]
+
+    def run():
+        model = seg_zoo_model(arch)
+        model.load_state_dict(init)
+        engine = Engine(model, _engine_config(cfg, task="segmentation"), device=DEVICE)
+        state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+        train = engine.device_data(train_ds)
+        gen = torch.Generator().manual_seed(0)
+        drop = torch.Generator(device=DEVICE).manual_seed(1)
+        perm = plan_epoch_indices(SEG_ZOO_TRAIN_N, b, np.random.default_rng(0),
+                                  pad_to_steps=real + 1)
+        torch.cuda.synchronize()
+        _reset_counts()
+        state, tm = engine.train_epoch(state, train, perm, gen,
+                                       step_valid_mask(SEG_ZOO_TRAIN_N, b, real + 1), drop)
+        torch.cuda.synchronize()
+        return engine, state, train, tm, _counts(), drop
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        engine, state, train, tm, launches, drop = run()
+        check(launches == (0, 0, real), f"{arch}: launch counts {launches}, want (0, 0, {real})")
+        check_finite_loss(tm["loss"])
+        after = _snapshot(state)
+        moved = [k for k in buffers if not torch.equal(after[0][k].cpu(), init[k])]
+        check(moved == buffers, f"{arch}: batch statistics left unmoved by the real steps: "
+                                f"{sorted(set(buffers) - set(moved))[:3]}")
+        _reset_counts()
+        engine.train_epoch(state, train, np.arange(b, dtype=np.int32),
+                           torch.Generator().manual_seed(3), np.zeros(1, np.float32), drop)
+        check(_counts() == (0, 0, 0) and _same_state(after, _snapshot(state)),
+              f"{arch}: a padding step changed the state or launched a kernel")
+        again = _snapshot(run()[1])
+        check(_same_state(after, again), f"{arch}: a second run from the same generators "
+                                         f"ended elsewhere")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    perm = plan_epoch_indices(SEG_ZOO_TRAIN_N, b, np.random.default_rng(1))
+    gen = torch.Generator().manual_seed(2)
+    engine.train_epoch(state, train, perm, gen, None, drop)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.train_epoch(state, train, perm, gen, None, drop)
+    step_ms = (time.perf_counter() - t0) * 1e3 / real
+    log(f"  {arch}: {real} steps + a padding step: launches {launches}; train loss "
+        f"{tm['loss']:.5f}, dice {tm['dice']:.4f}; {len(buffers)} batch-statistic tensors "
+        f"moved by the real steps; the padding step a no-op; a second run bit-identical; "
+        f"{step_ms:.3f} ms per batch-{b} step (host clock)")
+    del engine, state, train
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def seg_zoo_criteria(train_ds) -> None:
+    """One batch-2 step of ``SEG_ZOO_CRITERION_ARCH`` per segmentation
+    criterion, card against CPU from the same weights (augmentation off):
+    the step's loss and Dice to ``LOSS_REL_TOL``; the Hausdorff distance
+    fields of the batch's masks and thresholded predictions equal on both
+    devices, and its loss's time on the card."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.ops import losses as L
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    init = seg_zoo_model(SEG_ZOO_CRITERION_ARCH).state_dict()
+    perm = np.arange(cfg.data.batch_size, dtype=np.int32)
+    rows = []
+    for name in L.SEG_CRITERIA:
+        cfg.loss.function = name
+        metrics = {}
+        for device in (DEVICE, "cpu"):
+            model = seg_zoo_model(SEG_ZOO_CRITERION_ARCH)
+            model.load_state_dict(init)
+            engine = Engine(model, _engine_config(cfg, task="segmentation", use_transforms=False),
+                            device=device)
+            state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+            metrics[device] = engine.train_epoch(state, engine.device_data(train_ds), perm)[1]
+        err = max(abs(metrics[DEVICE][k] - metrics["cpu"][k]) / max(abs(metrics["cpu"][k]), 1e-6)
+                  for k in ("loss", "dice"))
+        rows.append(f"{name} {metrics[DEVICE]['loss']:.5f} (err {err:.2g})")
+        check(math.isfinite(metrics[DEVICE]["loss"]) and err <= LOSS_REL_TOL,
+              f"criterion {name}: card {metrics[DEVICE]} vs CPU {metrics['cpu']}")
+    masks = torch.from_numpy(train_ds.masks[:16].transpose(0, 3, 1, 2).copy())
+    g = torch.Generator().manual_seed(8)
+    logits = torch.randn(masks.shape, generator=g) * 4
+    fields = {dev: [L.edt_field(m.to(dev)).cpu() for m in (masks, torch.sigmoid(logits))]
+              for dev in (DEVICE, "cpu")}
+    check(all(torch.equal(a, b) for a, b in zip(fields[DEVICE], fields["cpu"])),
+          "Hausdorff distance fields: card and CPU differ")
+    ld, md = logits.to(DEVICE), masks.to(DEVICE)
+    edt_ms = time_ms(lambda: L.hausdorff_dt_loss(ld, md), reps=5)
+    log(f"  criteria, one step of {SEG_ZOO_CRITERION_ARCH} each, card vs CPU (loss, dice; tol "
+        f"{LOSS_REL_TOL}): " + "; ".join(rows))
+    log(f"  Hausdorff distance fields of {len(masks)} masks and predictions at {SIZE}^2: card == "
+        f"CPU exactly; the Hausdorff loss at batch {len(masks)} {edt_ms:.3f} ms on the card")
+
+
+def seg_zoo_export(cfg, ckpt: str, tmp: str):
+    """``serve export`` of ResidualUNet's checkpoint in a process of its own
+    (bucket 8, the card's programs), started and left running; returns
+    (process, artifact directory, start time)."""
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    cfg_path, art = os.path.join(tmp, "residual.yaml"), os.path.join(tmp, "residual_artifact")
+    with open(cfg_path, "w") as f:
+        f.write(config_to_yaml(cfg))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multi_task_breast_cancer_tpu_torch.serve", "export", "--config",
+         cfg_path, "--task", "segmentation", "--checkpoint", ckpt, "--output", art, "--buckets",
+         "8", "--size", str(SIZE), "--platforms", DEVICE],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    return proc, art, time.perf_counter()
+
+
+def seg_zoo_serving(cfg, ckpt: str, images, export) -> int:
+    """ResidualUNet's fold-0 checkpoint behind ``InferenceServer`` (records ==
+    the backend's direct answer); then, from ``export`` (:func:`seg_zoo_export`),
+    ``serve run --artifact`` in a process of its own: the exported program's
+    raw outputs against the live backend's to 1e-4 of scale, the server's
+    records against the live backend's. Returns the norm launches (none)."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.serve import export as E
+    from multi_task_breast_cancer_tpu_torch.serve.server import (
+        CheckpointBackend, InferenceServer)
+
+    proc, art, started = export
+    _, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"serve export exited {proc.returncode}:\n{err[-3000:]}")
+    export_s = time.perf_counter() - started
+    server = _start_server(art)  # comes up while the checks below run
+    try:
+        planes = images[..., 0].astype(np.uint8)
+        backend = CheckpointBackend(cfg, "segmentation", checkpoint=ckpt, size=SIZE,
+                                    max_batch=len(planes), device=DEVICE)
+        live = backend.predict(planes[..., None])
+        direct = backend.postprocess(live)
+        with InferenceServer(backend, port=0, max_batch=len(planes)) as srv:
+            _reset_counts()
+            payload, ms = _post(f"http://127.0.0.1:{srv.port}/predict_batch", planes.tobytes(),
+                                {"X-Image-Count": str(len(planes))})
+            launches = _counts()[0]
+        pixels = [direct.record(i)["tumor_pixels"] for i in range(len(planes))]
+        check([r["tumor_pixels"] for r in payload["predictions"]] == pixels,
+              "seg zoo /predict_batch records differ from the backend's direct answer")
+        exported = E.ExportedModel(art, device=DEVICE).predict(planes[..., None])
+        err = _max_rel_err([torch.from_numpy(exported)], [torch.from_numpy(live)])
+        check(err <= SERVE_REL_TOL, f"ResidualUNet artifact vs the live backend: {err:.3g}")
+        one, many, one_ms, many_ms, up_s = _query_server(*server, planes)
+    finally:
+        _stop(server[0])
+    check(one["tumor_pixels"] == pixels[0]
+          and [r["tumor_pixels"] for r in many["predictions"]] == pixels,
+          "serve run --artifact answers differ from the live backend's")
+    log(f"  ResidualUNet fold 0 served: /predict_batch of {len(planes)} planes {ms:.1f} ms, "
+        f"records == the backend's direct answer, {launches} norm launches; serve export "
+        f"(bucket 8, beside the runs above) done {export_s:.1f} s after its start; the exported "
+        f"program vs the live backend max err {err:.3g} of the output scale (tol "
+        f"{SERVE_REL_TOL}); serve run --artifact up in {up_s:.1f} s, /predict {one_ms:.1f} ms, "
+        f"/predict_batch {many_ms:.1f} ms, answers == the live backend's")
+    return launches
+
+
+def seg_zoo_driver() -> tuple:
+    """``training_segmentation`` (the CLI's ``run_entry``, on the card by
+    default) with ResidualUNet and SwinUNETR on a synthetic 128² tree, 2
+    folds × ``SEG_ZOO_DRIVER_EPOCHS``: launches as the fold sizes predict
+    (the augmentation kernel once per step, no norm kernel); a killed and
+    resumed ResidualUNet run on a smaller tree; ResidualUNet's checkpoint
+    served and exported (the export runs beside the SwinUNETR and resume
+    runs). Returns the launches of the runs and the serving."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch._entry import run_entry
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    from multi_task_breast_cancer_tpu_torch.data.loader import load_datasets
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+
+    tmp = tempfile.mkdtemp(prefix="mtbc_seg_zoo_")
+    total, export = (0, 0, 0), None
+    try:
+        root = make_preprocessed_busi(os.path.join(tmp, "busi"), size=SIZE, seed=4,
+                                      n_per_class=SEG_ZOO_DRIVER_PER_CLASS)
+        for arch in SEG_ZOO_DRIVER:
+            cfg = _driver_config(root, DRIVER_CV, SEG_ZOO_DRIVER_EPOCHS)
+            cfg.model.architecture = arch
+            cfg_path = os.path.join(tmp, f"{arch}.yaml")
+            with open(cfg_path, "w") as f:
+                f.write(config_to_yaml(cfg))
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            run = run_entry("segmentation", "CV", ["--config", cfg_path, "--run-root",
+                                                   os.path.join(tmp, f"runs_{arch}")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _counts()
+            _check_run_dir(run, "segmentation", "CV", DRIVER_CV, SEG_ZOO_DRIVER_EPOCHS)
+            sizes = _fold_sizes(run)
+            b = cfg.data.batch_size
+            steps = sum(SEG_ZOO_DRIVER_EPOCHS * -(-tr // b) for tr, _, _ in sizes)
+            log(f"  training_segmentation, {arch}, {3 * SEG_ZOO_DRIVER_PER_CLASS} images at "
+                f"{SIZE}^2, CV {DRIVER_CV}, {SEG_ZOO_DRIVER_EPOCHS} epochs: {run_s:.1f} s; fold "
+                f"sizes {sizes}; launches {launches}, the fold sizes predict (0, 0, {steps})")
+            check(launches == (0, 0, steps), f"{arch} driver launch counts {launches}")
+            total = tuple(a + c for a, c in zip(total, launches))
+            if arch == "ResidualUNet":
+                fold0 = os.path.join(run, "fold_0")
+                ckpt = next(os.path.join(fold0, f) for f in os.listdir(fold0)
+                            if f.startswith("model_"))
+                residual_cfg = cfg
+                export = seg_zoo_export(cfg, ckpt, tmp)
+        small = make_preprocessed_busi(os.path.join(tmp, "busi_small"), size=SIZE, seed=5,
+                                       n_per_class=DRIVER_SMALL_PER_CLASS)
+        phase_driver_resume(tmp, small, "segmentation", "ResidualUNet")
+        images = load_datasets(residual_cfg.training, residual_cfg.data,
+                               mode="CV")[0].test.images[:8]
+        served = seg_zoo_serving(residual_cfg, ckpt, images, export)
+        return total[0] + served, total[1], total[2]
+    finally:
+        if export is not None and export[0].poll() is None:
+            export[0].kill()
+            export[0].wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_seg_zoo() -> tuple:
+    """The rest of the segmentation zoo: forwards of the five at full width,
+    four training steps and a padding step each, every segmentation
+    criterion, and the main path (``training_segmentation``, resume,
+    serving and export). Returns the launches on its main paths and the
+    per-architecture rows of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    log("seg zoo: ResidualUNet, UNet, AttentionUNet, SegResNet, SwinUNETR at full width "
+        "(width 24; SegResNet and SwinUNETR fixed), seeded weights, 128^2")
+    counted, fwd = seg_zoo_forwards()
+    train_ds = synthetic_fold(16, 22)
+    steps = {arch: seg_zoo_training(arch, train_ds) for arch in SEG_ZOO_PARAMETERS}
+    seg_zoo_criteria(train_ds)
+    d_fwd, d_bwd, d_aug = seg_zoo_driver()
+    launches = (d_fwd, d_bwd, d_aug + sum(a for (_, _, a), _ in steps.values()))
+    rows = {arch: {"forward_launches_per_batch64": counted[arch], "step_launches":
+                   list(steps[arch][0]), "forward_ms_64": round(fwd[arch], 4),
+                   "step_ms_2": round(steps[arch][1], 3)} for arch in SEG_ZOO_PARAMETERS}
+    log(f"seg zoo: phase {time.perf_counter() - t0:.1f} s; launches on its main paths "
+        f"{launches}")
+    return launches, rows
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -2949,6 +3329,7 @@ def main() -> int:
     b_fwd, b_bwd, b_aug = phase_driver_bf16()
     t_fwd = phase_tools()
     (z_fwd, z_bwd, z_aug), zoo_rows = phase_zoo()
+    (s_fwd, s_bwd, s_aug), seg_zoo_rows = phase_seg_zoo()
 
     def bf16_rows(rows, key):
         return {f"{key}_{b}": row for b, row in sorted(rows.items())}
@@ -2957,19 +3338,27 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd + z_fwd,
+         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd + z_fwd + s_fwd,
          **kernel, "bf16": {"launches": h_fwd + e16_fwd + b_fwd, **bf16_rows(kernel_bf16, "batch")},
-         "zoo": {a: r["forward"] for a, r in zoo_rows.items()}},
+         "zoo": {a: r["forward"] for a, r in zoo_rows.items()},
+         "seg_zoo": {a: {"launches_per_forward": r["forward_launches_per_batch64"]}
+                     for a, r in seg_zoo_rows.items()}},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
-         "launches": bwd + h_bwd + d_bwd + b_bwd + z_bwd, **backward,
+         "launches": bwd + h_bwd + d_bwd + b_bwd + z_bwd + s_bwd, **backward,
          "bf16": {"launches": h_bwd + b_bwd, **bf16_rows(backward_bf16, "batch")},
-         "zoo": {a: r["backward"] for a, r in zoo_rows.items()}},
+         "zoo": {a: r["backward"] for a, r in zoo_rows.items()},
+         "seg_zoo": {a: {"launches_per_step": r["step_launches"][1]}
+                     for a, r in seg_zoo_rows.items()}},
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug + h_aug + d_aug + b_aug + z_aug, **augment,
-         "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")}}]}))
+         "launches": aug + h_aug + d_aug + b_aug + z_aug + s_aug, **augment,
+         "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")},
+         "seg_zoo": {"launches": s_aug, **{a: {"launches_in_4_steps": r["step_launches"][2],
+                                              "forward_ms_64": r["forward_ms_64"],
+                                              "step_ms_2": r["step_ms_2"]}
+                                          for a, r in seg_zoo_rows.items()}}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

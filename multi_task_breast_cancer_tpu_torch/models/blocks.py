@@ -9,11 +9,22 @@ parameter names follow the JAX parameter tree (``conv``, ``block1``,
 ``deconv_kernel``, …) so :mod:`.jax_weights` maps one onto the other by path.
 Initialisation follows the JAX initialisers (:func:`init_weights`), drawn
 from an explicit ``torch.Generator``.
+
+The flax layers the rest of the zoo uses, with flax's semantics where they
+differ from torch's: :class:`BatchNorm` (flax ``nn.BatchNorm``: the biased
+batch variance in the running update), :class:`GroupNorm` and
+:class:`LayerNorm` (eps 1e-6), :class:`PReLU` (one 0-d slope),
+:class:`Dropout` (draws from an explicit generator, :func:`dropout_draws`),
+and the ``padding="SAME"`` convolutions :class:`SameConv2d` and
+:class:`SameConvTranspose2d`. Flax's ``nn.gelu`` is ``F.gelu(x,
+approximate="tanh")``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -183,7 +194,7 @@ class MonaiConv(nn.Module):
         super().__init__()
         self.conv = conv3x3(in_features, features, use_bias=True)
         self.norm = InstanceNorm(features, affine=True)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.negative_slope = negative_slope
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -228,6 +239,196 @@ class UpCat(nn.Module):
         return self.convs(torch.cat([skip, self.upsample(x)], dim=1))
 
 
+# ---------------------------------------------------------------------------
+# flax layers of the MONAI twins, ResidualUNet and SwinUNETR
+# ---------------------------------------------------------------------------
+
+
+class LecunConv2d(nn.Conv2d):
+    """A ``Conv2d`` that :func:`init_weights` draws LeCun normal: a flax
+    ``nn.Conv`` left at its default ``kernel_init``."""
+
+
+def _same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """flax/XLA ``padding="SAME"`` on one axis: (low, high), the extra pixel
+    on the high side."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """flax ``nn.Conv(padding="SAME")``: pads (low, high) per axis as XLA
+    does. A stride-2 3×3 conv on an even side pads (0, 1), where
+    ``Conv2d(padding=1)`` would pad (1, 1)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int, stride: int = 1,
+                 bias: bool = True):
+        super().__init__(in_features, features, kernel, stride=stride, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (k, _), (s, _) = self.kernel_size, self.stride
+        top, bottom = _same_pads(x.shape[2], k, s)
+        left, right = _same_pads(x.shape[3], k, s)
+        return super().forward(F.pad(x, (left, right, top, bottom)))
+
+
+class SameConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(padding="SAME")``: the output side is
+    ``stride`` × the input's, the transposed conv without padding cropped at
+    its high end. Weights as :func:`deconv`'s (taps flipped against the JAX
+    kernel, :mod:`.jax_weights`)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int, stride: int):
+        super().__init__(in_features, features, kernel, stride=stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.stride[0]
+        return super().forward(x)[:, :, :s * x.shape[2], :s * x.shape[3]]
+
+
+def _f32_normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                   channels_last: bool = False) -> torch.Tensor:
+    """flax ``_normalize``: ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in
+    f32, cast back to ``x``'s dtype. ``mean``/``var`` broadcast against
+    ``x``; ``scale``/``bias`` are per channel of NCHW ``x`` or, with
+    ``channels_last``, of its last axis."""
+    shape = (-1,) if channels_last else (-1, 1, 1)
+    dt = _stats_dtype(x)
+    mul = torch.rsqrt(var + eps) * scale.to(dt).reshape(shape)
+    return ((x.to(dt) - mean) * mul + bias.to(dt).reshape(shape)).to(x.dtype)
+
+
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """flax's ``force_float32_reductions``: at least f32 (f64 stays f64)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _fast_stats(xf: torch.Tensor, dims) -> tuple:
+    """flax's ``use_fast_variance`` statistics: E[x] and E[x²] − E[x]²
+    clipped at 0, kept dims, of ``xf`` (in :func:`_stats_dtype`)."""
+    mean = xf.mean(dim=dims, keepdim=True)
+    return mean, ((xf * xf).mean(dim=dims, keepdim=True) - mean * mean).clamp(min=0.0)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over N, H, W of NCHW
+    input: parameters ``scale``, ``bias``; buffers ``mean``, ``var`` (the
+    JAX ``batch_stats``, always f32). In training the batch statistics are
+    taken in f32 (E[x²] − E[x]², clipped at 0) and the buffers move to
+    ``0.9·old + 0.1·batch``, the *biased* batch variance (``BatchNorm2d``
+    keeps the unbiased one); in eval the buffers normalise."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = _fast_stats(x.to(_stats_dtype(x)), (0, 2, 3))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean.flatten().to(self.mean.dtype))
+                self.var.copy_(m * self.var + (1 - m) * var.flatten().to(self.var.dtype))
+        else:
+            mean, var = self.mean[:, None, None], self.var[:, None, None]
+        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (eps 1e-6) over NCHW input, ``groups`` groups of
+    consecutive channels; parameters ``scale``, ``bias``."""
+
+    def __init__(self, groups: int, features: int, eps: float = 1e-6):
+        super().__init__()
+        if features % groups:
+            raise ValueError(f"{groups} groups do not divide {features} channels")
+        self.groups, self.eps = groups, eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        mean, var = _fast_stats(x.to(_stats_dtype(x)).reshape(n, self.groups, -1), (2,))
+        per = c // self.groups
+        mean = mean.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
+        var = var.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
+        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (eps 1e-6) over the last axis; parameters
+    ``scale``, ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = _fast_stats(x.to(_stats_dtype(x)), (-1,))
+        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps, channels_last=True)
+
+
+class PReLU(nn.Module):
+    """One learnable slope ``alpha``, a 0-d parameter (0.25), shared by every
+    channel: ``x`` where ``x ≥ 0``, else ``alpha·x``."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha * x)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in training each element is kept with
+    probability ``1 − rate`` and scaled by ``1/(1 − rate)``, the mask drawn
+    from :attr:`generator` (set for an epoch by :func:`dropout_draws`; on
+    the input's device), never from the global RNG; identity in eval and at
+    rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training draws from an explicit generator: "
+                               "run the step inside blocks.dropout_draws(model, generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def has_dropout(model: nn.Module) -> bool:
+    """Whether ``model`` draws dropout masks in training (a rate above 0)."""
+    return any(isinstance(m, Dropout) and m.rate > 0 for m in model.modules())
+
+
+@contextlib.contextmanager
+def dropout_draws(model: nn.Module, generator: Optional[torch.Generator]) -> Iterator[None]:
+    """Every :class:`Dropout` of ``model`` draws from ``generator`` inside
+    the block."""
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.generator = None
+
+
 def _kaiming_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     """He normal, JAX ``variance_scaling(2.0, "fan_in", "normal")``."""
     w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
@@ -237,6 +438,12 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     """JAX ``lecun_normal``: a normal truncated at ±2σ, σ rescaled so that the
     variance is 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    _truncated_normal_(w, std, generator)
+
+
+def _truncated_normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """A normal of scale ``std`` truncated at ±2·``std`` (JAX
+    ``truncated_normal(std)``, whose variance is below ``std²``)."""
     lo = math.erf(-2.0 / math.sqrt(2.0))
     w.uniform_(lo, -lo, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
     w.clamp_(-2.0 * std, 2.0 * std)
@@ -246,12 +453,22 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter as the JAX initialisers do (fan_in counted over
     the kernel taps and input channels, as JAX counts it): convs He normal,
-    transposed convs and dense layers LeCun normal, biases zero, an affine
-    norm's scale one."""
+    :class:`LecunConv2d`, transposed convs and dense layers LeCun normal,
+    biases zero, a norm's scale one, a PReLU's slope 0.25, a window
+    attention's ``rel_pos_bias`` truncated normal 0.02; batch statistics
+    start at mean 0, variance 1."""
     for m in model.modules():
-        if isinstance(m, InstanceNorm) and m.scale is not None:
+        if isinstance(m, (BatchNorm, GroupNorm, LayerNorm)) or (
+                isinstance(m, InstanceNorm) and m.scale is not None):
             m.scale.fill_(1.0)
             m.bias.zero_()
+            if isinstance(m, BatchNorm):
+                m.mean.zero_()
+                m.var.fill_(1.0)
+        elif isinstance(m, PReLU):
+            m.alpha.fill_(0.25)
+        elif hasattr(m, "rel_pos_bias"):
+            _truncated_normal_(m.rel_pos_bias, 0.02, generator)
         elif isinstance(m, DeconvHead):
             c, _, k, _ = m.deconv_kernel.shape
             _lecun_normal_(m.deconv_kernel, k * k * c, generator)
@@ -263,7 +480,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(m.weight, i * kh * kw, generator)
         elif isinstance(m, nn.Conv2d):
             _, i, kh, kw = m.weight.shape
-            _kaiming_normal_(m.weight, i * kh * kw, generator)
+            draw = _lecun_normal_ if isinstance(m, LecunConv2d) else _kaiming_normal_
+            draw(m.weight, i * kh * kw, generator)
         elif isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, generator)
         if isinstance(m, (nn.ConvTranspose2d, nn.Conv2d, nn.Linear)) and m.bias is not None:

@@ -1,13 +1,11 @@
 """Model factories of the port (twin of
 ``multi_task_breast_cancer_tpu/models/registry.py``).
 
-Every classification and multitask architecture of the JAX registry builds;
-of the segmentation ones, UNet, AttentionUNet, ResidualUNet, SegResNet and
-SwinUNETR raise ``NotImplementedError`` (``ROADMAP.md``, Queue 1). Factories
-return a model on the CPU with its parameters drawn as the JAX initialisers
-draw them, from an explicit ``torch.Generator`` (seed 0 when none is given).
-``size`` is the input side, which the BTS flatten heads need
-(BTSUNetClassifier, Multi_BTSUNet, Multi_FSB_BTSUNet); JAX infers it at
+Every architecture of the JAX registry builds. Factories return a model on
+the CPU with its parameters drawn as the JAX initialisers draw them, from an
+explicit ``torch.Generator`` (seed 0 when none is given). ``size`` is the
+input side, which the BTS flatten heads (BTSUNetClassifier, Multi_BTSUNet,
+Multi_FSB_BTSUNet) and SwinUNETR's window sizes need; JAX infers it at
 ``init``.
 """
 
@@ -27,6 +25,7 @@ from multi_task_breast_cancer_tpu_torch.models.classifiers import (
     NNUNetClassifier,
 )
 from multi_task_breast_cancer_tpu_torch.models.fsb_bts_unet import FSBBTSUNet
+from multi_task_breast_cancer_tpu_torch.models.monai_zoo import AttentionUNet, SegResNet, UNet
 from multi_task_breast_cancer_tpu_torch.models.multitask import (
     Adityan,
     MTnnUNet,
@@ -34,6 +33,8 @@ from multi_task_breast_cancer_tpu_torch.models.multitask import (
     MultiFSBBTSUNet,
 )
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNet2021
+from multi_task_breast_cancer_tpu_torch.models.residual_unet import ResidualUNet
+from multi_task_breast_cancer_tpu_torch.models.swin_unetr import SwinUNETR
 from multi_task_breast_cancer_tpu_torch.models.unetpp import (
     BasicUNetPlusPlus,
     MTUNetPlusPlus,
@@ -80,11 +81,7 @@ def save_model_summary(model: nn.Module, save_folder: Optional[Path]) -> None:
         print(f"\nTotal number of trainable parameters: {count_parameters(model)}", file=f)
 
 
-def _not_ported(kind: str, architecture: str, known) -> Exception:
-    if architecture in known:
-        return NotImplementedError(
-            f"{kind} architecture {architecture!r} is not ported to PyTorch yet: "
-            f"it is in ROADMAP.md, Queue 1, item 2 (the rest of the zoo)")
+def _unknown(kind: str, architecture: str, known) -> Exception:
     return ValueError(f"Unknown {kind} architecture {architecture!r}. "
                       f"Available: {known}")
 
@@ -142,10 +139,12 @@ def _seeded(model: nn.Module, generator: Optional[torch.Generator]) -> nn.Module
 def init_segmentation_model(architecture: str, sequences: int = 1, regions: int = 1,
                             width: Optional[int] = None,
                             deep_supervision: Optional[bool] = None,
-                            nnunet_widths=None,
+                            nnunet_widths=None, size: int = 128,
                             generator: Optional[torch.Generator] = None) -> nn.Module:
     """``nnUNet`` always has 4-head deep supervision (``deep_supervision`` is
-    ignored, as in JAX)."""
+    ignored, as in JAX). UNet and AttentionUNet take channels (w, 2w, 4w,
+    8w); SegResNet (8 initial filters) and SwinUNETR (feature size 24) have
+    fixed widths."""
     logging.info("Creating %s model (fed with %d sequences)", architecture, sequences)
     width, ds = _knobs(architecture, ("nnUNet",), width, deep_supervision, nnunet_widths)
     if architecture == "BTSUNet":
@@ -156,8 +155,17 @@ def init_segmentation_model(architecture: str, sequences: int = 1, regions: int 
         model = BasicUNetPlusPlus(sequences, regions, deep_supervision=ds)
     elif architecture == "nnUNet":
         model = NNUNet2021(sequences, regions, **_nnunet_kw(nnunet_widths))
+    elif architecture in ("UNet", "AttentionUNet"):
+        channels = (width, 2 * width, 4 * width, 8 * width)
+        model = (UNet if architecture == "UNet" else AttentionUNet)(sequences, regions, channels)
+    elif architecture == "ResidualUNet":
+        model = ResidualUNet(sequences, regions, width)
+    elif architecture == "SegResNet":
+        model = SegResNet(sequences, regions)
+    elif architecture == "SwinUNETR":
+        model = SwinUNETR(sequences, regions, size=size)
     else:
-        raise _not_ported("segmentation", architecture, SEGMENTATION_ARCHS)
+        raise _unknown("segmentation", architecture, SEGMENTATION_ARCHS)
     return _seeded(model, generator)
 
 
@@ -181,7 +189,7 @@ def init_multitask_model(architecture: str, sequences: int = 1, regions: int = 1
     elif architecture == "Adityan":
         model = Adityan(sequences, regions, width)
     else:
-        raise _not_ported("multitask", architecture, MULTITASK_ARCHS)
+        raise _unknown("multitask", architecture, MULTITASK_ARCHS)
     return _seeded(model, generator)
 
 
@@ -200,5 +208,5 @@ def init_classification_model(architecture: str, sequences: int = 1, n_classes: 
     elif architecture == "nnUNetClassifier":
         model = NNUNetClassifier(sequences, n_classes, **_nnunet_kw(nnunet_widths))
     else:
-        raise _not_ported("classification", architecture, CLASSIFICATION_ARCHS)
+        raise _unknown("classification", architecture, CLASSIFICATION_ARCHS)
     return _seeded(model, generator)

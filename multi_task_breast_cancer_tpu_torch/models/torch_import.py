@@ -1,6 +1,6 @@
 """Import the reference's own PyTorch checkpoints (twin of
 ``multi_task_breast_cancer_tpu/models/torch_import.py``), for every custom
-reference architecture the port builds: BTSUNet, FSBBTSUNet, nnUNet,
+reference architecture: BTSUNet, FSBBTSUNet, nnUNet, ResidualUNet,
 BTSUNetClassifier, nnUNetClassifier, MTnnUNet, Multi_BTSUNet,
 Multi_FSB_BTSUNet and Adityan.
 
@@ -32,10 +32,12 @@ holds the port's result equal, tensor for tensor, to ``params_from_jax`` of
 the JAX conversion.
 
 nnUNetClassifier's decoders 4..1 are dead code in the reference's forward
-(``nnUNet_classifier.py:106-109``) and are dropped. ResidualUNet, which the
-JAX importer maps, waits for the model itself (``ROADMAP.md``, Queue 1); the
-MONAI factory models (UNet++ family among them) have no reference source to
-map from.
+(``nnUNet_classifier.py:106-109``) and are dropped, as are ResidualUNet's
+``decoder.conv1-3`` (never called by its forward) and its BatchNorms'
+``num_batches_tracked`` (flax keeps no such count). A ``BatchNorm2d``'s
+``weight``, ``bias``, ``running_mean`` and ``running_var`` become the port's
+``scale``, ``bias`` and buffers ``mean``, ``var``. The MONAI factory models
+(UNet++ family among them) have no reference source to map from.
 """
 
 from __future__ import annotations
@@ -54,10 +56,6 @@ from multi_task_breast_cancer_tpu_torch.train.driver import build_inference_stat
 
 # (port name, reference name[, a function of the reference's tensor])
 Pairs = Iterator[Tuple]
-
-# the JAX importer's architectures that the port does not build yet
-_ZOO = ("ResidualUNet",)
-
 
 def _t(t) -> torch.Tensor:
     return torch.as_tensor(t).detach().to("cpu", torch.float32).clone()
@@ -211,6 +209,32 @@ def _convrelu_level(port: str, ref: str) -> Pairs:
     yield from _layer(f"{port}.conv2", f"{ref}.ConvRelu2.Conv")
 
 
+def _bn(port: str, ref: str) -> Pairs:
+    """``BatchNorm2d`` → :class:`~.blocks.BatchNorm` (the JAX ``_BN``'s
+    ``bn``): parameters and running statistics."""
+    yield f"{port}.bn.scale", f"{ref}.weight"
+    yield f"{port}.bn.bias", f"{ref}.bias"
+    yield f"{port}.bn.mean", f"{ref}.running_mean"
+    yield f"{port}.bn.var", f"{ref}.running_var"
+
+
+def _residual_block(port: str, ref: str, in_block: bool = False) -> Pairs:
+    for bn in ("bn1", "bn3") if in_block else ("bn1", "bn2", "bn3"):
+        yield from _bn(f"{port}.{bn}", f"{ref}.{bn}")
+    for conv in ("conv1", "conv2", "conv3"):
+        yield from _layer(f"{port}.{conv}", f"{ref}.{conv}")
+
+
+def _map_residual_unet(**_) -> Pairs:
+    yield from _residual_block("in_block", "in_block", in_block=True)
+    for i in (2, 3, 4):
+        yield from _residual_block(f"down_block{i}", f"encoder.down_block{i}")
+    for i in (3, 2, 1):
+        yield from _layer(f"upsample{i}", f"decoder.upsample{i}")
+        yield from _residual_block(f"up_block{i}", f"decoder.up_block{i}")
+    yield from _layer("seg_out", "out_block.conv")
+
+
 def _map_adityan(**_) -> Pairs:
     for name in ("encoder1", "encoder2", "encoder3", "encoder4", "bottleneck",
                  "decoder4", "decoder3", "decoder2", "segmap", "recmap"):
@@ -228,6 +252,7 @@ _MAPPERS: Dict[str, Callable[..., Pairs]] = {
     "BTSUNet": _map_btsunet,
     "FSBBTSUNet": _map_fsb,
     "nnUNet": _map_nnunet,
+    "ResidualUNet": _map_residual_unet,
     "BTSUNetClassifier": _map_bts_classifier,
     "nnUNetClassifier": _map_nnunet_classifier,
     "MTnnUNet": _map_mtnnunet,
@@ -241,14 +266,11 @@ def convert_state_dict(architecture: str, state_dict: Mapping, *,
                        deep_supervision: bool = False,
                        width: int = 24) -> Dict[str, torch.Tensor]:
     """A reference ``state_dict`` → the port's ``state_dict`` of the
-    same-named architecture (float32 CPU copies). ``deep_supervision`` and
+    same-named architecture (float32 CPU copies; with ResidualUNet's running
+    statistics). ``deep_supervision`` and
     ``width`` are the checkpoint's ``model.deep_supervision`` and
     ``model.width``: the BTS family's heads depend on the first, the
     flattened classification heads' input order on the second."""
-    if architecture in _ZOO:
-        raise NotImplementedError(
-            f"importing reference weights for {architecture!r} waits for the "
-            f"architecture itself: ROADMAP.md, Queue 1, item 2 (the rest of the zoo)")
     if architecture not in _MAPPERS:
         raise ValueError(
             f"cannot import torch weights for {architecture!r}: supported "

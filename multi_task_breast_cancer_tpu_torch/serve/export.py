@@ -7,8 +7,9 @@ An artifact is a directory:
                              place of ``jax_version``) and ``"format":
                              "torch.export"``
     weights.npz              flat ``path -> array`` dump of the weights in the
-                             JAX layout (``params/backbone/.../kernel``), so a
-                             JAX tool reads it as it reads its own
+                             JAX layout (``params/backbone/.../kernel``, and
+                             the batch statistics under ``batch_stats/``), so
+                             a JAX tool reads it as it reads its own
     fwd_b{B}.{platform}.pt2  one exported forward per batch bucket B and
                              platform (``cpu``, ``cuda``)
 
@@ -29,8 +30,12 @@ Design points, as in the JAX package:
   ``mtbc_torch::instance_norm_leaky_relu`` (:mod:`..ops.hopper_kernels`): on
   the card it launches the kernel, 25 times per MTnnUNet forward. Loading an
   artifact imports that operator library and nothing of the model zoo.
-- **bf16**: the program casts the f32 weights and the input to bf16 and its
-  outputs to f32, as JAX's does.
+- **bf16**: the program casts the f32 parameters and the input to bf16 and
+  its outputs to f32, as JAX's does; the batch statistics, inputs like the
+  weights, stay f32.
+- The manifest also lists the model's transposed convolutions
+  (``transposed_convs``), which tell the loader which 4-D kernels of
+  ``weights.npz`` to read as transposed: loading builds no model.
 - **Device-side postprocessing** (``device_postprocess=True``): the program
   emits the serving answer (:func:`_compact_outputs`): probabilities (f32),
   the mask as uint8 and the pixel counts the prediction-refinement rule
@@ -58,6 +63,7 @@ from multi_task_breast_cancer_tpu_torch.device import (
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     flat_jax_weights,
     params_from_jax,
+    transposed_convs,
 )
 from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels  # noqa: F401  (the operator library)
 from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
@@ -115,20 +121,22 @@ def _compact_outputs(out, task: str, n_classes: int,
 
 
 class _Forward(nn.Module):
-    """The exported function: (weights by ``state_dict`` name, NHWC f32
-    images) → the model's outputs as NHWC f32 (JAX's layout), or the compact
-    answer. ``model`` is kept out of the registered children, so tracing
-    lifts none of its tensors; its parameters may live on ``meta``."""
+    """The exported function: (weights and buffers by ``state_dict`` name,
+    NHWC f32 images) → the model's outputs as NHWC f32 (JAX's layout), or
+    the compact answer. ``model`` is kept out of the registered children, so
+    tracing lifts none of its tensors; its parameters may live on ``meta``.
+    The parameters are cast to the compute dtype, the buffers are not."""
 
     def __init__(self, model: nn.Module, compute_dtype: str, compact=None):
         super().__init__()
         self.__dict__["_model"] = model
+        self._params = frozenset(name for name, _ in model.named_parameters())
         self._dtype = COMPUTE_DTYPES[compute_dtype]
         self._compact = compact
 
     def forward(self, weights: Dict[str, torch.Tensor], images: torch.Tensor):
         x = images.permute(0, 3, 1, 2).to(self._dtype, memory_format=torch.contiguous_format)
-        w = {k: v.to(self._dtype) for k, v in weights.items()}
+        w = {k: v.to(self._dtype) if k in self._params else v for k, v in weights.items()}
         out = torch.func.functional_call(self._model, w, (x,))
         out = tree_map(lambda a: a.float().permute(0, 2, 3, 1) if a.dim() == 4 else a.float(),
                         out)
@@ -172,7 +180,7 @@ def export_inference(cfg, task: str, checkpoint, out_dir, buckets: Sequence[int]
             torch.export.save(program, out_dir / program_name(b, platform))
             logging.info("exported bucket B=%d for %s", b, platform)
 
-    np.savez(out_dir / WEIGHTS, **flat_jax_weights(weights))
+    np.savez(out_dir / WEIGHTS, **flat_jax_weights(weights, model))
     manifest = {
         "task": task,
         "architecture": cfg.model.architecture,
@@ -188,6 +196,7 @@ def export_inference(cfg, task: str, checkpoint, out_dir, buckets: Sequence[int]
         "softmax_in_forward": softmax_in_forward,
         "device_postprocess": bool(device_postprocess),
         "semantic_segmentation": bool(cfg.data.semantic_segmentation),
+        "transposed_convs": sorted(transposed_convs(model)),
         "torch_version": torch.__version__,
         "checkpoint": str(checkpoint),
         "format": FORMAT,
@@ -236,8 +245,8 @@ class ExportedModel:
         if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             raise NotImplementedError(
                 f"ExportedModel: data_parallel over {torch.cuda.device_count()} visible GPUs "
-                "is not ported yet: ROADMAP.md, Queue 1, item 2 (parallelism, after the "
-                "zoo). Make one GPU visible (CUDA_VISIBLE_DEVICES) or pass "
+                "is not ported yet: ROADMAP.md, Queue 1, item 2 (parallelism). Make one "
+                "GPU visible (CUDA_VISIBLE_DEVICES) or pass "
                 "data_parallel=False")
         self.platform = self.device.type
         if self.platform not in self.manifest["platforms"]:
@@ -246,7 +255,8 @@ class ExportedModel:
         set_float32_policy(self.device, self.manifest["compute_dtype"])
         with np.load(self.path / WEIGHTS) as z:
             flat = {k: z[k] for k in z.files}
-        self.weights = {k: v.to(self.device) for k, v in params_from_jax(flat).items()}
+        self.weights = {k: v.to(self.device) for k, v in params_from_jax(
+            flat, self.manifest["transposed_convs"]).items()}
         self.buckets = sorted(self.manifest["buckets"])
         self._fns: Dict[int, Any] = {}
 

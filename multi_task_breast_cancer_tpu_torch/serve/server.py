@@ -98,7 +98,7 @@ def _build_model(task: str, architecture: str, channels: int, n_classes: int,
         return init_segmentation_model(architecture, sequences=channels,
                                        regions=regions, width=width,
                                        deep_supervision=deep_supervision,
-                                       nnunet_widths=nnunet_widths)
+                                       nnunet_widths=nnunet_widths, size=size)
     if task == "classification":
         return init_classification_model(architecture, sequences=channels,
                                          n_classes=n_classes, width=width,
@@ -126,15 +126,18 @@ class _TorchBackend:
     for bigger sets), wrap-padding a short batch by repeating its images, as
     the JAX ``Engine.predict`` does. Images are uint8 (or float) NHWC, moved
     to the device as they are and cast there, NOT scaled: the models take raw
-    0-255 intensities. ``compute_dtype="bfloat16"`` casts the model and the
-    input to bf16 and the outputs to f32."""
+    0-255 intensities. ``compute_dtype="bfloat16"`` casts the parameters
+    (not the buffers: batch statistics stay f32, as JAX's do) and the input
+    to bf16 and the outputs to f32. The model answers in eval mode."""
 
     def __init__(self, model: torch.nn.Module, device, compute_dtype: str,
                  buckets: Sequence[int]) -> None:
         set_float32_policy(device, compute_dtype)
         self.device = device
         self.dtype = COMPUTE_DTYPES[compute_dtype]
-        self.model = model.to(device, self.dtype).eval()
+        self.model = model.to(device).eval()
+        for p in self.model.parameters():  # buffers (batch statistics) stay f32
+            p.data = p.data.to(self.dtype)
         self.buckets = sorted(int(b) for b in buckets)
 
     def _forward(self, images: np.ndarray):
@@ -192,7 +195,8 @@ class CheckpointBackend(_TorchBackend):
                              deep_supervision=cfg.model.deep_supervision)
         if checkpoint is not None:
             if Path(checkpoint).suffix == ".npz":
-                model.load_state_dict(params_from_jax(_load_npz(checkpoint)), strict=True)
+                model.load_state_dict(params_from_jax(_load_npz(checkpoint), model),
+                                      strict=True)
             else:
                 load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
         super().__init__(model, device, cfg.training.compute_dtype, [max_batch])
@@ -237,7 +241,7 @@ class ArtifactBackend:
             model = _build_model(m["task"], m["architecture"], m["channels"],
                                  m["n_classes"], regions, m["size"],
                                  **size_knobs_from_params(params))
-            model.load_state_dict(params_from_jax(params), strict=True)
+            model.load_state_dict(params_from_jax(params, model), strict=True)
             self._runner = _TorchBackend(model, device, m.get("compute_dtype", "float32"),
                                          m["buckets"])
             device_postprocess = False  # raw outputs, host postprocessing

@@ -2,7 +2,8 @@
 ``multi_task_breast_cancer_tpu/train/checkpoint.py``).
 
 The port's format is ``torch.save`` of the reference's own dict, ``epoch``,
-``model_state_dict``, ``optimizer_state_dict``, ``val_loss``
+``model_state_dict`` (parameters and buffers: ResidualUNet's batch
+statistics), ``optimizer_state_dict``, ``val_loss``
 (``training_multitask.py:243-249`` of the reference), with two more keys, as
 the JAX package writes them: ``step`` and ``resume_state``, the host-side
 scheduler and early-stopping counters (:data:`EMPTY_RESUME_STATE`; ``valid``
@@ -18,8 +19,9 @@ model's raises ``ValueError``, as the JAX ``_check_shapes`` does.
 
 Both read the JAX package's flax-msgpack checkpoints too, current and legacy
 (written before ``resume_state`` existed), decoded by :mod:`.flax_msgpack`
-without flax: the weights map through ``models/jax_weights.params_from_jax``,
-and ``restore_checkpoint`` carries optax Adam's ``mu`` / ``nu`` / ``count`` and
+without flax: the weights and any batch statistics map through
+``models/jax_weights.params_from_jax``, and ``restore_checkpoint`` carries
+optax Adam's ``mu`` / ``nu`` / ``count`` and
 injected learning rate into ``torch.optim.Adam``'s (or ``AdamW``'s)
 ``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``lr``, so a JAX run resumes in the
 port.
@@ -112,8 +114,9 @@ def is_torch_checkpoint(path: str) -> bool:
         return f.read(4) == b"PK\x03\x04"
 
 
-def _read_flax(path: str) -> dict:
-    """A JAX checkpoint as the port's payload: the weights as the port's
+def _read_flax(path: str, model: torch.nn.Module) -> dict:
+    """A JAX checkpoint as the port's payload: the weights (and the batch
+    statistics, ``model_state_dict["batch_stats"]``) as ``model``'s
     ``state_dict``; optax's state kept, under ``jax_optimizer_state``, for
     ``restore_checkpoint``; a legacy file's counters empty (``valid`` 0)."""
     with open(path, "rb") as f:
@@ -127,7 +130,7 @@ def _read_flax(path: str) -> dict:
         raise ValueError(f"'{path}' holds no model_state_dict")
     return {
         "epoch": int(raw["epoch"]),
-        "model_state_dict": params_from_jax(raw["model_state_dict"]),
+        "model_state_dict": params_from_jax(raw["model_state_dict"], model),
         "jax_optimizer_state": raw["optimizer_state_dict"],
         "val_loss": float(raw["val_loss"]),
         "step": int(raw.get("step", 0)),
@@ -141,7 +144,7 @@ def _load(path: str, model: torch.nn.Module) -> dict:
     if is_torch_checkpoint(path):
         payload = torch.load(path, map_location="cpu", weights_only=True)
     else:
-        payload = _read_flax(path)
+        payload = _read_flax(path, model)
     check_fits(payload["model_state_dict"], model)
     return payload
 
@@ -172,7 +175,7 @@ def _adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
         raise ValueError(
             f"only Adam's and AdamW's state is carried over from a JAX checkpoint; "
             f"got optax state {sorted(adam)} for {type(optimizer).__name__}")
-    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    mu, nu = params_from_jax(adam["mu"], model), params_from_jax(adam["nu"], model)
     step = torch.tensor(float(adam["count"]), dtype=torch.float32)
     sd = optimizer.state_dict()
     sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}

@@ -20,13 +20,17 @@ Randomness, chosen so that a resumed run replays exactly:
   derive_seed(seed, n))`` and epoch ``e``'s augmentation draws from
   ``derive_seed(seed, n, e + 1)``, where ``derive_seed(*k)`` is the first
   uint64 word of ``np.random.SeedSequence(list(k))`` modulo 2**63: the twins
-  of JAX's ``fold_in(root_key, n)`` and ``fold_in(fold_key, e + 1)``.
+  of JAX's ``fold_in(root_key, n)`` and ``fold_in(fold_key, e + 1)``;
+- epoch ``e``'s dropout masks (ResidualUNet) come from a generator on the
+  run's device seeded with ``derive_seed(seed, n, e + 1, DROPOUT_STREAM)``,
+  a stream apart from the augmentation's (JAX splits ``k_drop`` from each
+  step's key).
 
 The best epoch's state is copied on the device (no host fetch per epoch)
 and written once per fold unless ``training.checkpoint_every_epoch``. One
 visible GPU runs the experiment: ``training.spatial_partitions > 1``, or
 ``training.data_parallel`` with more than one visible GPU, raises (the
-mesh is ``ROADMAP.md`` Queue 1, item 2: parallelism, after the zoo).
+mesh is ``ROADMAP.md`` Queue 1, item 2: parallelism).
 """
 
 from __future__ import annotations
@@ -91,6 +95,9 @@ from multi_task_breast_cancer_tpu_torch.utils.profiling import StepTimer, maybe_
 from multi_task_breast_cancer_tpu_torch.utils.visualization import plot_evolution
 
 
+DROPOUT_STREAM = 1
+
+
 def derive_seed(*keys: int) -> int:
     """A 63-bit seed from integer keys (the root seed, the fold, the epoch)."""
     word = np.random.SeedSequence([int(k) for k in keys]).generate_state(1, np.uint64)[0]
@@ -115,7 +122,7 @@ def _build_model(cfg: Config, task: str, generator: Optional[torch.Generator] = 
         return init_segmentation_model(cfg.model.architecture, sequences=sequences,
                                        regions=regions, width=cfg.model.width,
                                        deep_supervision=cfg.model.deep_supervision,
-                                       nnunet_widths=nw, generator=generator)
+                                       nnunet_widths=nw, size=size, generator=generator)
     if task == "classification":
         return init_classification_model(cfg.model.architecture, sequences=sequences,
                                          n_classes=n_classes, width=cfg.model.width,
@@ -445,7 +452,7 @@ def _check_one_device(cfg: Config, device: torch.device) -> None:
             "training over more than one GPU (training.data_parallel with "
             f"{torch.cuda.device_count()} visible GPUs, training.spatial_partitions="
             f"{cfg.training.spatial_partitions}) is not ported yet: ROADMAP.md, Queue 1, "
-            "item 2 (parallelism, after the zoo). Make one GPU visible "
+            "item 2 (parallelism). Make one GPU visible "
             "(CUDA_VISIBLE_DEVICES) and set spatial_partitions: 1")
 
 
@@ -630,12 +637,15 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
                 t0 = time.perf_counter()
                 perm = plan_epoch_indices(len(fold.train), B, host_rng, pad_to_steps=max_steps)
                 gen = torch.Generator().manual_seed(derive_seed(seed, n, epoch + 1))
+                drop = torch.Generator(device=device).manual_seed(
+                    derive_seed(seed, n, epoch + 1, DROPOUT_STREAM))
                 with maybe_profile(epoch, n), timer("engine"):
                     if val_data is not None and fuse_eval:
                         state, tm, vm = engine.train_and_eval_epoch(
-                            state, train_data, val_data, perm, gen, step_valid)
+                            state, train_data, val_data, perm, gen, step_valid, drop)
                     else:
-                        state, tm = engine.train_epoch(state, train_data, perm, gen, step_valid)
+                        state, tm = engine.train_epoch(state, train_data, perm, gen,
+                                                       step_valid, drop)
                         vm = engine.eval_epoch(state, val_data) if val_data is not None else None
                 check_finite_loss(tm["loss"])
                 monitor = vm["loss"] if vm is not None else tm["loss"]

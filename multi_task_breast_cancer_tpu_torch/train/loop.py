@@ -8,15 +8,25 @@ the optimizer, and adds its loss, Dice and confusion matrix to sums that stay
 on the device. The sums are fetched once per epoch, as one transfer.
 
 Cross-fold padding steps (``step_valid == 0``) are skipped on the host, so
-they leave the parameters, the optimizer's moments and the step count
-untouched (the JAX scan selects the old state for them).
+they leave the parameters, the buffers (batch statistics), the optimizer's
+moments and the step count untouched (the JAX scan selects the old state for
+them).
+
+Training steps run the model in train mode: a ``BatchNorm`` normalises with
+the batch's statistics and moves its running ``mean``/``var`` buffers in
+place, and a ``Dropout`` draws its masks from the epoch's
+``dropout_generator`` (on the Engine's device; JAX splits ``k_drop`` from
+each step's key). Validation and ``predict`` run in eval mode: the running
+statistics normalise and stay as they are, and dropout is the identity.
 
 Tasks: 'segmentation' | 'classification' | 'multitask'. Layout NCHW.
 
 ``compute_dtype='bfloat16'`` is JAX's whole-model cast (``_apply``,
 ``_as_f32``): the master parameters stay float32 in ``torch.optim.Adam``, each
 forward runs on bf16 copies of them (``torch.func.functional_call``), so the
-gradients land on the f32 masters; inputs are cast to bf16 right after the row
+gradients land on the f32 masters; the buffers are not cast (batch
+statistics stay f32, as JAX's do) and their updates land on the module's own
+buffers; inputs are cast to bf16 right after the row
 gather (before the exact augmentation; the fast augmentation packs bf16
 channel pairs); outputs are cast to f32 before the losses, the metrics and
 ``predict``'s result. Losses and metrics only ever see f32. No
@@ -40,6 +50,7 @@ from multi_task_breast_cancer_tpu_torch.device import (
     resolve_device,
     set_float32_policy,
 )
+from multi_task_breast_cancer_tpu_torch.models.blocks import dropout_draws, has_dropout
 from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
@@ -119,7 +130,7 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError("Engine: meshes (data/spatial parallelism) are "
                                       "not ported yet (ROADMAP.md, Queue 1, item 2: "
-                                      "parallelism, after the zoo)")
+                                      "parallelism)")
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
         self.device = resolve_device(device)
@@ -306,11 +317,24 @@ class Engine:
         if p.device != self.device:
             raise ValueError(f"Engine on {self.device}: the state's model is on {p.device}")
 
+    def _check_dropout_generator(self, model: nn.Module,
+                                 generator: Optional[torch.Generator]) -> None:
+        if not has_dropout(model):
+            return
+        if generator is None:
+            raise ValueError("Engine: a model with dropout needs a dropout_generator "
+                             "(a torch.Generator on the Engine's device) for its masks")
+        if generator.device.type != self.device.type:
+            raise ValueError(f"Engine on {self.device}: the dropout generator is on "
+                             f"{generator.device}")
+
     def _train_epoch_sums(self, state: TrainState, data: Dict[str, Any],
                           perm: np.ndarray, generator: Optional[torch.Generator],
-                          step_valid: Optional[np.ndarray]):
+                          step_valid: Optional[np.ndarray],
+                          dropout_generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         self._check_state(state)
+        self._check_dropout_generator(state.model, dropout_generator)
         if cfg.use_transforms and cfg.fast_augmentation and "aug_packed" not in data:
             raise ValueError("fast_augmentation needs data built by this Engine's "
                              "device_data(..., for_training=True)")
@@ -336,29 +360,30 @@ class Engine:
                 "cm": torch.zeros((n_cm, n_cm), device=self.device)}
         model, opt = state.model, state.optimizer
         model.train()
-        for k in range(steps):
-            if valid[k] <= 0:
-                continue  # cross-fold padding: a no-op, not a zero-gradient step
-            rows = rows_all[k]
-            ctgt = data["cls_targets"].index_select(0, rows)
-            lint = data["labels_int"].index_select(0, rows)
-            imgs, msks = self._augmented_batch(data, rows, draws, k)
-            opt.zero_grad(set_to_none=True)
-            out = self._apply(model, imgs)
-            loss, aux = self._losses(out, msks, ctgt)
-            loss.backward()
-            opt.step()
-            state.step += 1
-            sm = self._step_metrics(aux, msks, lint, sums["cm"])
-            sums = {
-                "loss": sums["loss"] + loss.detach(),
-                "seg_loss": sums["seg_loss"] + aux["seg_loss"].detach()
-                if "seg_loss" in aux else sums["seg_loss"],
-                "cls_loss": sums["cls_loss"] + aux["cls_loss"].detach()
-                if "cls_loss" in aux else sums["cls_loss"],
-                "dice": sums["dice"] + sm["dice"] if "dice" in sm else sums["dice"],
-                "cm": sm.get("cm", sums["cm"]),
-            }
+        with dropout_draws(model, dropout_generator):
+            for k in range(steps):
+                if valid[k] <= 0:
+                    continue  # cross-fold padding: a no-op, not a zero-gradient step
+                rows = rows_all[k]
+                ctgt = data["cls_targets"].index_select(0, rows)
+                lint = data["labels_int"].index_select(0, rows)
+                imgs, msks = self._augmented_batch(data, rows, draws, k)
+                opt.zero_grad(set_to_none=True)
+                out = self._apply(model, imgs)
+                loss, aux = self._losses(out, msks, ctgt)
+                loss.backward()
+                opt.step()
+                state.step += 1
+                sm = self._step_metrics(aux, msks, lint, sums["cm"])
+                sums = {
+                    "loss": sums["loss"] + loss.detach(),
+                    "seg_loss": sums["seg_loss"] + aux["seg_loss"].detach()
+                    if "seg_loss" in aux else sums["seg_loss"],
+                    "cls_loss": sums["cls_loss"] + aux["cls_loss"].detach()
+                    if "cls_loss" in aux else sums["cls_loss"],
+                    "dice": sums["dice"] + sm["dice"] if "dice" in sm else sums["dice"],
+                    "cm": sm.get("cm", sums["cm"]),
+                }
         return self._epoch_metrics(sums, max(float(valid.sum()), 1.0))
 
     @torch.no_grad()
@@ -386,13 +411,16 @@ class Engine:
 
     def train_epoch(self, state: TrainState, data: Dict[str, Any], perm: np.ndarray,
                     generator: Optional[torch.Generator] = None,
-                    step_valid: Optional[np.ndarray] = None
+                    step_valid: Optional[np.ndarray] = None,
+                    dropout_generator: Optional[torch.Generator] = None
                     ) -> Tuple[TrainState, Dict[str, float]]:
         """One epoch over ``perm`` (steps·B fold rows) in batches of B; the
-        augmentation draws come from ``generator``. Returns the state (updated
-        in place) and the epoch metrics (means over the real steps)."""
+        augmentation draws come from ``generator`` (on the CPU), the dropout
+        masks from ``dropout_generator`` (on the Engine's device; needed by a
+        model with dropout). Returns the state (updated in place) and the
+        epoch metrics (means over the real steps)."""
         return state, self._fetch(self._train_epoch_sums(state, data, perm, generator,
-                                                         step_valid))
+                                                         step_valid, dropout_generator))
 
     def eval_epoch(self, state: TrainState, data: Dict[str, Any]) -> Dict[str, float]:
         return self._fetch(self._eval_metrics(state, data))
@@ -400,10 +428,12 @@ class Engine:
     def train_and_eval_epoch(self, state: TrainState, train_data: Dict[str, Any],
                              val_data: Dict[str, Any], perm: np.ndarray,
                              generator: Optional[torch.Generator] = None,
-                             step_valid: Optional[np.ndarray] = None
+                             step_valid: Optional[np.ndarray] = None,
+                             dropout_generator: Optional[torch.Generator] = None
                              ) -> Tuple[TrainState, Dict[str, float], Dict[str, float]]:
         """A training epoch and the validation pass, with one metric fetch."""
-        tm = self._train_epoch_sums(state, train_data, perm, generator, step_valid)
+        tm = self._train_epoch_sums(state, train_data, perm, generator, step_valid,
+                                    dropout_generator)
         vm = self._eval_metrics(state, val_data)
         both = {f"t_{k}": v for k, v in tm.items()}
         both.update({f"v_{k}": v for k, v in vm.items()})

@@ -1,8 +1,9 @@
 """Train state: the model, its optimizer and the count of steps taken (twin
 of ``multi_task_breast_cancer_tpu/train/state.py``, whose pytree carries
-params, batch statistics and optimizer state). The ported models have no
-dropout and no batch statistics, so the module's parameters are the whole of
-the learned state."""
+params, batch statistics and optimizer state). The model holds the
+parameters and, as buffers, the batch statistics (ResidualUNet's
+``BatchNorm`` ``mean``/``var``, JAX's ``batch_stats``): its ``state_dict``
+is the learned state, and training steps update both in place."""
 
 from __future__ import annotations
 

@@ -118,8 +118,10 @@ def jax_runs():
         state, tm, vm = engine.train_and_eval_epoch(
             state, data, engine.device_data(as_jax(val), for_training=False), perm,
             jax.random.PRNGKey(1))
-        runs[dtype] = {"out": out, "tm": tm, "vm": vm, "grad": params_from_jax(grad),
-                       "final": params_from_jax(jax.tree_util.tree_map(np.asarray, state.params))}
+        target = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
+        runs[dtype] = {"out": out, "tm": tm, "vm": vm, "grad": params_from_jax(grad, target),
+                       "final": params_from_jax(jax.tree_util.tree_map(np.asarray, state.params),
+                                                target)}
     return runs
 
 
@@ -128,7 +130,7 @@ def _port_run(jax_runs, dtype):
     first step records the gradient on the f32 masters and the masters
     before and after."""
     model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
-    model.load_state_dict(params_from_jax(jax_runs["init"]), strict=True)
+    model.load_state_dict(params_from_jax(jax_runs["init"], model), strict=True)
     engine = Engine(model, _cfg(use_transforms=False, compute_dtype=dtype), device="cpu")
     state = create_train_state(engine.model, "Adam", LR)
     out = _outputs(engine.predict(state, jax_runs["val"].images))
@@ -223,7 +225,8 @@ def test_bf16_engine_matches_jax_bf16_engine(jax_runs):
     assert steps.abs().max() > 2e-7  # a master left unchanged would fail the check above
 
     # the parameters after three Adam steps, by their update's direction
-    init = params_from_jax(jax_runs["init"])
+    init = params_from_jax(jax_runs["init"],
+                           registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS))
 
     def update(final):
         return torch.cat([(final[k] - init[k]).flatten() for k in init])
@@ -503,3 +506,74 @@ def test_bf16_driver_run_keeps_f32_checkpoints(tmp_path):
         moments = [t for s in payload["optimizer_state_dict"]["state"].values()
                    for k, t in s.items() if k in ("exp_avg", "exp_avg_sq")]
         assert moments and all(t.dtype == torch.float32 for t in moments)
+
+
+@pytest.mark.parametrize("arch", ["ResidualUNet", "SwinUNETR"])
+def test_seg_zoo_bf16_each_side_to_its_own_f32(arch, monkeypatch):
+    """ResidualUNet (batch statistics) and SwinUNETR (attention logits in
+    f32) at ``tests/test_torch_seg_zoo.py``'s sizes: the ``predict`` answer
+    in bf16 against each side's own f32 answer by the factor-2 rule, port
+    against JAX within 5e-2 of the f32 scale. ResidualUNet's bf16 step
+    (dropout off on both sides): the loss by the factor-2 rule, the batch
+    statistics stay f32 in the model's own buffers and move as f32's do
+    (within the factor-2 rule of JAX's bf16 move)."""
+    import jax
+    import jax.numpy as jnp
+    from flax.core import FrozenDict
+
+    from multi_task_breast_cancer_tpu.data.dataset import ArrayDataset as JaxDataset
+    from multi_task_breast_cancer_tpu.train import loop as JL
+    from multi_task_breast_cancer_tpu.train.optim import init_optimizer
+    from multi_task_breast_cancer_tpu.train.state import TrainState
+    from multi_task_breast_cancer_tpu_torch.models.blocks import Dropout
+    from multi_task_breast_cancer_tpu_torch.train.loop import EngineConfig
+    import test_torch_seg_zoo as Z
+
+    monkeypatch.setattr(Z.jax_residual_unet, "nn", Z._NoDropout())
+    variables = Z._init(arch)
+    fold = _fold(4, 2, Z.SIZE)
+    perm = np.array([0, 1], np.int32)
+    cfg = dict(task="segmentation", batch_size=B, seg_criterion="DICE", use_transforms=False)
+    out, loss, stats = {}, {}, {}
+    for dtype in DTYPES:
+        tx = init_optimizer("Adam", LR)
+        jengine = JL.Engine(Z.MODELS[arch]()[0], tx, JL.EngineConfig(**cfg, compute_dtype=dtype))
+        jstate = TrainState(params=variables["params"],
+                            batch_stats=variables.get("batch_stats", FrozenDict()),
+                            opt_state=tx.init(variables["params"]), step=jnp.zeros((), jnp.int32))
+        model = Z._port(arch)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        engine = Engine(model, EngineConfig(**cfg, compute_dtype=dtype), device="cpu")
+        state = create_train_state(engine.model, "Adam", LR)
+        out["jax", dtype] = np.asarray(jengine.predict(jstate, fold.images))
+        out["port", dtype] = engine.predict(state, fold.images).numpy().transpose(0, 2, 3, 1)
+        if arch == "ResidualUNet":
+            jstate, jm = jengine.train_epoch(jstate, jengine.device_data(JaxDataset(**vars(fold))),
+                                             perm, jax.random.PRNGKey(1))
+            state, m = engine.train_epoch(state, engine.device_data(fold), perm)
+            loss["jax", dtype], loss["port", dtype] = jm["loss"], m["loss"]
+            stats["jax", dtype] = params_from_jax(
+                {"batch_stats": jax.tree_util.tree_map(np.asarray, jstate.batch_stats)}, model)
+            bufs = dict(state.model.named_buffers())
+            assert all(b.dtype == torch.float32 for b in bufs.values())
+            stats["port", dtype] = {k: b.clone() for k, b in bufs.items()}
+
+    scale = np.abs(out["jax", "float32"]).max()
+    assert np.abs(out["port", "float32"] - out["jax", "float32"]).max() <= 1e-4 * scale
+    d_port = np.abs(out["port", "bfloat16"] - out["port", "float32"]).max() / scale
+    d_jax = np.abs(out["jax", "bfloat16"] - out["jax", "float32"]).max() / scale
+    assert d_port <= max(2 * d_jax, 1e-2), (d_port, d_jax)
+    assert np.abs(out["port", "bfloat16"] - out["jax", "bfloat16"]).max() <= 5e-2 * scale
+    if arch != "ResidualUNet":
+        return
+    rel = {s: abs(loss[s, "bfloat16"] - loss[s, "float32"]) / loss[s, "float32"]
+           for s in ("port", "jax")}
+    assert rel["port"] <= max(2 * rel["jax"], 1e-2), rel
+    for k, f32 in stats["port", "float32"].items():
+        d_port = ((stats["port", "bfloat16"][k] - f32).abs().max() / f32.abs().max()).item()
+        jf32 = stats["jax", "float32"][k]
+        d_jax = ((stats["jax", "bfloat16"][k] - jf32).abs().max() / jf32.abs().max()).item()
+        assert d_port <= max(2 * d_jax, 1e-2), (k, d_port, d_jax)
+        assert not torch.equal(f32, dict(Z._port(arch).named_buffers())[k]), k

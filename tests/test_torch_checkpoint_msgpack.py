@@ -52,7 +52,7 @@ def jax_state():
     """A JAX train state of the port's seeded weights after one Adam step."""
     port = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
                                 generator=torch.Generator().manual_seed(3))
-    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict()))
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict(), port))
     tx = jax_optimizer("Adam", LR)
     opt_state = tx.init(params)
     update = jax.jit(tx.update)
@@ -126,7 +126,7 @@ def test_resumed_adam_step_matches_optax(jax_state, files):
     state, tx, update = jax_state
     port, _, _, _ = ckpt.restore_checkpoint(_port_state(), str(files[0]))
     adam = state.opt_state.inner_state[0]
-    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    mu, nu = params_from_jax(adam.mu, port.model), params_from_jax(adam.nu, port.model)
     names = [n for n, _ in port.model.named_parameters()]
     for i, name in enumerate(names):
         s = port.optimizer.state[port.optimizer.param_groups[0]["params"][i]]
@@ -136,8 +136,9 @@ def test_resumed_adam_step_matches_optax(jax_state, files):
 
     grads = _grads(state.params, 2)
     updates, _ = update(grads, state.opt_state, state.params)
-    want = params_from_jax(jax.tree_util.tree_map(lambda p, u: p + u, state.params, updates))
-    g = params_from_jax(grads)
+    want = params_from_jax(jax.tree_util.tree_map(lambda p, u: p + u, state.params, updates),
+                           port.model)
+    g = params_from_jax(grads, port.model)
     for name, p in port.model.named_parameters():
         p.grad = g[name]
     port.optimizer.step()

@@ -134,7 +134,8 @@ def _run_both(tmp_path, monkeypatch, tree, task: str, mode: str, arch: str):
     def jax_fold_init(cfg, task_, seed, fold, size=SIZE):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), fold)
         params = _JitInit(jax_model).init(key, jnp.zeros((1, size, size, 1)), train=False)
-        return params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]))
+        return params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]),
+                               driver._build_model(cfg, task_, size=size))
 
     monkeypatch.setattr(driver, "fold_init_state_dict", jax_fold_init)
     jax_run = Path(jax_driver.run_experiment(jax_cfg, task, mode, run_root=str(tmp_path / "jax")))
@@ -262,13 +263,15 @@ def test_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch
     check_driver_matches_jax_driver(tmp_path, monkeypatch, tree, task, mode, arch)
 
 
-def _resume_config(root, task: str) -> Config:
+def _resume_config(root, task: str, arch: str = "") -> Config:
     """``tests/test_resume.py``'s configuration, on the port's nnU-Net
-    family at the narrow widths."""
+    family at the narrow widths, or ``arch`` at width 4."""
     from multi_task_breast_cancer_tpu_torch.config import OptimizerConfig
-    arch = {"multitask": "MTnnUNet", "segmentation": "nnUNet"}[task]
+    model = (ModelConfig(architecture=arch, width=4) if arch else ModelConfig(
+        architecture={"multitask": "MTnnUNet", "segmentation": "nnUNet"}[task],
+        nnunet_widths=WIDTHS))
     return Config(
-        model=ModelConfig(architecture=arch, nnunet_widths=WIDTHS),
+        model=model,
         optimizer=OptimizerConfig(opt="Adam", lr=1e-3, scheduler="cosine", t_max=4),
         training=TrainingConfig(seed=1993, epochs=3, CV=2, checkpoint_every_epoch=True,
                                 data_parallel=False,
@@ -297,8 +300,29 @@ def test_kill_and_resume_byte_identical(tmp_path, monkeypatch, task, mode, crash
     """Killed between a metrics.csv row and its checkpoint, the worst-ordered
     point, and resumed in place: every checkpoint and CSV equals an
     uninterrupted run's, byte for byte."""
+    _kill_and_resume(tmp_path, monkeypatch, task, mode, crash_at)
+
+
+def test_residual_unet_kill_and_resume_byte_identical(tmp_path, monkeypatch):
+    """ResidualUNet, whose batch statistics are in every checkpoint and whose
+    dropout draws from each epoch's generator: killed and resumed, every
+    checkpoint and CSV equals an uninterrupted run's, byte for byte; the
+    running statistics moved from their start."""
+    import torch
+
+    from multi_task_breast_cancer_tpu_torch.train.checkpoint import is_torch_checkpoint
+
+    run = _kill_and_resume(tmp_path, monkeypatch, "segmentation", "CV", 2, "ResidualUNet")
+    ckpt = next(f for f in (run / "fold_0").iterdir() if f.name.startswith("model_2"))
+    assert is_torch_checkpoint(str(ckpt))
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model_state_dict"]
+    assert not torch.equal(sd["in_block.bn1.bn.var"], torch.ones(4))
+    assert not torch.equal(sd["up_block1.bn3.bn.mean"], torch.zeros(4))
+
+
+def _kill_and_resume(tmp_path, monkeypatch, task, mode, crash_at, arch: str = "") -> Path:
     root = jax_synthetic.make_preprocessed_busi(tmp_path / "busi", n_per_class=8, size=32)
-    run_a = Path(driver.run_experiment(_resume_config(root, task), task, mode,
+    run_a = Path(driver.run_experiment(_resume_config(root, task, arch), task, mode,
                                        run_root=str(tmp_path / "a"), device="cpu"))
     real_save = driver.save_checkpoint
     calls = {"n": 0}
@@ -311,11 +335,11 @@ def test_kill_and_resume_byte_identical(tmp_path, monkeypatch, task, mode, crash
 
     monkeypatch.setattr(driver, "save_checkpoint", crashing_save)
     with pytest.raises(RuntimeError, match="simulated kill"):
-        driver.run_experiment(_resume_config(root, task), task, mode,
+        driver.run_experiment(_resume_config(root, task, arch), task, mode,
                               run_root=str(tmp_path / "b"), device="cpu")
     monkeypatch.setattr(driver, "save_checkpoint", real_save)
     run_b = next((tmp_path / "b").iterdir())
-    resumed = Path(driver.run_experiment(_resume_config(root, task), task, mode,
+    resumed = Path(driver.run_experiment(_resume_config(root, task, arch), task, mode,
                                          resume_dir=str(run_b), device="cpu"))
     assert resumed == run_b
     assert "Fold 0: resuming from epoch" in (run_b / "execution.log").read_text()
@@ -324,6 +348,7 @@ def test_kill_and_resume_byte_identical(tmp_path, monkeypatch, task, mode, crash
                                                          else "")) for k in a)
     for rel in a:
         assert a[rel] == b[rel], f"artifact differs after resume: {rel}"
+    return run_b
 
 
 def test_resume_rejects_changed_seed_optimizer_and_entry_point(tmp_path):

@@ -101,7 +101,7 @@ def jax_run():
 
 def _port_engine(init_params, **cfg_kw):
     model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
-    model.load_state_dict(params_from_jax(init_params), strict=True)
+    model.load_state_dict(params_from_jax(init_params, model), strict=True)
     engine = Engine(model, _cfg(**cfg_kw), device="cpu")
     return engine, create_train_state(engine.model, "Adam", 1e-4)
 
@@ -122,11 +122,11 @@ def test_engine_epoch_matches_jax_engine(jax_run):
     for got, want in ((tm, jax_run["tm"]), (vm, jax_run["vm"])):
         bad = {k: (got[k], want[k]) for k in want if not _close(got[k], want[k])}
         assert not bad, bad
-    final = params_from_jax(jax_run["final"])
+    final = params_from_jax(jax_run["final"], state.model)
     worst = max((state.model.state_dict()[k] - v).abs().max().item()
                 for k, v in final.items())
     moved = max((state.model.state_dict()[k] - v).abs().max().item()
-                for k, v in params_from_jax(jax_run["init"]).items())
+                for k, v in params_from_jax(jax_run["init"], state.model).items())
     assert worst <= 2e-6 and moved > 1e-5, (worst, moved)
 
 
@@ -192,7 +192,7 @@ def test_engine_raises_without_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     assert Engine(model, _cfg(), device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw,err", [({"seg_criterion": "GeneralizedDICE"}, NotImplementedError),
+@pytest.mark.parametrize("kw,err", [({"seg_criterion": "NoSuchLoss"}, ValueError),
                                     ({"task": "detection"}, ValueError)])
 def test_engine_rejects_what_is_not_ported(kw, err):
     model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)

@@ -32,7 +32,7 @@ import pytest
 import torch
 
 from multi_task_breast_cancer_tpu_torch.config import Config, DataConfig, ModelConfig
-from multi_task_breast_cancer_tpu_torch.models.jax_weights import flat_jax_weights
+from multi_task_breast_cancer_tpu_torch.models.jax_weights import flat_jax_weights, transposed_convs
 from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
 from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 from multi_task_breast_cancer_tpu_torch.serve import export as E
@@ -235,7 +235,7 @@ def jax_side(tmp_path_factory):
     root = tmp_path_factory.mktemp("jax_side")
     port = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
                                 generator=torch.Generator().manual_seed(13))
-    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict()))
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict(), port))
     tx = init_optimizer("Adam", 1e-4)
     state = JaxTrainState(params=params, batch_stats={}, opt_state=tx.init(params),
                           step=jnp.zeros((), jnp.int32))
@@ -255,19 +255,21 @@ def jax_side(tmp_path_factory):
                     size=SIZE, platforms=("cpu",), device_postprocess=compact)
     finally:
         jax_driver.create_train_state = real
-    return {"ckpt": ckpt, "state_dict": port.state_dict(), "artifacts": artifacts}
+    return {"ckpt": ckpt, "state_dict": port.state_dict(), "model": port, "artifacts": artifacts}
 
 
 def test_manifest_and_weights_follow_the_jax_layout(jax_side, tmp_path):
     """The manifest has the JAX manifest's keys (``torch_version`` for
-    ``jax_version``, plus ``format``); ``weights.npz`` has JAX's keys, shapes
-    and values for the same weights."""
+    ``jax_version``, plus ``format`` and ``transposed_convs``); ``weights.npz``
+    has JAX's keys, shapes and values for the same weights."""
     jart = jax_side["artifacts"]["float32", False]
     part = E.export_inference(_cfg(), "multitask", str(jax_side["ckpt"]), tmp_path / "port",
                               buckets=(1,), size=SIZE, platforms=("cpu",))
     want = json.loads((jart / "manifest.json").read_text())
     got = json.loads((part / "manifest.json").read_text())
-    assert set(got) == (set(want) - {"jax_version"}) | {"torch_version", "format"}
+    assert set(got) == (set(want) - {"jax_version"}) | {"torch_version", "format",
+                                                         "transposed_convs"}
+    assert got["transposed_convs"] == sorted(transposed_convs(jax_side["model"]))
     assert got["format"] == "torch.export" and got["platforms"] == ["cpu"]
     for k in set(want) - {"jax_version", "buckets", "platforms"}:
         assert got[k] == want[k], k
@@ -276,7 +278,7 @@ def test_manifest_and_weights_follow_the_jax_layout(jax_side, tmp_path):
         for k in zj.files:
             assert zp[k].dtype == np.float32
             np.testing.assert_array_equal(zp[k], zj[k])
-    flat = flat_jax_weights(jax_side["state_dict"])
+    flat = flat_jax_weights(jax_side["state_dict"], jax_side["model"])
     with np.load(part / "weights.npz") as zp:
         assert set(flat) == set(zp.files)
 
@@ -295,7 +297,7 @@ def test_programs_carry_no_weights_and_swapped_weights_take_effect(artifacts, tm
     shutil.copytree(artifacts["raw"], swapped)
     other = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
                                  generator=torch.Generator().manual_seed(9))
-    np.savez(swapped / "weights.npz", **flat_jax_weights(other.state_dict()))
+    np.savez(swapped / "weights.npz", **flat_jax_weights(other.state_dict(), other))
     images = _images(3, seed=14)
     got = _flat(E.ExportedModel(swapped, device="cpu").predict(images))
     want = _flat(_live(_checkpoint(tmp_path / "other_fold_0", seed=9)).predict(images))
@@ -445,3 +447,116 @@ def test_serve_export_then_serve_run_through_the_cli(artifacts, tmp_path):
     assert got["predicted_class"] == want["predicted_class"]
     assert got["tumor_pixels"] == want["tumor_pixels"]
     np.testing.assert_allclose(got["probs"], want["probs"], rtol=0, atol=1e-6)
+
+
+def test_residual_unet_artifact_round_trip(tmp_path):
+    """ResidualUNet's batch statistics through ``serve export`` and back.
+    Port → JAX: the port artifact's ``weights.npz`` holds them under
+    ``batch_stats/`` bit for bit, and the JAX model on its variables answers
+    as the exported program and the live backend do (1e-4 of scale). JAX →
+    port: ``ArtifactBackend`` over JAX's own artifact of the same checkpoint
+    reads them and answers as the live backend does. The program takes them
+    as inputs: none is a constant of it."""
+    import jax
+    import jax.numpy as jnp
+
+    from multi_task_breast_cancer_tpu.config import (
+        Config as JaxConfig,
+        DataConfig as JaxDataConfig,
+        ModelConfig as JaxModelConfig,
+    )
+    from multi_task_breast_cancer_tpu.models.residual_unet import ResidualUNet as JResidualUNet
+    from multi_task_breast_cancer_tpu.serve import export as JE
+    from multi_task_breast_cancer_tpu.train import checkpoint as jax_ckpt
+    from multi_task_breast_cancer_tpu.train import driver as jax_driver
+    from multi_task_breast_cancer_tpu.train.optim import init_optimizer
+    from multi_task_breast_cancer_tpu.train.state import TrainState as JaxTrainState
+    from multi_task_breast_cancer_tpu_torch.models.jax_weights import variables_to_jax
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_segmentation_model
+
+    model = init_segmentation_model("ResidualUNet", width=4,
+                                    generator=torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(5)
+    for name, buf in model.named_buffers():
+        buf.copy_(torch.rand(buf.shape, generator=gen) + (0.5 if name.endswith("var") else 0.0))
+    ckpt = tmp_path / "model_fold_0.tar"
+    save_checkpoint(str(ckpt), create_train_state(model, "Adam", 1e-4), epoch=1, val_loss=0.5)
+    cfg = Config(model=ModelConfig(architecture="ResidualUNet", width=4),
+                 data=DataConfig(input_img="unused", classes=CLASSES))
+    art = E.export_inference(cfg, "segmentation", str(ckpt), tmp_path / "port", buckets=(2,),
+                             size=SIZE, platforms=("cpu",))
+    with np.load(art / "weights.npz") as z:
+        flat = {k: z[k] for k in z.files}
+    for name, buf in model.named_buffers():
+        np.testing.assert_array_equal(flat["batch_stats/" + name.replace(".", "/")], buf.numpy())
+    program = torch.export.load(art / E.program_name(2, "cpu"))
+    assert len(program.state_dict) == 0 and len(program.constants) == 0
+
+    images = _images(2, 6)
+    live = CheckpointBackend(cfg, "segmentation", checkpoint=str(ckpt), size=SIZE, device="cpu")
+    want = live.predict(images)
+    scale = max(1.0, float(np.abs(want).max()))
+    got = ArtifactBackend(str(art), device="cpu").predict(images)
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    variables = variables_to_jax(model.state_dict(), model)
+    jout = np.asarray(JResidualUNet(width=4).apply(
+        {"params": JE._unflatten_variables(flat)["params"],
+         "batch_stats": JE._unflatten_variables(flat)["batch_stats"]},
+        jnp.asarray(images, jnp.float32), train=False))
+    assert np.abs(jout - want).max() <= 1e-4 * scale
+
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    tx = init_optimizer("Adam", 1e-4)
+    state = JaxTrainState(params=params, batch_stats=variables["batch_stats"],
+                          opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
+    jckpt = tmp_path / "jax_fold_0.tar"
+    jax_ckpt.save_checkpoint(str(jckpt), state, epoch=1, val_loss=0.5)
+    real = jax_driver.create_train_state
+    jax_driver.create_train_state = lambda *args: state
+    try:
+        jcfg = JaxConfig(model=JaxModelConfig(architecture="ResidualUNet", width=4),
+                         data=JaxDataConfig(input_img="unused", classes=CLASSES))
+        jart = JE.export_inference(jcfg, "segmentation", str(jckpt), tmp_path / "jax",
+                                   buckets=(2,), size=SIZE, platforms=("cpu",))
+    finally:
+        jax_driver.create_train_state = real
+    with np.load(jart / "weights.npz") as zj:
+        assert set(zj.files) == set(flat)
+        for k in zj.files:
+            np.testing.assert_array_equal(zj[k], flat[k])
+    got = ArtifactBackend(str(jart), device="cpu").predict(images)
+    assert np.abs(got - want).max() <= 1e-4 * scale
+    # a JAX flax-msgpack checkpoint of it loads with its batch statistics
+    served = CheckpointBackend(cfg, "segmentation", checkpoint=str(jckpt), size=SIZE,
+                               device="cpu")
+    assert all(torch.equal(b, dict(served.model.named_buffers())[k])
+               for k, b in model.named_buffers())
+
+
+@pytest.mark.parametrize("arch", ["UNet", "AttentionUNet", "SegResNet", "SwinUNETR"])
+def test_seg_zoo_artifact_equals_the_live_backend(arch, tmp_path):
+    """The MONAI twins and SwinUNETR through ``serve export``: the program
+    answers as the live backend does (1e-5 of scale, as the flagship's).
+    SwinUNETR's relative-position index and shift masks, first made inside
+    the trace, become real constants of the program."""
+    from multi_task_breast_cancer_tpu_torch.models import swin_unetr
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_segmentation_model
+
+    swin_unetr._CONSTANTS.clear()
+    model = init_segmentation_model(arch, width=4, size=SIZE,
+                                    generator=torch.Generator().manual_seed(7))
+    ckpt = tmp_path / "model_fold_0.tar"
+    save_checkpoint(str(ckpt), create_train_state(model, "Adam", 1e-4), epoch=1, val_loss=0.5)
+    cfg = Config(model=ModelConfig(architecture=arch, width=4),
+                 data=DataConfig(input_img="unused", classes=CLASSES))
+    art = E.export_inference(cfg, "segmentation", str(ckpt), tmp_path / "art", buckets=(2,),
+                             size=SIZE, platforms=("cpu",))
+    images = _images(3, 8)
+    want = CheckpointBackend(cfg, "segmentation", checkpoint=str(ckpt), size=SIZE,
+                             device="cpu").predict(images)
+    got = ArtifactBackend(str(art), device="cpu").predict(images)
+    assert got.shape == (3, SIZE, SIZE, 1)
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, float(np.abs(want).max()))
+    program = torch.export.load(art / E.program_name(2, "cpu"))
+    assert len(program.state_dict) == 0
+    assert (len(program.constants) > 0) == (arch == "SwinUNETR")

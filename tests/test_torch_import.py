@@ -1,6 +1,7 @@
 """The port's importer of the reference's PyTorch checkpoints
 (``models/torch_import.py``) against the JAX importer, for the nnU-Net
-family, the BTS family and Adityan.
+family, the BTS family, ResidualUNet (parameters and running statistics) and
+Adityan; and the weight bridge's batch statistics and transposed kernels.
 
 The nnU-Net family's reference ``state_dict`` is built here from the
 reference's layer names and shapes at narrow widths, with seeded tensors (no
@@ -92,7 +93,7 @@ def test_convert_matches_the_jax_importer(arch, deep_supervision):
     sd = reference_state_dict(arch)
     params, stats = jax_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision)
     assert stats == {}
-    want = params_from_jax(params)
+    want = params_from_jax(params, _port_model(arch, deep_supervision))
     got = torch_import.convert_state_dict(arch, sd)
     assert sorted(got) == sorted(want)
     for name in want:
@@ -108,8 +109,11 @@ def test_convert_matches_the_jax_importer(arch, deep_supervision):
 
 @pytest.mark.parametrize("arch", ["ResidualUNet"])
 def test_the_rest_of_the_zoo_waits_for_its_models(arch):
-    assert arch in jax_import._MAPPERS
-    with pytest.raises(NotImplementedError, match="the rest of the zoo"):
+    """Nothing waits any more: the port maps every architecture the JAX
+    importer maps, ResidualUNet included, and an empty ``state_dict`` is a
+    missing key, not a missing model."""
+    assert arch in jax_import._MAPPERS and set(torch_import._MAPPERS) == set(jax_import._MAPPERS)
+    with pytest.raises(KeyError, match="not found while importing 'ResidualUNet'"):
         torch_import.convert_state_dict(arch, {})
 
 
@@ -148,7 +152,7 @@ def test_zoo_convert_matches_the_jax_importer(arch, deep_supervision):
     params, stats = jax_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision,
                                                   width=ZOO_WIDTH)
     assert stats == {}
-    want = params_from_jax(params)
+    want = params_from_jax(params, _zoo_model(arch, deep_supervision))
     got = torch_import.convert_state_dict(arch, sd, deep_supervision=deep_supervision,
                                           width=ZOO_WIDTH)
     assert sorted(got) == sorted(want)
@@ -230,3 +234,93 @@ def test_cli_imports_a_flatten_head_at_its_size(tmp_path):
     assert all(torch.equal(loaded.state_dict()[k], v) for k, v in want.items())
     with pytest.raises(ValueError, match="shape mismatch"):
         torch_import.main(argv + ["--out", str(tmp_path / "out128")])
+
+
+def test_residual_unet_convert_matches_the_jax_importer(tmp_path):
+    """Parameters and running statistics, tensor for tensor equal to
+    ``params_from_jax`` of JAX's ``(params, batch_stats)``; the reference's
+    ``num_batches_tracked`` and dead ``decoder.conv1-3`` dropped as JAX drops
+    them; the CLI's checkpoint carries the running statistics."""
+    sd = zoo_reference_state_dict("ResidualUNet", False)
+    sd = {k: v.abs() + 0.5 if k.endswith("running_var") else v for k, v in sd.items()}
+    for k in [k for k in sd if k.endswith("running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(12)
+    for i in (1, 2, 3):
+        sd[f"decoder.conv{i}.weight"] = torch.ones(1, 1, 3, 3)
+    params, stats = jax_import.convert_state_dict("ResidualUNet", sd, width=ZOO_WIDTH)
+    model = _zoo_model("ResidualUNet", False)
+    want = params_from_jax({"params": params, "batch_stats": stats}, model)
+    got = torch_import.convert_state_dict("ResidualUNet", sd, width=ZOO_WIDTH)
+    assert sorted(got) == sorted(want) == sorted(model.state_dict())
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(got["up_block1.bn2.bn.var"], sd["decoder.up_block1.bn2.running_var"])
+    assert torch.equal(got["in_block.bn1.bn.scale"], sd["in_block.bn1.weight"])
+
+    ref = tmp_path / "ref_fold_0"
+    torch.save({"epoch": 3, "val_loss": 0.25, "model_state_dict": sd}, ref)
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(config_to_yaml(Config(model=ModelConfig(architecture="ResidualUNet",
+                                                           width=ZOO_WIDTH))))
+    torch_import.main(["--config", str(cfg), "--task", "segmentation", "--torch-checkpoint",
+                       str(ref), "--out", str(tmp_path / "out"), "--device", "cpu"])
+    loaded = load_pretrained_model(create_train_state(_zoo_model("ResidualUNet", False),
+                                                      "Adam", 1e-3), str(tmp_path / "out")).model
+    assert all(torch.equal(loaded.state_dict()[k], v) for k, v in got.items())
+
+
+def test_batch_stats_bridge_both_ways():
+    """``batch_stats/<path>/mean|var`` (nested, or flat as a JAX artifact's
+    ``weights.npz`` writes it) ↔ the buffers ``<path>.mean|var``; a
+    ``flat_jax_weights`` dump lists them under ``batch_stats/``."""
+    from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
+        flat_jax_weights,
+        variables_to_jax,
+    )
+
+    model = registry.init_segmentation_model("ResidualUNet", width=ZOO_WIDTH,
+                                             generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    for buf in model.buffers():
+        buf.copy_(torch.rand(buf.shape, generator=gen))
+    flat = flat_jax_weights(model.state_dict(), model)
+    stats = {k for k in flat if k.startswith("batch_stats/")}
+    assert "batch_stats/in_block/bn1/bn/var" in stats
+    assert len(stats) == len(list(model.buffers())) == 2 * 20
+    assert all(k.startswith("params/") for k in set(flat) - stats)
+    variables = variables_to_jax(model.state_dict(), model)
+    assert set(variables) == {"params", "batch_stats"}
+    for tree in (flat, variables):
+        back = params_from_jax(tree, model)
+        assert sorted(back) == sorted(model.state_dict())
+        assert all(torch.equal(back[k], v) for k, v in model.state_dict().items())
+
+
+def test_transposed_kernels_found_by_type_not_name():
+    """Which 4-D kernel is a transposed conv is read from the model's
+    modules: UNet's ``up1.conv``, AttentionUNet's ``up1`` and SwinUNETR's
+    ``decoder1.up`` are transposed; a plain conv named ``upsample`` is not."""
+    from torch import nn
+
+    from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
+        transposed_convs,
+        variables_to_jax,
+    )
+
+    assert {"up1.conv", "up2.conv", "up3.conv"} <= transposed_convs(
+        registry.init_segmentation_model("UNet", width=ZOO_WIDTH))
+    assert "up1" in transposed_convs(registry.init_segmentation_model("AttentionUNet",
+                                                                      width=ZOO_WIDTH))
+    assert "decoder1.up" in transposed_convs(registry.init_segmentation_model(
+        "SwinUNETR", size=ZOO_SIZE))
+    holder = nn.Module()
+    holder.upsample = nn.Conv2d(2, 3, 2)
+    holder.up = nn.ConvTranspose2d(2, 3, 2, stride=2)
+    assert transposed_convs(holder) == {"up"}
+    params = variables_to_jax(holder.state_dict(), holder)["params"]
+    hwio = np.asarray(holder.upsample.weight.detach()).transpose(2, 3, 1, 0)
+    np.testing.assert_array_equal(params["upsample"]["kernel"], hwio)  # a conv's layout
+    flipped = np.asarray(holder.up.weight.detach()).transpose(2, 3, 0, 1)[::-1, ::-1]
+    np.testing.assert_array_equal(params["up"]["kernel"], flipped)
+    back = params_from_jax(params, holder)
+    assert all(torch.equal(back[k], v) for k, v in holder.state_dict().items())

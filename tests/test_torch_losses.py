@@ -138,10 +138,12 @@ def test_fused_dice_skips_the_target_gradient_when_not_needed():
 
 
 def test_unported_segmentation_criteria_raise():
+    """Every criterion of the factory builds (the six besides DICE and BCE
+    are held against JAX in ``tests/test_torch_seg_losses.py``); an unknown
+    name raises, and so does a non-finite loss."""
     for name in ("Hausdorff", "GeneralizedDICE", "CrossentropyDICE", "FocalDICE",
                  "Jaccard", "FocalLoss"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            L.init_criterion_segmentation(name)
+        assert callable(L.init_criterion_segmentation(name))
     with pytest.raises(ValueError, match="allowed"):
         L.init_criterion_segmentation("NoSuchLoss")
     with pytest.raises(FloatingPointError):

@@ -61,7 +61,7 @@ def test_mtnnunet_forward_matches_jax(jax_mt, layout):
     params = (jax.tree_util.tree_map(np.asarray, variables["params"]) if layout == "nested"
               else _flatten_variables(variables))
     model = registry.init_multitask_model("MTnnUNet", **size_knobs_from_params(params))
-    model.load_state_dict(params_from_jax(params), strict=True)
+    model.load_state_dict(params_from_jax(params, model), strict=True)
     with torch.inference_mode():
         (cls,), seg = model(_nchw(x))
     assert len(seg) == 4
@@ -78,7 +78,7 @@ def test_nnunet_segmentation_forward_matches_jax():
     x = _images(seed=1)
     want = jmodel.apply(variables, jnp.asarray(x))
     model = registry.init_segmentation_model("nnUNet", regions=3, nnunet_widths=WIDTHS)
-    model.load_state_dict(params_from_jax(variables["params"]), strict=True)
+    model.load_state_dict(params_from_jax(variables["params"], model), strict=True)
     with torch.inference_mode():
         got = model(_nchw(x))
     for g, w in zip(got, want):
@@ -98,7 +98,7 @@ def test_deconv_and_deconv_head_tap_flip(kernel):
     dv = jdeconv.init(jax.random.PRNGKey(kernel), jnp.asarray(x))
     want = np.asarray(jdeconv.apply(dv, jnp.asarray(x)))
     deconv = blocks.deconv(3, 4, kernel)
-    sd = params_from_jax({"upsample1": dv["params"]})
+    sd = params_from_jax({"upsample1": dv["params"]}, {"upsample1"})
     deconv.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
     with torch.inference_mode():
         np.testing.assert_allclose(_nhwc(deconv(_nchw(x))), want, rtol=0, atol=1e-5)
@@ -109,7 +109,7 @@ def test_deconv_and_deconv_head_tap_flip(kernel):
         lambda a: a + 0.1 if a.ndim == 1 else a, hv)
     want = np.asarray(jhead.apply(hv, jnp.asarray(x)))
     head = blocks.DeconvHead(3, 2, kernel)
-    sd = params_from_jax({"output": hv["params"]})
+    sd = params_from_jax({"output": hv["params"]}, ())
     head.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
     with torch.inference_mode():
         got = head(_nchw(x))
@@ -131,11 +131,14 @@ def test_params_to_jax_inverts_params_from_jax(jax_mt, tree):
     ``deconv_kernel`` and ``conv1x1_kernel``."""
     if tree == "MTnnUNet":
         params = jax.tree_util.tree_map(np.asarray, jax_mt[0]["params"])
+        model = registry.init_multitask_model("MTnnUNet", **size_knobs_from_params(params))
     else:
         x = jnp.zeros((1, 5, 6, 3))
         params = {"output": jax.tree_util.tree_map(
             np.asarray, jblocks.DeconvHead(3, 2, 4).init(jax.random.PRNGKey(3), x)["params"])}
-    back = params_to_jax(params_from_jax(params))
+        model = torch.nn.Module()
+        model.output = blocks.DeconvHead(3, 2, 4)
+    back = params_to_jax(params_from_jax(params, model), model)
     want = jax.tree_util.tree_leaves_with_path(params)
     got = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in got] == [p for p, _ in want]
@@ -153,7 +156,7 @@ def test_full_width_parameter_count_and_layout():
     shapes = jax.eval_shape(JaxMTnnUNet().init, jax.random.PRNGKey(0),
                             jax.ShapeDtypeStruct((1, 128, 128, 1), jnp.float32))
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes["params"])
-    converted = params_from_jax(zeros)
+    converted = params_from_jax(zeros, model)
     assert {k: tuple(v.shape) for k, v in converted.items()} == \
            {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert size_knobs_from_params(zeros) == {"nnunet_widths": (32, 64, 128, 256, 320)}
@@ -182,8 +185,11 @@ def test_init_is_seeded_and_matches_jax_scales():
     (registry.init_segmentation_model, "SwinUNETR"),
 ])
 def test_unported_architectures_raise(factory, arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        factory(arch)
+    """These architectures build and answer a 32² batch with one full-size
+    map (held against JAX in ``tests/test_torch_seg_zoo.py``)."""
+    model = factory(arch, width=4, size=32).eval()
+    with torch.inference_mode():
+        assert model(torch.zeros(1, 1, 32, 32)).shape == (1, 1, 32, 32)
 
 
 def test_unknown_architecture_and_bad_widths_raise():

@@ -203,10 +203,15 @@ def test_unported_options_raise(artifact, tmp_path):
     with pytest.raises(ValueError, match="No checkpoint found"):
         CheckpointBackend(_port_cfg(), "multitask", checkpoint=str(tmp_path / "absent"),
                           device="cpu")
-    cfg = Config(model=ModelConfig(architecture="ResidualUNet"),
+    # ResidualUNet is served in eval mode: an answer moves none of its batch
+    # statistics
+    cfg = Config(model=ModelConfig(architecture="ResidualUNet", width=4),
                  data=DataConfig(input_img="unused", classes=CLASSES))
-    with pytest.raises(NotImplementedError, match="ResidualUNet"):
-        CheckpointBackend(cfg, "segmentation", device="cpu")
+    backend = CheckpointBackend(cfg, "segmentation", size=SIZE, device="cpu")
+    stats = {k: v.clone() for k, v in backend.model.named_buffers()}
+    out = backend.predict(np.zeros((2, SIZE, SIZE, 1), np.uint8))
+    assert out.shape == (2, SIZE, SIZE, 1) and not backend.model.training
+    assert all(torch.equal(v, dict(backend.model.named_buffers())[k]) for k, v in stats.items())
 
 
 def test_checkpoint_backend_serves_a_training_checkpoint(tmp_path):

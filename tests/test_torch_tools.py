@@ -67,7 +67,7 @@ def setup(tmp_path_factory):
     root = tmp_path_factory.mktemp("tools")
     port = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
                                 generator=torch.Generator().manual_seed(11))
-    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict()))
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port.state_dict(), port))
     tx = jax_optimizer("Adam", 1e-3)
     state = JaxTrainState(params=params, batch_stats={}, opt_state=tx.init(params),
                           step=jnp.zeros((), jnp.int32))

@@ -129,7 +129,7 @@ def _jax_init(arch: str, ds: bool):
     for path and shape for shape) and the JAX forward on ``_images()``."""
     model, port = MODELS[arch](ds)
     init_weights(port, torch.Generator().manual_seed(len(arch)))
-    params = params_to_jax(port.state_dict())
+    params = params_to_jax(port.state_dict(), port)
     assert _paths(params) == _paths(_jax_shapes(model))
     out = jax.jit(model.apply)({"params": params}, jnp.asarray(_images()))
     return params, jax.tree_util.tree_map(np.asarray, out)
@@ -137,7 +137,7 @@ def _jax_init(arch: str, ds: bool):
 
 def _port(arch: str, ds: bool, params) -> torch.nn.Module:
     _, model = MODELS[arch](ds)
-    model.load_state_dict(params_from_jax(params), strict=True)
+    model.load_state_dict(params_from_jax(params, model), strict=True)
     return model.eval()
 
 
@@ -197,7 +197,7 @@ def test_full_width_parameters_match_jax(arch):
     model = getattr(registry, f"init_{task}_model")(arch, width=24, **kw)
     assert registry.count_parameters(model) == chip_smoke.ZOO_PARAMETERS[arch] == sum(
         a.size for a in jax.tree_util.tree_leaves(zeros))
-    assert {k: tuple(v.shape) for k, v in params_from_jax(zeros).items()} == \
+    assert {k: tuple(v.shape) for k, v in params_from_jax(zeros, model).items()} == \
            {k: tuple(v.shape) for k, v in model.state_dict().items()}
     sites = []
     hooks = [m.register_forward_hook(lambda *_: sites.append(1))
@@ -214,11 +214,11 @@ def test_params_to_jax_inverts_params_from_jax(arch):
     """Leaf for leaf, path for path, on the JAX ``init``'s own tree filled
     with seeded values; the affine norms' ``scale``/``bias`` and the UpCat /
     Adityan ``upsample`` deconvs included."""
-    model, _ = MODELS[arch](arch not in NO_DS)
+    model, port = MODELS[arch](arch not in NO_DS)
     rng = np.random.default_rng(len(arch))
     params = jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32), _jax_shapes(model))
-    back = params_to_jax(params_from_jax(params))
+    back = params_to_jax(params_from_jax(params, port), port)
     want = jax.tree_util.tree_leaves_with_path(params)
     got = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in got] == [p for p, _ in want]
@@ -245,7 +245,7 @@ def test_size_knobs_read_from_weights(arch, ds):
     model = factory(arch, **knobs, **size)
     if "UNet" in arch or "Unet" in arch:
         return  # fixed full-width features: nothing narrower to rebuild
-    model.load_state_dict(params_from_jax(params), strict=True)
+    model.load_state_dict(params_from_jax(params, model), strict=True)
 
 
 def test_registry_knobs(caplog):
@@ -288,9 +288,10 @@ def _as_jax(ds):
     return JaxDataset(**vars(ds))
 
 
-def _jax_grad(engine, state, fold, rows):
+def _jax_grad(engine, state, fold, rows, target):
     """``jax.grad`` of the JAX Engine's own forward and losses on the batch
-    ``rows`` of ``fold``: the gradient its first step applies."""
+    ``rows`` of ``fold``: the gradient its first step applies, as the port
+    model ``target``'s tensors."""
     from flax.core import FrozenDict
 
     data = engine.device_data(_as_jax(fold))
@@ -303,7 +304,7 @@ def _jax_grad(engine, state, fold, rows):
         return engine._losses(out, msks, ctgt)[0]
 
     return params_from_jax(jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss))(
-        state.params)))
+        state.params)), target)
 
 
 def _record_first_step(state) -> dict:
@@ -400,7 +401,7 @@ def test_engine_step_matches_jax_engine(arch, ds):
     fold = _fold(4, 0, size=SIZE)
     perm = np.array([2, 0], np.int32)
     jengine, jstate = _jax_engine(arch, ds)
-    jgrads = _jax_grad(jengine, jstate, fold, perm)
+    jgrads = _jax_grad(jengine, jstate, fold, perm, MODELS[arch](ds)[1])
     jstate, jm = jengine.train_epoch(jstate, jengine.device_data(_as_jax(fold)), perm,
                                      jax.random.PRNGKey(1))
     params, _ = _jax_init(arch, ds)
@@ -435,7 +436,7 @@ def test_engine_step_matches_jax_engine(arch, ds):
     assert not _adam_faults(moved, jgrads, eps, update_tol)
     for wrong in (torch.zeros_like(moved[live]), -moved[live]):
         assert _adam_faults({**moved, live: wrong}, jgrads, eps, update_tol) == [live]
-    final = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    final = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params), state.model)
     sd = state.model.state_dict()
     assert max((sd[k] - v).abs().max().item() for k, v in final.items()) <= update_tol
 
