@@ -83,6 +83,29 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    ``/predict_batch`` of 64 as ``ArtifactBackend`` does directly; images/s
    and latency of artifact and live backends, f32 and bf16, and the download
    bytes per image;
+7c. data parallelism, a main path (``phase_parallel``; ranks are processes
+   of their own over ``torch.distributed``): ``training_multitask
+   --coordinator --num-processes 1 --process-id 0`` (NCCL, one rank) beside
+   the same run in this process without a process group, metrics rows
+   bit-identical; MTnnUNet at full width, batch 4 over two ranks on the one
+   card over Gloo (fast augmentation, 4 real steps and a padding step):
+   #1/#2/#3 launched 25/25/1 per real step on each rank and none on the
+   padding step, losses and parameters against one process (the first
+   step's loss to 1e-5, the others to 1e-3; the parameters by phase 7's
+   rule), the augmented rows byte-equal, parameters and buffers
+   bit-identical across the ranks, the step-0 gradient after the all-reduce
+   equal to one process's sum of the shards' shares and their f64 sum equal
+   to the global batch's f64 gradient; ResidualUNet the same way (running
+   statistics after the first step within 1e-5 of their scale, dropout
+   masks the single-process rows bit for bit); batch 2 over three ranks with
+   one empty shard (no launch on it); NCCL over two cards when two are
+   visible (else a line says why not); ``CheckpointBackend`` with two
+   replicas on the card (``max_batch`` rounded up, exactly one replica's
+   answer, 25 launches per replica) and ``ExportedModel`` over 7b's f32
+   artifact with two replicas (one replica's answer to 1e-4 of scale, its
+   plan = JAX's rule, 25 launches per bucket execution); the gradient
+   all-reduce's time under Gloo and NCCL (one rank) and the two-rank step
+   beside the one-process step, with the card's name and power limit;
 8. driver, a main path: ``run_experiment(cfg, "multitask", "CV")`` at the
    ``Config()`` defaults on a 450-image 128² synthetic BUSI tree (CV 2, 2
    epochs), the ``training_multitask`` CLI in a process of its own, a killed
@@ -149,7 +172,8 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    the norm kernels' per-architecture launches counted on the card, sites,
    and times and bounds summed over the sites (``sites_*``, 9a), and under
    ``seg_zoo`` each kernel's launches per seg-zoo architecture (9b: 0 for
-   #1 and #2; #3 per four steps, with the forward and step ms); then, last,
+   #1 and #2; #3 per four steps, with the forward and step ms), under
+   ``parallel`` 7c's launches per rank of each multi-rank run; then, last,
    ``{"ok": true, "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
@@ -3295,6 +3319,683 @@ def phase_seg_zoo() -> tuple:
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 9c: data parallelism
+# --------------------------------------------------------------------------
+
+PARALLEL_B, PARALLEL_STEPS = 4, 4           # batch 4 (2 rows a rank), 4 real steps
+PARALLEL_TREE_PER_CLASS = 8                 # the 1-rank NCCL CLI run: 24 images, CV 2, 1 epoch
+MTNNUNET_PARAMETERS = 15_819_799            # a step's gradient all-reduce: 63.3 MB of f32
+STATS_REL_TOL = 1e-5                        # running statistics, of their scale (as tests/test_torch_seg_zoo.py)
+# losses of the ranks against one process: the first step's (equal weights;
+# only the order of the sums differs) and the later ones' (the weights
+# differ then by Adam's steps on gradients that differ in their last digits,
+# up to lr a step for a gradient near zero); the weights after the steps by
+# phase 7's rule (LR_STEPS_BOUND and PARAM_REL_TOL)
+FIRST_LOSS_REL_TOL, LATER_LOSS_REL_TOL = 1e-5, 1e-3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sync(device) -> None:
+    """Wait for ``device`` (a CUDA device; nothing to wait for on the CPU)."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _digest(state_dict) -> str:
+    """sha256 of every tensor's bytes, in key order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().cpu().contiguous().view(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _parallel_model(arch: str, mesh):
+    """Full-width ``arch`` from generator seed 0; ranks other than 0 move
+    their weights first, which ``replicate_to_mesh`` must undo."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    model = (init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
+             if arch == "MTnnUNet" else seg_zoo_model(arch))
+    if mesh is not None and mesh.rank:
+        gen = torch.Generator().manual_seed(100 + mesh.rank)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_STEPS,
+                  fast: bool = True) -> dict:
+    """``steps`` real steps of batch ``b`` and a padding step through the
+    Engine at the ``Config()`` defaults, one process (``mesh=None``, on
+    ``DEVICE``) or this rank of ``mesh``: per step the loss, the kernels'
+    launches and the host-clock ms; the augmented rows; the first step's
+    gradient (after the all-reduce); dropout masks (bit-packed rows); the
+    state's digest and running statistics."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.models.blocks import Dropout
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import replicate_to_mesh
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine, plan_epoch_indices
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    device = mesh.device if mesh is not None else torch.device(DEVICE)
+    torch.backends.cudnn.deterministic = True  # as phase 7 compares runs; reset at the end
+    cfg = Config()
+    cfg.data.batch_size = b
+    task = "multitask" if arch == "MTnnUNet" else "segmentation"
+    engine = Engine(_parallel_model(arch, mesh),
+                    _engine_config(cfg, task=task, fast_augmentation=fast),
+                    device=device, mesh=mesh)
+    state = replicate_to_mesh(mesh, create_train_state(engine.model, cfg.optimizer.opt,
+                                                       cfg.optimizer.lr))
+    n = b * steps
+    fold = synthetic_fold(n, 40)
+    train = engine.device_data(fold)
+    rows, masks, grads = [], [], {}
+    augmented = engine._augmented_batch
+
+    def record_rows(*args, **kwargs):
+        imgs, msks = augmented(*args, **kwargs)
+        rows.append((imgs.cpu(), msks.cpu()))
+        return imgs, msks
+
+    engine._augmented_batch = record_rows
+    for m in engine.model.modules():
+        if isinstance(m, Dropout):
+            m.register_forward_hook(lambda mod, i, o: masks.append(
+                ((o == 0) & (i[0] != 0)).cpu()) if mod.training else None)
+    named, opt_step = dict(engine.model.named_parameters()), state.optimizer.step
+
+    def record_grads(*args, **kwargs):
+        if not grads:
+            grads.update({k: p.grad.detach().double().cpu() for k, p in named.items()
+                          if p.grad is not None})
+        return opt_step(*args, **kwargs)
+
+    state.optimizer.step = record_grads
+    perm = plan_epoch_indices(n, b, np.random.default_rng(0))
+    gen = torch.Generator().manual_seed(0)
+    drop = torch.Generator(device=device).manual_seed(1)
+    losses, launches, step_ms, stats = [], [], [], []
+    for k in range(steps):
+        _sync(device)
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, tm = engine.train_epoch(state, train, perm[k * b:(k + 1) * b], gen,
+                                       dropout_generator=drop)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_counts())
+        losses.append(tm["loss"])
+        stats.append({k: v.detach().cpu().clone() for k, v in engine.model.named_buffers()})
+    before = _snapshot(state)
+    _reset_counts()
+    engine.train_epoch(state, train, perm[:b], gen, np.zeros(1, np.float32), drop)
+    _sync(device)
+    torch.backends.cudnn.deterministic = False
+    return {"losses": losses, "launches": launches, "step_ms": step_ms,
+            "pad": _counts(), "pad_noop": _same_state(before, _snapshot(state)),
+            "rows": rows, "grads": grads if mesh is None or mesh.rank == 0 else None,
+            "masks": [np.packbits(m.numpy()) for m in masks],
+            "digest": _digest(state.model.state_dict()), "stats": stats,
+            "params": ({k: p.detach().cpu().clone() for k, p in engine.model.named_parameters()}
+                       if mesh is None or mesh.rank == 0 else None),
+            "targets": fold.labels[perm[:b]], "perm0": perm[:b]}
+
+
+def _allreduce_ms(mesh, reps: int = 5) -> float:
+    """Median host-clock ms of one all-reduce of a step's gradient (the
+    MTnnUNet's 15,819,799 f32) over ``mesh``, between synchronisations."""
+    import torch
+    flat = torch.ones(MTNNUNET_PARAMETERS, device=mesh.device)
+    times = []
+    for i in range(reps + 2):
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        mesh.all_reduce_sum(flat)
+        _sync(mesh.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(bool((flat == float(mesh.world_size) ** (reps + 2)).all()),
+          f"the all-reduce over {mesh.world_size} ranks summed wrong")
+    return statistics.median(times[2:])
+
+
+def parallel_rank() -> None:
+    """A rank of the phase's process group (started by :func:`_run_ranks`):
+    ``python -c "import chip_smoke; chip_smoke.parallel_rank()" CASE RANK
+    WORLD PORT OUT BACKEND DEVICE``."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.parallel import multihost
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_mesh
+
+    case, rank, world, port, out, backend, device = sys.argv[1:8]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank), backend=backend,
+                         timeout_s=300)
+    mesh = data_mesh(device=device)
+    if case == "steps":
+        result = {arch: _parallel_run(arch, mesh) for arch in ("MTnnUNet", "ResidualUNet")}
+        result["allreduce_ms"] = _allreduce_ms(mesh)
+    elif case == "steps_mtnnunet":
+        result = {"MTnnUNet": _parallel_run("MTnnUNet", mesh),
+                  "allreduce_ms": _allreduce_ms(mesh)}
+    else:  # "empty": batch 2 over 3 ranks, one step
+        result = {"MTnnUNet": _parallel_run("MTnnUNet", mesh, b=2, steps=1, fast=False)}
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _run_ranks(case: str, world: int, backend: str, devices: list, work: str) -> list:
+    """``case`` on ``world`` ranks, each a process of its own on its device
+    of ``devices``; every rank's result, rank by rank. A rank that fails
+    stops the others and fails the phase."""
+    import torch
+    out = os.path.join(work, f"{case}_{backend}_{world}")
+    os.makedirs(out, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               "import chip_smoke; chip_smoke.parallel_rank()", case, str(r),
+                               str(world), str(port), out, backend, devices[r]],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{case}: rank {r} of {world} ({backend}) exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _parallel_grad_check(what: str, arch: str, single: dict, ranks_grads: dict, b: int,
+                         world: int) -> None:
+    """The ranks' step-0 gradient after the all-reduce. Computed here on the
+    card from the same weights and rows (cuDNN deterministic): the sum of
+    each shard's share with the kernels, as one process computes it at the
+    ranks' shapes; the same with the plain norm; the same in f64; and a
+    float64 gradient of the global batch (the plain-norm model in f64).
+    Held: the ranks' gradient within 1e-4 of each tensor's scale of this
+    process's sum of shares (the all-reduce adds them; so the ranks compute
+    what one process computes for those rows), and the shares in f64 adding
+    up to the global f64 gradient within 1e-9 of each tensor's scale (the
+    split is the global batch's gradient). Logged, not held: each f32
+    gradient's distance to f64, and the tensors where ``zoo_gradients``'
+    rule (1e-4 of the scale or twice the plain-norm distance) fails. That
+    rule does not hold on these rows for either f32 model: one element on
+    the other side of the LeakyReLU's kink than in f64 moves the first
+    layers' weight gradients, sums over raw 0-255 intensities that cancel,
+    by ~1 % of their scale, and which model hits one depends on the batch
+    (on an H100, the kernels' model at batch 2 sat 3e-5 from f64 where the
+    plain norm's sat 8e-4; at batch 4 both 1.3 %; each norm site's kernels
+    equal f64 to 2e-7 of the gradient's scale at batches 1, 2 and 4)."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import shard_slice
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine, make_cls_targets
+
+    cfg = Config()
+    cfg.data.batch_size = b
+    imgs, msks = single["rows"][0]
+    targets = torch.from_numpy(make_cls_targets(np.asarray(single["targets"]), 3))
+
+    def gradient(dtype, plain: bool, sharded: bool) -> dict:
+        model = _parallel_model(arch, None)
+        model = (plain_twin(model) if plain else model).to(DEVICE, dtype)
+        engine = Engine(model, _engine_config(cfg, use_transforms=False), device=DEVICE)
+        x, m, t = (a.to(DEVICE, dtype) for a in (imgs, msks, targets))
+        if not sharded:  # the global batch's loss, as one process takes it
+            engine._losses(model(x), m, t)[0].backward()
+        for sl in ([shard_slice(b, world, r) for r in range(world)] if sharded else []):
+            out = model(x[sl])
+            loss, _ = engine._loss_shares(out, m[sl], t[sl], sl.stop - sl.start, b)
+            loss.backward()
+        return {k: p.grad.double().cpu() for k, p in model.named_parameters()
+                if p.grad is not None}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        g64 = gradient(torch.float64, True, False)
+        shares64 = gradient(torch.float64, True, True)
+        shares = gradient(torch.float32, False, True)
+        plain_shares = gradient(torch.float32, True, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    largest = max(g.abs().max().item() for g in g64.values())
+    live = {k: g for k, g in g64.items() if g.abs().max().item() > ZERO_GRAD_REL * largest}
+    check(set(ranks_grads) == set(g64) == set(single["grads"]),
+          f"{what}: the gradients cover other tensors")
+    split = max((shares64[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for k, g in live.items())
+    check(split <= 1e-9, f"{what}: the shards' shares in f64 add up to {split:.3g} of a "
+                         f"tensor's scale from the global batch's f64 gradient")
+    worst = {"ranks vs this process's shares": 0.0, "ranks vs f64": 0.0,
+             "plain-norm shares vs f64": 0.0, "one process's batch vs f64": 0.0}
+    bad, zoo_rule = [], []
+    for k, g in live.items():
+        scale = g.abs().max().item()
+        d_sum = (ranks_grads[k] - shares[k]).abs().max().item()
+        d_ranks = (ranks_grads[k] - g).abs().max().item()
+        d_plain = (plain_shares[k] - g).abs().max().item()
+        d_batch = (single["grads"][k] - g).abs().max().item()
+        for name, d in zip(worst, (d_sum, d_ranks, d_plain, d_batch)):
+            worst[name] = max(worst[name], d / scale)
+        if d_ranks > max(GRAD_REL_TOL * scale, 2 * d_plain):
+            zoo_rule.append((k.replace("backbone.", "").replace(".conv.weight", ""),
+                             *(f"{d / scale:.2g}" for d in (d_ranks, d_plain, d_batch))))
+        if d_sum > GRAD_REL_TOL * scale:
+            bad.append((k, d_sum / scale))
+    log(f"  {what}: step-0 gradient after the all-reduce, {len(live)} tensors "
+        f"({len(g64) - len(live)} with a zero f64 gradient left out); the shards' shares in "
+        f"f64 add up to the batch's f64 gradient within {split:.3g} of each tensor's scale; "
+        f"max distances of that scale: " + ", ".join(f"{n} {v:.3g}" for n, v in worst.items())
+        + f"; zoo_gradients' rule fails on {len(zoo_rule)} tensors (the kernels' shares, the "
+        f"plain-norm shares, one process's kernel batch, vs f64): {zoo_rule}")
+    check(not bad, f"{what}: the all-reduced gradient is not the sum of the shards' shares "
+                   f"(tensor, distance of its scale): {bad[:3]}")
+
+
+def _check_ranks(what: str, arch: str, ranks: list, single: dict, b: int, world: int,
+                 per_step: tuple) -> list:
+    """The ranks against one process: launches as the shard sizes predict
+    (``per_step`` on a rank with rows, none on an empty one), losses and
+    parameters, the augmented rows, a bit-identical state across the ranks,
+    the padding step a no-op. Returns each rank's launches over the real
+    steps."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import shard_slice
+    per_rank = []
+    for r, res in enumerate(ranks):
+        sl = shard_slice(b, world, r)
+        rows = sl.stop - sl.start
+        want = per_step if rows else (0, 0, 0)
+        check(all(tuple(c) == want for c in res["launches"]),
+              f"{what}: rank {r} ({rows} rows) launched {res['launches']}, want {want} a step")
+        check(res["pad"] == (0, 0, 0) and res["pad_noop"],
+              f"{what}: rank {r}'s padding step launched {res['pad']} or moved the state")
+        for (imgs, msks), (want_i, want_m) in zip(res["rows"], single["rows"]):
+            check(torch.equal(imgs, want_i[sl]) and torch.equal(msks, want_m[sl]),
+                  f"{what}: rank {r}'s augmented rows differ from one process's")
+        rel = [abs(a - w) / abs(w) for a, w in zip(res["losses"], single["losses"])]
+        check(rel[0] <= FIRST_LOSS_REL_TOL and max(rel) <= LATER_LOSS_REL_TOL,
+              f"{what}: rank {r}'s losses {res['losses']} vs {single['losses']} (rel {rel})")
+        per_rank.append(tuple(sum(c[i] for c in res["launches"]) for i in range(3)))
+    check(len({res["digest"] for res in ranks}) == 1,
+          f"{what}: the ranks' parameters and buffers are not bit-identical")
+    init = _parallel_model(arch, None).state_dict()
+    got, want = ranks[0]["params"], single["params"]
+    update = torch.cat([(want[k] - init[k]).flatten() for k in want])
+    diff = torch.cat([(got[k] - want[k]).flatten() for k in want])
+    steps, lr = len(single["losses"]), Config().optimizer.lr
+    moved = (diff.norm() / update.norm()).item()
+    check(diff.abs().max().item() <= steps * 2 * lr and moved <= PARAM_REL_TOL,
+          f"{what}: parameters after {steps} steps {diff.abs().max().item():.3g} from one "
+          f"process's (bound {steps * 2 * lr:g}), {moved:.3g} of the update's norm")
+    rel = [abs(a - w) / abs(w) for a, w in zip(ranks[0]["losses"], single["losses"])]
+    log(f"  {what}: launches per rank over {steps} real steps {per_rank} (#1, #2, #3), none on "
+        f"the padding step; losses {[f'{v:.7f}' for v in ranks[0]['losses']]} vs one process "
+        f"{[f'{v:.7f}' for v in single['losses']]}, rel {[f'{v:.2g}' for v in rel]} (tol "
+        f"{FIRST_LOSS_REL_TOL:g} the first, {LATER_LOSS_REL_TOL:g} the others); parameters "
+        f"{diff.abs().max().item():.3g} at most from one process's (bound {steps * 2 * lr:g}), "
+        f"the update's difference {moved:.3g} of its L2 norm (tol {PARAM_REL_TOL}); augmented "
+        f"rows byte-equal; parameters and buffers bit-identical across the {world} ranks")
+    return per_rank
+
+
+def _stats64(single: dict) -> dict:
+    """ResidualUNet's running statistics after the first step in float64:
+    the seeded weights in f64 on the card, one training-mode forward of the
+    first step's rows with the first step's dropout masks (the same
+    generator, seed 1, on the card)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.blocks import dropout_draws
+    model = seg_zoo_model("ResidualUNet").to(DEVICE, torch.float64).train()
+    imgs, _ = single["rows"][0]
+    with torch.no_grad(), dropout_draws(model, torch.Generator(device=DEVICE).manual_seed(1)):
+        model(imgs.to(DEVICE, torch.float64))
+    return {k: v.cpu() for k, v in model.named_buffers()}
+
+
+def _check_stats_and_masks(ranks: list, single: dict, b: int, world: int) -> None:
+    """ResidualUNet's running statistics after the first step (the same
+    weights on both sides, so only the order of the global sums differs)
+    by ``tests/test_torch_seg_zoo.py``'s rule: within ``STATS_REL_TOL`` of their scale of one
+    process's, or no further from the float64 statistics than that and
+    than one process is; after the last step, logged (the weights then
+    differ by Adam's steps of gradients that differ in their last digits).
+    Every dropout mask of a rank is its rows of the single-process mask, bit
+    for bit."""
+    import numpy as np
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import shard_slice
+
+    stats64, first, by64 = _stats64(single), 0.0, 0
+    for res in ranks:
+        for k, want in single["stats"][0].items():
+            got, ref = res["stats"][0][k], stats64[k].float()
+            scale = max(1.0, ref.abs().max().item())
+            err = (got - want).abs().max().item() / scale
+            first = max(first, err)
+            if err > STATS_REL_TOL:
+                d_ranks = (got.double() - stats64[k]).abs().max().item() / scale
+                d_single = (want.double() - stats64[k]).abs().max().item() / scale
+                check(d_ranks <= min(STATS_REL_TOL, d_single),
+                      f"ResidualUNet: {k} after step 1 {err:.3g} of its scale from one "
+                      f"process's, {d_ranks:.3g} from f64 (one process {d_single:.3g})")
+                by64 += 1
+    last = max((res["stats"][-1][k] - want).abs().max().item()
+               / max(1.0, want.abs().max().item())
+               for res in ranks for k, want in single["stats"][-1].items())
+    n_masks = len(single["masks"])
+    for r, res in enumerate(ranks):
+        sl = shard_slice(b, world, r)
+        check(len(res["masks"]) == n_masks > 0,
+              f"ResidualUNet: rank {r} drew {len(res['masks'])} dropout masks, one process "
+              f"{n_masks}")
+        for got, want in zip(res["masks"], single["masks"]):
+            full = np.unpackbits(want)  # (b, C, H, W) flattened: a row is contiguous
+            per_row = full.size // b
+            check(np.array_equal(np.unpackbits(got)[:per_row * (sl.stop - sl.start)],
+                                 full[sl.start * per_row:sl.stop * per_row]),
+                  f"ResidualUNet: rank {r}'s dropout masks are not its rows of the global ones")
+    log(f"  ResidualUNet: running statistics {first:.3g} of their scale from one process's "
+        f"after step 1 (tol {STATS_REL_TOL}; {by64} tensors held by their f64 distance "
+        f"instead), {last:.3g} after step {PARALLEL_STEPS}; {n_masks} dropout masks per rank, "
+        f"each its rows of the single-process masks, bit for bit")
+
+
+def parallel_cli(work: str) -> tuple:
+    """``training_multitask`` with ``--coordinator --num-processes 1
+    --process-id 0`` (NCCL, one rank on the card) in a process of its own,
+    and the same run in this process without a process group: the metrics
+    rows of both folds bit-identical. Both runs take cuDNN's deterministic
+    algorithms (the CLI through a one-line wrapper of its ``main``), so that
+    the two processes sharing the card cannot reorder an atomic sum."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import config_to_yaml
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+    from multi_task_breast_cancer_tpu_torch.train.driver import run_experiment
+
+    root = make_preprocessed_busi(os.path.join(work, "busi_parallel"), size=SIZE, seed=3,
+                                  n_per_class=PARALLEL_TREE_PER_CLASS)
+    cfg = _driver_config(root, 2, 1)
+    cfg_path = os.path.join(work, "parallel.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(config_to_yaml(cfg))
+    cli = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+           "sys.argv[0] = 'training_multitask'; "
+           "from multi_task_breast_cancer_tpu_torch import training_multitask as m; m.main()")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", cli, "--config", cfg_path, "--run-root",
+         os.path.join(work, "nccl1"), "--coordinator", f"127.0.0.1:{_free_port()}",
+         "--num-processes", "1", "--process-id", "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        local = run_experiment(cfg, "multitask", "CV", run_root=os.path.join(work, "local"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    text = proc.communicate(timeout=600)[0]
+    check(proc.returncode == 0, f"training_multitask over NCCL exited {proc.returncode}:\n"
+                                f"{text[-3000:]}")
+    cli_s = time.perf_counter() - t0
+    check("Process group: rank 0 of 1 (nccl)" in text,
+          "the CLI run did not join a one-rank NCCL process group")
+    (run,) = os.listdir(os.path.join(work, "nccl1"))
+    run = os.path.join(work, "nccl1", run)
+    for fold in (0, 1):
+        a, b = _metric_rows(run, fold), _metric_rows(local, fold)
+        check(a == b, f"NCCL one-rank CLI run: fold {fold}'s rows {a} differ from the run "
+                      f"without a process group {b}")
+    log(f"  training_multitask --coordinator 127.0.0.1:PORT --num-processes 1 --process-id 0 "
+        f"(NCCL, one rank, {3 * PARALLEL_TREE_PER_CLASS} images, CV 2, 1 epoch, full widths) "
+        f"beside the same run in this process without a process group: metrics rows "
+        f"bit-identical; {cli_s:.1f} s for both")
+
+
+def _dp_rule(n: int, buckets: list, ndev: int):
+    """JAX's ``ExportedModel.predict`` rule (``serve/export.py`` of the JAX
+    package), transcribed: the rows per device when data parallelism wins,
+    else None."""
+    def plan(m):
+        out, i = [], 0
+        while i < m:
+            take = min(m - i, buckets[-1])
+            out.append(next(x for x in buckets if x >= take))
+            i += take
+        return out
+    if ndev <= 1 or n <= buckets[0]:
+        return None
+    shard = -(-n // ndev)
+    if shard > buckets[-1]:
+        shard = buckets[-1] * (-(-n // (buckets[-1] * ndev)))
+    return shard if sum(plan(shard)) < sum(plan(n)) else None
+
+
+def parallel_serving(artifact: str) -> int:
+    """Two replicas on the one card: ``CheckpointBackend`` (``max_batch``
+    rounded up; exactly one replica's answer at the replica's batch; 25
+    norm launches per replica per bucket execution) and ``ExportedModel``
+    over phase 7b's f32 artifact (one replica's answer to 1e-4 of scale; the
+    data-parallel plan = JAX's rule; 25 launches per bucket execution).
+    Returns the norm launches."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.serve.export import ExportedModel
+    from multi_task_breast_cancer_tpu_torch.serve.server import CheckpointBackend
+
+    images = (np.random.default_rng(8).random((100, SIZE, SIZE, 1)) * 255).astype(np.uint8)
+    two = CheckpointBackend(Config(), "multitask", max_batch=63, devices=[DEVICE, DEVICE])
+    check(two.buckets == [64] and len(two.replicas) == 2,
+          f"CheckpointBackend: buckets {two.buckets} over {len(two.replicas)} replicas")
+    one = CheckpointBackend(Config(), "multitask", max_batch=32, device=DEVICE)
+    whole = CheckpointBackend(Config(), "multitask", max_batch=64, device=DEVICE)
+    torch.cuda.synchronize()
+    hk.instance_norm_leaky_relu.launches = 0
+    got = two.predict(images[:64])
+    torch.cuda.synchronize()
+    served = hk.instance_norm_leaky_relu.launches
+    check(served == 50, f"two replicas: {served} norm launches for one bucket, want 25 each")
+    check(all(np.array_equal(g, w) for g, w in zip(_leaves(got),
+                                                   _leaves(one.predict(images[:64])))),
+          "two replicas on the card differ from one replica at the replica's batch")
+    err = _max_rel_err([torch.from_numpy(a) for a in _leaves(got)],
+                       [torch.from_numpy(a) for a in _leaves(whole.predict(images[:64]))])
+    check(err <= SERVE_REL_TOL, f"two replicas vs one replica at 64: {err:.3g} of scale")
+    ms = _median_ms(lambda: two.predict(images[:64]), 5)
+    ms_one = _median_ms(lambda: whole.predict(images[:64]), 5)
+    log(f"  CheckpointBackend, two replicas on {DEVICE} (own streams): max_batch 63 -> 64; "
+        f"64 images = one replica at 32 exactly, {err:.3g} of scale from one replica at 64; "
+        f"25 norm launches per replica; {ms:.3f} ms against one replica's {ms_one:.3f} ms "
+        f"(host clock, to numpy)")
+    del two, one, whole
+
+    dp = ExportedModel(artifact, devices=[DEVICE, DEVICE])
+    single = ExportedModel(artifact, device=DEVICE)
+    check(len(dp._weights) == 1, "ExportedModel keeps more than one weight copy on one card")
+    for n in (5, 16, 64, 100):
+        shard = dp.dp_shard(n)
+        check(shard == _dp_rule(n, dp.buckets, 2), f"ExportedModel.dp_shard({n}) = {shard}, "
+                                                   f"JAX's rule {_dp_rule(n, dp.buckets, 2)}")
+        executions = len(dp._plan(n)) if shard is None else sum(
+            len(dp._plan(min(shard, n - i))) for i in range(0, n, shard))
+        torch.cuda.synchronize()
+        hk.instance_norm_leaky_relu.launches = 0
+        got = dp.predict(images[:n])
+        torch.cuda.synchronize()
+        launched = hk.instance_norm_leaky_relu.launches
+        served += launched
+        check(launched == 25 * executions, f"ExportedModel over 2 replicas, {n} images: "
+                                           f"{launched} launches, want 25 x {executions}")
+        err = _max_rel_err([torch.from_numpy(a) for a in _leaves(got)],
+                           [torch.from_numpy(a) for a in _leaves(single.predict(images[:n]))])
+        check(err <= SERVE_REL_TOL, f"ExportedModel over 2 replicas, {n} images: {err:.3g}")
+        log(f"  ExportedModel, 2 replicas, {n} images: "
+            f"{'serial' if shard is None else f'{shard} rows a replica'} (= JAX's rule), "
+            f"{executions} bucket execution(s), {launched} norm launches; {err:.3g} of scale "
+            f"from one replica")
+    return served
+
+
+def _nccl_one_rank_allreduce() -> tuple:
+    """A process group of one rank over NCCL in this process: the all-reduce
+    of a step's gradient is the identity; its device ms (CUDA events) and
+    host ms, medians of 10."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.randn(MTNNUNET_PARAMETERS, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(0))
+        y = x.clone()
+        dist.all_reduce(y)
+        check(torch.equal(x, y), "NCCL's all-reduce over one rank is not the identity")
+        dev, host = [], []
+        for _ in range(12):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.record()
+            dist.all_reduce(y)
+            e.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(s.elapsed_time(e))
+        return statistics.median(dev[2:]), statistics.median(host[2:])
+    finally:
+        dist.destroy_process_group()
+
+
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True)
+    except OSError as e:
+        return f"nvidia-smi failed: {e}"
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def phase_parallel(artifact: str) -> tuple:
+    """Data parallelism (9c): the NCCL one-rank CLI run against the run
+    without a process group; two ranks on the card over Gloo (MTnnUNet at
+    full width, then ResidualUNet) against one process; batch 2 over three
+    ranks with one empty shard; NCCL over two cards when two are visible;
+    serving replicas; the gradient all-reduce's time. Returns the launches
+    of its main paths (the ranks' and this process's serving) and each
+    kernel's launches per rank."""
+    import tempfile
+    import torch
+
+    t0 = time.perf_counter()
+    log("parallel: data parallelism over torch.distributed, ranks as processes of their own")
+    work = tempfile.mkdtemp(prefix="mtbc_parallel_")
+    try:
+        parallel_cli(work)
+        b = PARALLEL_B
+        single = {arch: _parallel_run(arch, None) for arch in ("MTnnUNet", "ResidualUNet")}
+        ranks = _run_ranks("steps", 2, "gloo", [DEVICE, DEVICE], work)
+        per_rank = {"MTnnUNet, 2 ranks (Gloo, one card)": _check_ranks(
+            "MTnnUNet at full width, batch 4 over 2 ranks (Gloo, one card)", "MTnnUNet",
+            [r["MTnnUNet"] for r in ranks], single["MTnnUNet"], b, 2, (25, 25, 1))}
+        _parallel_grad_check("MTnnUNet, 2 ranks", "MTnnUNet", single["MTnnUNet"],
+                             ranks[0]["MTnnUNet"]["grads"], b, 2)
+        per_rank["ResidualUNet, 2 ranks (Gloo, one card)"] = _check_ranks(
+            "ResidualUNet at width 24, batch 4 over 2 ranks (Gloo, one card)", "ResidualUNet",
+            [r["ResidualUNet"] for r in ranks], single["ResidualUNet"], b, 2, (0, 0, 1))
+        _check_stats_and_masks([r["ResidualUNet"] for r in ranks], single["ResidualUNet"], b, 2)
+
+        single_2 = _parallel_run("MTnnUNet", None, b=2, steps=1, fast=False)
+        empty = _run_ranks("empty", 3, "gloo", [DEVICE] * 3, work)
+        per_rank["MTnnUNet, batch 2 over 3 ranks"] = _check_ranks(
+            "MTnnUNet, batch 2 over 3 ranks (rows 1, 1, 0; exact augmentation)", "MTnnUNet",
+            [r["MTnnUNet"] for r in empty], single_2, 2, 3, (25, 25, 0))
+        _parallel_grad_check("batch 2 over 3 ranks", "MTnnUNet", single_2,
+                             empty[0]["MTnnUNet"]["grads"], 2, 3)
+
+        if torch.cuda.device_count() >= 2:
+            nccl = _run_ranks("steps_mtnnunet", 2, "nccl", ["cuda:0", "cuda:1"], work)
+            per_rank["MTnnUNet, 2 ranks (NCCL, two cards)"] = _check_ranks(
+                "MTnnUNet, batch 4 over 2 ranks (NCCL, two cards)", "MTnnUNet",
+                [r["MTnnUNet"] for r in nccl], single["MTnnUNet"], b, 2, (25, 25, 1))
+            _parallel_grad_check("MTnnUNet, 2 ranks over NCCL", "MTnnUNet", single["MTnnUNet"],
+                                 nccl[0]["MTnnUNet"]["grads"], b, 2)
+            log(f"  NCCL over two cards: the gradient all-reduce {nccl[0]['allreduce_ms']:.3f} ms "
+                f"(host clock)")
+        else:
+            log(f"  NCCL over two cards: not run: {torch.cuda.device_count()} GPU visible, two "
+                f"ranks over NCCL need two cards (NCCL refuses two ranks on one GPU)")
+
+        served = parallel_serving(artifact)
+        nccl_dev_ms, nccl_host_ms = _nccl_one_rank_allreduce()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    step_2 = statistics.median(ranks[0]["MTnnUNet"]["step_ms"])
+    step_1 = statistics.median(single["MTnnUNet"]["step_ms"])
+    log(f"parallel ({_card()}): the gradient all-reduce of {MTNNUNET_PARAMETERS:,d} f32 (63.3 "
+        f"MB): Gloo, 2 ranks on one card {ranks[0]['allreduce_ms']:.3f} ms (host clock); NCCL, "
+        f"one rank {nccl_dev_ms:.4f} ms of device time, {nccl_host_ms:.3f} ms host clock. "
+        f"MTnnUNet batch-4 step on the host clock, medians of {PARALLEL_STEPS}: 2 ranks "
+        f"{step_2:.3f} ms, one process {step_1:.3f} ms")
+    log(f"parallel: phase {time.perf_counter() - t0:.1f} s")
+    totals = [sum(sum(r[i] for r in rows) for rows in per_rank.values()) for i in range(3)]
+    totals[0] += served
+    rows = {what: [list(r) for r in rows] for what, rows in per_rank.items()}
+    return tuple(totals), rows
+
+
+def phase_parallel_alone() -> None:
+    """Phase 7c by itself: build the kernels, export the f32 artifact it
+    serves (``cuda`` programs at buckets 1, 8, 64, seeded weights), run it.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_parallel_alone()"``
+    from the repository root."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    from multi_task_breast_cancer_tpu_torch.serve.export import export_inference
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix="mtbc_parallel_alone_")
+    try:
+        artifact = export_inference(Config(), "multitask", None, os.path.join(work, "art"),
+                                    buckets=(1, 8, 64), size=SIZE, platforms=("cuda",))
+        log(json.dumps({"launches": phase_parallel(str(artifact))}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -3323,6 +4024,7 @@ def main() -> int:
         (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
         h_fwd, h_bwd, h_aug = phase_training_bf16(f32_times)
         e_fwd, e16_fwd = phase_export(ckpt, work)
+        (p_fwd, p_bwd, p_aug), parallel_rows = phase_parallel(os.path.join(work, "artifact_f32"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     d_fwd, d_bwd, d_aug = phase_driver()
@@ -3334,31 +4036,40 @@ def main() -> int:
     def bf16_rows(rows, key):
         return {f"{key}_{b}": row for b, row in sorted(rows.items())}
 
+    def per_rank(i):
+        return {"launches": (p_fwd, p_bwd, p_aug)[i],
+                "launches_per_rank": {what: [r[i] for r in rows]
+                                      for what, rows in parallel_rows.items()}}
+
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34",
-         "launches": serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd + z_fwd + s_fwd,
+         "launches": (serve_launches + fwd + h_fwd + e_fwd + d_fwd + b_fwd + t_fwd + z_fwd + s_fwd
+                      + p_fwd),
          **kernel, "bf16": {"launches": h_fwd + e16_fwd + b_fwd, **bf16_rows(kernel_bf16, "batch")},
          "zoo": {a: r["forward"] for a, r in zoo_rows.items()},
          "seg_zoo": {a: {"launches_per_forward": r["forward_launches_per_batch64"]}
-                     for a, r in seg_zoo_rows.items()}},
+                     for a, r in seg_zoo_rows.items()},
+         "parallel": per_rank(0)},
         {"name": "instance_norm_leaky_relu_backward", "route": "cuda", "source": norm_src,
          "replaces": "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45",
-         "launches": bwd + h_bwd + d_bwd + b_bwd + z_bwd + s_bwd, **backward,
+         "launches": bwd + h_bwd + d_bwd + b_bwd + z_bwd + s_bwd + p_bwd, **backward,
          "bf16": {"launches": h_bwd + b_bwd, **bf16_rows(backward_bf16, "batch")},
          "zoo": {a: r["backward"] for a, r in zoo_rows.items()},
          "seg_zoo": {a: {"launches_per_step": r["step_launches"][1]}
-                     for a, r in seg_zoo_rows.items()}},
+                     for a, r in seg_zoo_rows.items()},
+         "parallel": per_rank(1)},
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug + h_aug + d_aug + b_aug + z_aug + s_aug, **augment,
+         "launches": aug + h_aug + d_aug + b_aug + z_aug + s_aug + p_aug, **augment,
          "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")},
          "seg_zoo": {"launches": s_aug, **{a: {"launches_in_4_steps": r["step_launches"][2],
                                               "forward_ms_64": r["forward_ms_64"],
                                               "step_ms_2": r["step_ms_2"]}
-                                          for a, r in seg_zoo_rows.items()}}}]}))
+                                          for a, r in seg_zoo_rows.items()}},
+         "parallel": per_rank(2)}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,6 +13,8 @@ training so far:
   and device metrics;
 - :mod:`.train` — the epoch ``Engine``, optimizers, schedulers, train state;
 - :mod:`.data` — the in-memory fold and the exact joint augmentation;
+- :mod:`.parallel` — data parallelism over ``torch.distributed``: the data
+  mesh (one rank per GPU) and multi-process start-up;
 - :mod:`.serve` — serving artifacts (``serve export``: ``torch.export``
   programs) and the micro-batching HTTP server over a live model, a port
   artifact or a JAX serving artifact's weights.

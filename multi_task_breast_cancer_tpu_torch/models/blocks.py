@@ -317,7 +317,13 @@ class BatchNorm(nn.Module):
     JAX ``batch_stats``, always f32). In training the batch statistics are
     taken in f32 (E[x²] − E[x]², clipped at 0) and the buffers move to
     ``0.9·old + 0.1·batch``, the *biased* batch variance (``BatchNorm2d``
-    keeps the unbiased one); in eval the buffers normalise."""
+    keeps the unbiased one); in eval the buffers normalise.
+
+    Under a data mesh (:func:`global_batch`) the statistics are those of
+    the global batch, as GSPMD computes them on the JAX mesh: every rank
+    sums Σx and Σx² over its rows, the sums are all-reduced (in the
+    backward too) and divided by the global count; a rank with no rows
+    still joins."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -326,10 +332,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.shard = None  # (mesh, global rows), set by global_batch
+
+    def _global_stats(self, xf: torch.Tensor) -> tuple:
+        mesh, n_global = self.shard
+        n, c, h, w = xf.shape
+        sums = mesh.all_reduce_sum_differentiable(
+            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+        moments = (sums / (n_global * h * w)).reshape(2, 1, c, 1, 1)
+        mean = moments[0]
+        return mean, (moments[1] - mean * mean).clamp(min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = _fast_stats(x.to(_stats_dtype(x)), (0, 2, 3))
+            xf = x.to(_stats_dtype(x))
+            mean, var = (_fast_stats(xf, (0, 2, 3)) if self.shard is None
+                         else self._global_stats(xf))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean.flatten().to(self.mean.dtype))
@@ -392,12 +410,15 @@ class Dropout(nn.Module):
     probability ``1 − rate`` and scaled by ``1/(1 − rate)``, the mask drawn
     from :attr:`generator` (set for an epoch by :func:`dropout_draws`; on
     the input's device), never from the global RNG; identity in eval and at
-    rate 0."""
+    rate 0. Under a data mesh (:func:`global_batch`) every rank draws the
+    mask of the whole global batch and keeps its own rows, so the masks are
+    the single-device run's."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        self.shard = None  # (mesh, global rows), set by global_batch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -406,8 +427,13 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training draws from an explicit generator: "
                                "run the step inside blocks.dropout_draws(model, generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        if self.shard is None:
+            draw = torch.rand(x.shape, generator=self.generator, device=x.device)
+        else:
+            mesh, n_global = self.shard
+            draw = torch.rand((n_global,) + tuple(x.shape[1:]), generator=self.generator,
+                              device=x.device)[mesh.shard(n_global)]
+        return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def has_dropout(model: nn.Module) -> bool:
@@ -427,6 +453,24 @@ def dropout_draws(model: nn.Module, generator: Optional[torch.Generator]) -> Ite
     finally:
         for m in drops:
             m.generator = None
+
+
+@contextlib.contextmanager
+def global_batch(model: nn.Module, mesh, n_global: int) -> Iterator[None]:
+    """Inside the block, this rank's rows of an ``n_global``-row batch
+    (``mesh.shard(n_global)``) go through ``model`` as part of the global
+    batch: its :class:`BatchNorm` layers take global statistics and its
+    :class:`Dropout` layers the global masks. ``mesh=None`` changes
+    nothing."""
+    mods = [m for m in model.modules() if isinstance(m, (BatchNorm, Dropout))]
+    if mesh is not None:
+        for m in mods:
+            m.shard = (mesh, n_global)
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.shard = None
 
 
 def _kaiming_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -460,12 +460,24 @@ fast_augment.launches = 0
 
 def fast_joint_transform(packed: torch.Tensor, batch_idx: torch.Tensor,
                          draws: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-                         fmt: AugFormat) -> torch.Tensor:
+                         fmt: AugFormat, mesh=None) -> torch.Tensor:
     """Batch selection + joint flips/rotation on the (N, P, S, S) packed fold
     stack of :func:`pack_channels`, with the per-sample ``draws = (fh, fv,
-    angle)`` (:func:`draw_flips_and_angles`): the cropped (B, H, W, C) batch
-    in the compute dtype (the JAX layout). The single-device path only: the
-    JAX mesh branch has no counterpart here yet."""
+    angle)`` (:func:`draw_flips_and_angles`) of the B rows ``batch_idx``: the
+    cropped (B, H, W, C) batch in the compute dtype (the JAX layout).
+
+    Under a data ``mesh`` (:class:`~..parallel.mesh.DataMesh`; the JAX
+    ``shard_map`` branch) the draws are the global batch's, made once; this
+    rank launches the kernel on its own ``mesh.shard(B)`` rows only and
+    returns those (B / n, H, W, C) rows, bit-identical to the same rows of
+    the single-device batch. B must divide evenly over the ranks."""
+    if mesh is not None:
+        b = batch_idx.shape[0]
+        if b % mesh.world_size:
+            raise ValueError(f"fast_augmentation under a data mesh needs batch_size ({b}) "
+                             f"divisible by the {mesh.world_size} ranks")
+        shard = mesh.shard(b)
+        batch_idx, draws = batch_idx[shard], tuple(d[shard] for d in draws)
     factors = pipeline_factors_from_draws(*draws, packed.shape[-1], packed.device)
     out = fast_augment(packed, batch_idx.to(device=packed.device, dtype=torch.int32),
                        factors)

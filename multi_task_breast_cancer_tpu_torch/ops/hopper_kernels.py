@@ -199,8 +199,16 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: input must be NCHW-contiguous")
 
 
-def _launch(name: str, inputs, out: torch.Tensor, eps: float, slope: float,
-            plan: NormPlan) -> None:
+def _launch(fn, inputs, out: torch.Tensor, eps: float, slope: float,
+            plan: NormPlan | None) -> None:
+    """Launch ``fn``'s kernel (``fn.__name__``) over ``inputs`` into ``out``
+    under ``plan`` (default :func:`plan_for`) and count it in
+    ``fn.launches``. An empty batch (a data-mesh rank's empty shard) has no
+    plane: nothing is launched or counted, and ``out`` stays empty."""
+    if out.numel() == 0:
+        return
+    name = fn.__name__
+    plan = plan or plan_for(*inputs, out)
     n, c, h, w = out.shape
     with torch.cuda.device(out.device):
         err = _entry(name, out.dtype, len(inputs) + 1)(
@@ -211,6 +219,7 @@ def _launch(name: str, inputs, out: torch.Tensor, eps: float, slope: float,
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} at "
                            f"shape {tuple(out.shape)}, plan {plan}")
+    fn.launches += 1
 
 
 def empty_launch(device: torch.device) -> None:
@@ -231,9 +240,7 @@ def _forward(x: torch.Tensor, eps: float, slope: float,
         return instance_norm_leaky_relu_reference(x, eps, slope)
     _check_cuda_input(x, "instance_norm_leaky_relu")
     y = torch.empty_like(x)
-    if x.numel():
-        _launch("instance_norm_leaky_relu", (x,), y, eps, slope, plan or plan_for(x, y))
-        instance_norm_leaky_relu.launches += 1
+    _launch(instance_norm_leaky_relu, (x,), y, eps, slope, plan)
     return y
 
 
@@ -249,10 +256,7 @@ def _backward(x: torch.Tensor, g: torch.Tensor, eps: float, slope: float,
     _check_cuda_input(x, "instance_norm_leaky_relu_backward")
     g = g.contiguous(memory_format=torch.contiguous_format)
     dx = torch.empty_like(x)
-    if x.numel():
-        _launch("instance_norm_leaky_relu_backward", (x, g), dx, eps, slope,
-                plan or plan_for(x, g, dx))
-        instance_norm_leaky_relu_backward.launches += 1
+    _launch(instance_norm_leaky_relu_backward, (x, g), dx, eps, slope, plan)
     return dx
 
 

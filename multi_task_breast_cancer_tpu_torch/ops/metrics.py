@@ -40,14 +40,24 @@ def dice_from_logits_batch(gt: torch.Tensor, seg_logits: torch.Tensor) -> torch.
     empty-ground-truth rule (``metrics.py:255-267``: 1 if both are empty, 0 if
     only the ground truth is), over the whole batch as the reference computes
     it. Any layout: it sums over every element."""
+    return dice_from_counts(dice_counts(gt, seg_logits))
+
+
+def dice_counts(gt: torch.Tensor, seg_logits: torch.Tensor) -> torch.Tensor:
+    """(tp, fp, fn) of ``sigmoid(logits) > 0.5`` against ``gt > 0.5`` over
+    every element, int64: the sums a batch-level Dice needs, which ranks of
+    a data mesh add up before :func:`dice_from_counts`."""
     seg = torch.sigmoid(seg_logits) > 0.5
     gt_b = gt > 0.5
-    tp = (seg & gt_b).sum().float()
-    fp = (seg & ~gt_b).sum().float()
-    fn = (~seg & gt_b).sum().float()
+    return torch.stack([(seg & gt_b).sum(), (seg & ~gt_b).sum(), (~seg & gt_b).sum()])
+
+
+def dice_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The batch-level Dice of :func:`dice_counts`' (tp, fp, fn)."""
+    tp, fp, fn = counts.float().unbind(-1)
     dice = 2.0 * tp / torch.clamp(2.0 * tp + fp + fn, min=1e-12)
     one, zero = torch.ones_like(dice), torch.zeros_like(dice)
-    return torch.where(gt_b.sum() == 0, torch.where(seg.sum() == 0, one, zero), dice)
+    return torch.where(tp + fn == 0, torch.where(tp + fp == 0, one, zero), dice)
 
 
 def confusion_matrix_update(cm: torch.Tensor, gt_labels: torch.Tensor,

@@ -48,7 +48,7 @@ from __future__ import annotations
 import json
 import logging
 from pathlib import Path
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,8 +57,11 @@ from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.device import (
     COMPUTE_DTYPES,
+    replica_devices,
+    replica_streams,
     resolve_device,
     set_float32_policy,
+    stream_context,
 )
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     flat_jax_weights,
@@ -231,32 +234,33 @@ class ExportedModel:
     intensities are exact either way). A device-postprocessed artifact's
     binary mask is bit-packed on the device and unpacked on the host.
 
-    ``data_parallel=True`` (the JAX default) with more than one visible GPU
-    raises ``NotImplementedError``: sharding batches over cards is not
-    ported (``ROADMAP.md``, Queue 1, item 2: parallelism). With one GPU, or
-    on the CPU, it is one device."""
+    ``data_parallel=True`` (the JAX default) with ``device`` ``None`` or
+    ``"cuda"`` uses every visible GPU (``devices`` names the replicas'
+    devices instead; one may repeat): each device holds one copy of the
+    weights, and a batch is sharded over the replicas only when that wins
+    (:meth:`dp_shard`, JAX's rule); the shards' executions are started back
+    to back, each replica on a stream of its own, and fetched together."""
 
-    def __init__(self, path, data_parallel: bool = True, device=None):
+    def __init__(self, path, data_parallel: bool = True, device=None, devices=None):
         self.path = Path(path)
         self.manifest = json.loads((self.path / MANIFEST).read_text())
         if self.manifest.get("format") != FORMAT:
             raise ValueError(f"{self.path}: not a {FORMAT} artifact of the port")
-        self.device = resolve_device(device)
-        if data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"ExportedModel: data_parallel over {torch.cuda.device_count()} visible GPUs "
-                "is not ported yet: ROADMAP.md, Queue 1, item 2 (parallelism). Make one "
-                "GPU visible (CUDA_VISIBLE_DEVICES) or pass "
-                "data_parallel=False")
+        self.devices = replica_devices(device, data_parallel, devices)
+        self.device = self.devices[0]
         self.platform = self.device.type
-        if self.platform not in self.manifest["platforms"]:
-            raise ValueError(f"{self.path}: no {self.platform} programs (exported for "
+        if self.platform not in self.manifest["platforms"] or any(
+                d.type != self.platform for d in self.devices):
+            raise ValueError(f"{self.path}: no programs for every device of "
+                             f"{[str(d) for d in self.devices]} (exported for "
                              f"{self.manifest['platforms']})")
-        set_float32_policy(self.device, self.manifest["compute_dtype"])
+        for d in self.devices:
+            set_float32_policy(d, self.manifest["compute_dtype"])
         with np.load(self.path / WEIGHTS) as z:
             flat = {k: z[k] for k in z.files}
-        self.weights = {k: v.to(self.device) for k, v in params_from_jax(
-            flat, self.manifest["transposed_convs"]).items()}
+        host = params_from_jax(flat, self.manifest["transposed_convs"])
+        self._weights = {d: {k: v.to(d) for k, v in host.items()} for d in set(self.devices)}
+        self._streams = replica_streams(self.devices)
         self.buckets = sorted(self.manifest["buckets"])
         self._fns: Dict[int, Any] = {}
 
@@ -272,24 +276,25 @@ class ExportedModel:
         for bucket in self.buckets:
             self._fn(bucket)
 
-    def _dispatch(self, images: np.ndarray, bucket: int):
-        """Start one bucket execution (asynchronous on the card); returns
-        (device outputs, n)."""
+    def _dispatch(self, images: np.ndarray, bucket: int, replica: int = 0):
+        """Start one bucket execution on ``replica`` (asynchronous on the
+        card); returns (device outputs, n, the replica's stream)."""
         n = images.shape[0]
         p = min(bucket, _next_pow2(n))
         if n < p:
             images = np.concatenate([images, np.repeat(images[-1:], p - n, axis=0)], axis=0)
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        if p < bucket:
-            x = torch.cat([x, x[-1:].expand(bucket - p, *x.shape[1:])])
-        with torch.inference_mode():
-            out = self._fn(bucket)(self.weights, x.to(torch.float32))
+        device, stream = self.devices[replica], self._streams[replica]
+        with stream_context(stream), torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+            if p < bucket:
+                x = torch.cat([x, x[-1:].expand(bucket - p, *x.shape[1:])])
+            out = self._fn(bucket)(self._weights[device], x.to(torch.float32))
             if isinstance(out, dict) and "tumor_pixels" in out and out["mask"].shape[-1] % 8 == 0:
                 out = dict(out)
                 out["mask_packed"] = _pack_mask_bits(out.pop("mask"))
-        return out, n
+        return out, n, stream
 
     @staticmethod
     def _fetch(dispatched):
@@ -298,7 +303,10 @@ class ExportedModel:
             # download: padded rows beyond it never leave the card
             return a[:min(_next_pow2(m), a.shape[0])].cpu().numpy()[:m]
 
-        outs = [tree_map(lambda a, m=n: leaf(a, m), out) for out, n in dispatched]
+        outs = []
+        for out, n, stream in dispatched:
+            with stream_context(stream):
+                outs.append(tree_map(lambda a, m=n: leaf(a, m), out))
         merged = outs[0] if len(outs) == 1 else tree_map(
             lambda *parts: np.concatenate(parts, axis=0), *outs)
         if isinstance(merged, dict) and "mask_packed" in merged:
@@ -320,6 +328,21 @@ class ExportedModel:
             i += take
         return plan
 
+    def dp_shard(self, n: int) -> Optional[int]:
+        """The rows per replica when ``n`` images are sharded over the
+        replicas, or ``None`` when they run serially on the first: JAX's
+        rule, data parallelism only when it wins. Each shard pads up to a
+        bucket, so with sparse buckets a small shard can cost as much padded
+        work as the whole batch; serial costs the sum of :meth:`_plan`, the
+        sharded run the plan of one shard (the replicas run together)."""
+        ndev, top = len(self.devices), self.buckets[-1]
+        if ndev < 2 or n <= self.buckets[0]:
+            return None
+        shard = -(-n // ndev)
+        if shard > top:  # chunk each replica's shard by the largest bucket
+            shard = top * (-(-n // (top * ndev)))
+        return shard if sum(self._plan(shard)) < sum(self._plan(n)) else None
+
     def predict(self, images: np.ndarray):
         """NHWC images (uint8 or float) → the program's outputs as numpy
         (raw NHWC f32 outputs, or the compact dict)."""
@@ -327,6 +350,17 @@ class ExportedModel:
         if n == 0:
             raise ValueError("empty batch: images has 0 rows")
         top = self.buckets[-1]
-        parts = [images[i:i + top] for i in range(0, n, top)]
-        return self._fetch([self._dispatch(part, bucket)
-                            for part, bucket in zip(parts, self._plan(n))])
+        shard = self.dp_shard(n)
+        if shard is None:
+            parts = [images[i:i + top] for i in range(0, n, top)]
+            return self._fetch([self._dispatch(part, bucket)
+                                for part, bucket in zip(parts, self._plan(n))])
+        dispatched = []
+        for i in range(0, n, shard):
+            rows = images[i:i + shard]
+            replica = (i // shard) % len(self.devices)
+            for j in range(0, rows.shape[0], top):
+                part = rows[j:j + top]
+                dispatched.append(self._dispatch(part, self._fit_bucket(part.shape[0]),
+                                                 replica))
+        return self._fetch(dispatched)

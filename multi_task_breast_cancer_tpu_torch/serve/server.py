@@ -30,6 +30,7 @@ the JAX package's postprocessing; each computes in ``compute_dtype``
 from __future__ import annotations
 
 import base64
+import copy
 import json
 import logging
 import queue
@@ -46,8 +47,11 @@ import torch
 
 from multi_task_breast_cancer_tpu_torch.device import (
     COMPUTE_DTYPES,
+    replica_devices,
+    replica_streams,
     resolve_device,
     set_float32_policy,
+    stream_context,
 )
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     params_from_jax,
@@ -60,6 +64,7 @@ from multi_task_breast_cancer_tpu_torch.models.registry import (
 )
 from multi_task_breast_cancer_tpu_torch.native import nearest_resize
 from multi_task_breast_cancer_tpu_torch.ops.image_ops import build_augment_channels
+from multi_task_breast_cancer_tpu_torch.parallel.mesh import shard_slice
 from multi_task_breast_cancer_tpu_torch.serve.export import ExportedModel
 from multi_task_breast_cancer_tpu_torch.serve.post import (
     model_applies_softmax,
@@ -121,33 +126,59 @@ def _to_numpy(out):
 
 
 class _TorchBackend:
-    """One model on one device. ``predict`` runs batches of a fixed size
-    from ``buckets`` (the smallest that holds a chunk; chunks of the largest
-    for bigger sets), wrap-padding a short batch by repeating its images, as
-    the JAX ``Engine.predict`` does. Images are uint8 (or float) NHWC, moved
-    to the device as they are and cast there, NOT scaled: the models take raw
-    0-255 intensities. ``compute_dtype="bfloat16"`` casts the parameters
-    (not the buffers: batch statistics stay f32, as JAX's do) and the input
-    to bf16 and the outputs to f32. The model answers in eval mode."""
+    """One model, replicated on ``devices`` (one replica each; a device may
+    repeat). ``predict`` runs batches of a fixed size from ``buckets`` (the
+    smallest that holds a chunk; chunks of the largest for bigger sets),
+    wrap-padding a short batch by repeating its images, as the JAX
+    ``Engine.predict`` does. Images are uint8 (or float) NHWC, moved to the
+    device as they are and cast there, NOT scaled: the models take raw 0-255
+    intensities. ``compute_dtype="bfloat16"`` casts the parameters (not the
+    buffers: batch statistics stay f32, as JAX's do) and the input to bf16
+    and the outputs to f32. The model answers in eval mode.
 
-    def __init__(self, model: torch.nn.Module, device, compute_dtype: str,
-                 buckets: Sequence[int]) -> None:
-        set_float32_policy(device, compute_dtype)
-        self.device = device
+    With several replicas each bucket's batch is split into contiguous
+    shards, one per replica (JAX shards the serving batch over its data
+    mesh); every replica runs on a stream of its own, all are started before
+    any answer is fetched, and the answers are put back in order."""
+
+    def __init__(self, model: torch.nn.Module, devices: Sequence[torch.device],
+                 compute_dtype: str, buckets: Sequence[int]) -> None:
+        for d in devices:
+            set_float32_policy(d, compute_dtype)
+        self.devices = list(devices)
+        self.device = self.devices[0]
         self.dtype = COMPUTE_DTYPES[compute_dtype]
-        self.model = model.to(device).eval()
-        for p in self.model.parameters():  # buffers (batch statistics) stay f32
+        model = model.eval()
+        for p in model.parameters():  # buffers (batch statistics) stay f32
             p.data = p.data.to(self.dtype)
+        copies = [copy.deepcopy(model).to(d) for d in self.devices[1:]]
+        self.model = model.to(self.device)
+        self.replicas = [self.model, *copies]
+        self.streams = replica_streams(self.devices)
         self.buckets = sorted(int(b) for b in buckets)
 
     def _forward(self, images: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        # NHWC → NCHW with NCHW strides. With one channel the permuted view
-        # already passes for contiguous, but its strides are channels-last ones,
-        # and the convolutions would carry them into their outputs
-        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
-        with torch.inference_mode():
-            return _to_numpy(self.model(x))
+        n = images.shape[0]
+        started = []
+        for i, (model, device, stream) in enumerate(zip(self.replicas, self.devices,
+                                                        self.streams)):
+            part = images[shard_slice(n, len(self.replicas), i)]
+            if part.shape[0] == 0:
+                continue
+            with stream_context(stream), torch.inference_mode():
+                x = torch.from_numpy(np.ascontiguousarray(part)).to(device)
+                # NHWC → NCHW with NCHW strides. With one channel the permuted
+                # view already passes for contiguous, but its strides are
+                # channels-last ones, and the convolutions would carry them
+                # into their outputs
+                x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
+                started.append((model(x), stream))
+        answers = []
+        for out, stream in started:
+            with stream_context(stream):
+                answers.append(_to_numpy(out))
+        return answers[0] if len(answers) == 1 else tree_map(
+            lambda *parts: np.concatenate(parts, axis=0), *answers)
 
     def predict(self, images: np.ndarray):
         n = images.shape[0]
@@ -175,6 +206,12 @@ class CheckpointBackend(_TorchBackend):
     """A model built from ``cfg`` on ``device`` (default ``cuda``), serving
     batches padded to ``max_batch``.
 
+    ``data_parallel`` (the default, as in JAX) with ``device`` ``None`` or
+    ``"cuda"`` keeps one replica per visible GPU in this process
+    (:func:`~..device.replica_devices`; ``devices`` names them instead, and
+    may repeat one), and ``max_batch`` rounds up to a multiple of the
+    replicas: each takes an equal shard of the padded batch.
+
     ``checkpoint=None`` draws seeded weights (generator seed 0), as the JAX
     ``build_inference_state(checkpoint=None)`` gives a fresh init. A
     checkpoint the port's driver or the JAX driver wrote
@@ -184,8 +221,11 @@ class CheckpointBackend(_TorchBackend):
     weights."""
 
     def __init__(self, cfg, task: str, checkpoint: Optional[str] = None,
-                 size: int = 128, max_batch: int = 64, device=None):
-        device = resolve_device(device)
+                 size: int = 128, max_batch: int = 64, device=None,
+                 data_parallel: bool = True, devices=None):
+        devices = replica_devices(device, data_parallel, devices)
+        # the padded batch splits evenly over the replicas
+        max_batch = -(-max_batch // len(devices)) * len(devices)
         channels = cfg.model.sequences + cfg.data.augmentation.n_active()
         n_classes = len(cfg.data.classes)
         regions = 3 if (task == "segmentation" and cfg.data.semantic_segmentation) else 1
@@ -199,7 +239,7 @@ class CheckpointBackend(_TorchBackend):
                                       strict=True)
             else:
                 load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
-        super().__init__(model, device, cfg.training.compute_dtype, [max_batch])
+        super().__init__(model, devices, cfg.training.compute_dtype, [max_batch])
         self.info = {
             "task": task, "architecture": cfg.model.architecture,
             "n_classes": n_classes, "classes": list(cfg.data.classes),
@@ -208,7 +248,8 @@ class CheckpointBackend(_TorchBackend):
             "pipeline_refinement": bool(cfg.training.overlap_class_based_on_seg),
             "softmax_in_forward": model_applies_softmax(
                 task, cfg.model.architecture, n_classes),
-            "backend": "checkpoint", "device": str(device),
+            "backend": "checkpoint", "device": str(devices[0]),
+            "replicas": [str(d) for d in devices],
         }
 
 
@@ -216,8 +257,9 @@ class ArtifactBackend:
     """A serving artifact directory (``serve export``).
 
     A port artifact (``"format": "torch.export"`` in its manifest) runs its
-    exported programs through :class:`.export.ExportedModel`, all of them
-    loaded when the backend is built, and decodes a
+    exported programs through :class:`.export.ExportedModel` (with its
+    ``data_parallel`` and ``devices``; a JAX artifact's live model runs on
+    one device), all of them loaded when the backend is built, and decodes a
     device-postprocessed answer with :func:`.post.postprocess_compact`, as
     the JAX backend does. A JAX artifact (no ``format``) is rebuilt as a live
     model from ``manifest.json`` (widths and deep supervision read from
@@ -226,12 +268,13 @@ class ArtifactBackend:
     device-postprocessed answer, which the JAX tests prove equal to the raw
     one; its ``.jaxexport`` programs are not used."""
 
-    def __init__(self, path: str, device=None):
-        device = resolve_device(device)
+    def __init__(self, path: str, device=None, data_parallel: bool = True, devices=None):
+        first = resolve_device(device if devices is None else devices[0])
         path = Path(path)
         m = json.loads((path / "manifest.json").read_text())
         if "format" in m:
-            self._runner = ExportedModel(path, device=device)
+            self._runner = ExportedModel(path, data_parallel=data_parallel, device=device,
+                                         devices=devices)
             self._runner.preload()
             device_postprocess = bool(m.get("device_postprocess", False))
         else:
@@ -242,7 +285,8 @@ class ArtifactBackend:
                                  m["n_classes"], regions, m["size"],
                                  **size_knobs_from_params(params))
             model.load_state_dict(params_from_jax(params, model), strict=True)
-            self._runner = _TorchBackend(model, device, m.get("compute_dtype", "float32"),
+            self._runner = _TorchBackend(model, [first],
+                                         m.get("compute_dtype", "float32"),
                                          m["buckets"])
             device_postprocess = False  # raw outputs, host postprocessing
         self.info = {k: m[k] for k in ("task", "architecture", "n_classes",
@@ -251,7 +295,7 @@ class ArtifactBackend:
         self.info["softmax_in_forward"] = bool(m.get("softmax_in_forward", False))
         self.info["device_postprocess"] = device_postprocess
         self.info["backend"] = "artifact"
-        self.info["device"] = str(device)
+        self.info["device"] = str(first)
 
     def predict(self, images: np.ndarray):
         return self._runner.predict(images)

@@ -27,10 +27,17 @@ Randomness, chosen so that a resumed run replays exactly:
   step's key).
 
 The best epoch's state is copied on the device (no host fetch per epoch)
-and written once per fold unless ``training.checkpoint_every_epoch``. One
-visible GPU runs the experiment: ``training.spatial_partitions > 1``, or
-``training.data_parallel`` with more than one visible GPU, raises (the
-mesh is ``ROADMAP.md`` Queue 1, item 2: parallelism).
+and written once per fold unless ``training.checkpoint_every_epoch``.
+
+Data parallelism, as in JAX: with ``training.data_parallel`` and a process
+group of more than one rank (:mod:`..parallel.multihost`), every rank runs
+the whole driver on its own device over the data mesh (``data_mesh()``),
+each step on its shard of the global batch; rank 0's fresh or restored
+state is broadcast to the others, so every rank takes the same steps and
+writes the same rows. Only rank 0's run root is the user's (the CLI sends
+the others to scratch). A batch that does not divide over the ranks turns
+fast augmentation off, with a warning. ``training.spatial_partitions > 1``
+raises: spatial partitioning is ``ROADMAP.md`` Queue 1.
 """
 
 from __future__ import annotations
@@ -65,6 +72,8 @@ from multi_task_breast_cancer_tpu_torch.ops.metrics import (
     dice_score,
     multiclass_classification_metrics,
 )
+from multi_task_breast_cancer_tpu_torch.parallel import multihost
+from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_space_mesh, replicate_to_mesh
 from multi_task_breast_cancer_tpu_torch.train import inference as I
 from multi_task_breast_cancer_tpu_torch.train.checkpoint import (
     load_pretrained_model,
@@ -444,19 +453,8 @@ def _check_resume_config(cfg: Config, run_cfg_yaml: Path, run_path: str,
                      "original run")
 
 
-def _check_one_device(cfg: Config, device: torch.device) -> None:
-    if cfg.training.spatial_partitions > 1 or (
-            cfg.training.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "training over more than one GPU (training.data_parallel with "
-            f"{torch.cuda.device_count()} visible GPUs, training.spatial_partitions="
-            f"{cfg.training.spatial_partitions}) is not ported yet: ROADMAP.md, Queue 1, "
-            "item 2 (parallelism). Make one GPU visible "
-            "(CUDA_VISIBLE_DEVICES) and set spatial_partitions: 1")
-
-
-def _engine_config(cfg: Config, task: str, max_angle: float) -> EngineConfig:
+def _engine_config(cfg: Config, task: str, max_angle: float,
+                   fast_augmentation: Optional[bool] = None) -> EngineConfig:
     return EngineConfig(
         task=task, n_classes=len(cfg.data.classes), batch_size=cfg.data.batch_size,
         alpha=cfg.training.alpha,
@@ -468,8 +466,24 @@ def _engine_config(cfg: Config, task: str, max_angle: float) -> EngineConfig:
         p_hflip=cfg.data.transforms.horizontal_flip,
         p_vflip=cfg.data.transforms.vertical_flip,
         compute_dtype=cfg.training.compute_dtype,
-        fast_augmentation=cfg.training.fast_augmentation,
+        fast_augmentation=(cfg.training.fast_augmentation if fast_augmentation is None
+                           else fast_augmentation),
     )
+
+
+def _fast_augmentation(cfg: Config, mesh) -> bool:
+    """``training.fast_augmentation``, unless the batch does not divide over
+    the mesh's ranks: then the exact augmentation, with a warning (JAX's
+    fallback; the Engine built directly raises instead)."""
+    n = mesh.world_size if mesh is not None else 1
+    if cfg.training.fast_augmentation and n > 1 and cfg.data.batch_size % n:
+        logging.warning(
+            "fast_augmentation disabled for this run: batch_size (%d) does not divide "
+            "the data mesh (%d ranks) — falling back to the exact-parity augmentation. "
+            "Raise data.batch_size to a multiple of %d to re-enable the fast path.",
+            cfg.data.batch_size, n, n)
+        return False
+    return cfg.training.fast_augmentation
 
 
 def run_experiment(cfg: Config, task: str, mode: str = "CV",
@@ -496,7 +510,8 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             "semantic-mask objective (the reference has no such path either "
             "— its flag only changes the dataset, BUSI_dataset.py:51)")
     device = resolve_device(device)
-    _check_one_device(cfg, device)
+    mesh = (data_space_mesh(cfg.training.spatial_partitions, device=device)
+            if cfg.training.data_parallel else None)
     if cfg.training.CV < 2:
         sys.exit("This code is prepared for receiving a CV greater than 1")
 
@@ -519,6 +534,12 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
     logging.info("Device: %s (%s), torch %s", device,
                  torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU",
                  torch.__version__)
+    if multihost.active():
+        logging.info("Process group: rank %d of %d (%s)", multihost.process_index(),
+                     multihost.process_count(), torch.distributed.get_backend())
+    if mesh is not None:
+        logging.info("Parallelism over %d ranks (data mesh), this rank %d",
+                     mesh.world_size, mesh.rank)
     if resume_dir is not None:
         logging.info("Resuming run in place: %s", run_path)
     run_cfg_yaml = Path(run_path) / "config.yaml"
@@ -542,8 +563,9 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
 
     header = METRIC_HEADERS[(task, mode)]
     size = folds[0].train.images.shape[1]
-    engine = Engine(_build_model(cfg, task, size=size), _engine_config(cfg, task, max_angle),
-                    device=device)
+    engine = Engine(_build_model(cfg, task, size=size),
+                    _engine_config(cfg, task, max_angle, _fast_augmentation(cfg, mesh)),
+                    device=device, mesh=mesh)
 
     # cross-fold padding, as the JAX driver wires it: every fold's train data
     # and plan padded to the largest fold (padding steps are no-ops), and
@@ -575,7 +597,8 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
 
         def fresh_state() -> TrainState:
             engine.model.load_state_dict(fold_init_state_dict(cfg, task, seed, n, size))
-            return create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+            return replicate_to_mesh(mesh, create_train_state(
+                engine.model, cfg.optimizer.opt, cfg.optimizer.lr))
 
         state = fresh_state()
         save_model_summary(engine.model, Path(run_path))
@@ -611,6 +634,7 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             # an interrupted fold: the last written checkpoint, metrics.csv
             # cut back to its epoch, and the RNG replayed to that point
             state, ckpt_epoch, _, rstate = restored
+            replicate_to_mesh(mesh, state)
             resume_epoch = ckpt_epoch + 1
             resume_state = rstate
             scheduler.load_state_dict(rstate)

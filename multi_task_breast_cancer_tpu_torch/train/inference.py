@@ -14,7 +14,9 @@ behaviour of the reference's ``src/utils/models.py:39-505``):
 
 The test split runs as one batched forward (``Engine.predict``), whose NCHW
 outputs come to the host once per split and are viewed NHWC there; the
-per-image loops run on the host, as in JAX.
+per-image loops run on the host, as in JAX. Under a data mesh the forward
+is sharded over the ranks and its outputs all-gathered in order, so every
+rank computes the same host metrics and artifacts (rank 0's are the user's).
 """
 
 from __future__ import annotations

@@ -31,7 +31,20 @@ gather (before the exact augmentation; the fast augmentation packs bf16
 channel pairs); outputs are cast to f32 before the losses, the metrics and
 ``predict``'s result. Losses and metrics only ever see f32. No
 ``torch.autocast``: its per-op allow-list is not JAX's whole-model cast.
-Meshes raise ``NotImplementedError``.
+
+``mesh`` (a :class:`~..parallel.mesh.DataMesh`, one rank per device) is
+the JAX Engine's data mesh. The fold stays whole on every rank; each step
+takes this rank's contiguous rows of the global batch (``mesh.shard(B)``),
+with the global batch's augmentation draws, dropout masks and batch
+statistics (``blocks.global_batch``). Each rank's loss is its share of the
+global batch's loss (a batch mean scaled by its rows over ``B``; the
+Jaccard criterion, a batch sum, by 1), so one flat all-reduce of the
+gradients per step gives the global batch's gradient for any split, uneven
+and empty shards included; every rank then takes the same Adam step.
+Per-step loss shares, Dice counts and the confusion matrix are all-reduced
+once per epoch; validation and ``predict`` shard their rows the same way
+(``predict`` all-gathers its outputs in order). Padding steps stay no-ops
+on every rank.
 """
 
 from __future__ import annotations
@@ -50,11 +63,16 @@ from multi_task_breast_cancer_tpu_torch.device import (
     resolve_device,
     set_float32_policy,
 )
-from multi_task_breast_cancer_tpu_torch.models.blocks import dropout_draws, has_dropout
+from multi_task_breast_cancer_tpu_torch.models.blocks import (
+    dropout_draws,
+    global_batch,
+    has_dropout,
+)
 from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
 from multi_task_breast_cancer_tpu_torch.ops.fused_loss import fused_dice_criterion
+from multi_task_breast_cancer_tpu_torch.parallel.mesh import DataMesh
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
 from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
 
@@ -123,17 +141,30 @@ def step_valid_mask(n: int, batch_size: int, total_steps: int) -> np.ndarray:
 
 class Engine:
     """Epoch training, validation and prediction for one model + task
-    configuration on one device (``cuda`` unless ``device='cpu'``)."""
+    configuration on one device (``cuda`` unless ``device='cpu'``), or on
+    this rank's device of a data ``mesh``."""
 
     def __init__(self, model: nn.Module, cfg: EngineConfig,
-                 device: Optional[Union[str, torch.device]] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("Engine: meshes (data/spatial parallelism) are "
-                                      "not ported yet (ROADMAP.md, Queue 1, item 2: "
-                                      "parallelism)")
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[DataMesh] = None):
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise NotImplementedError(
+                f"Engine: {type(mesh).__name__} is not a data mesh; only the 1-D data "
+                "mesh (parallel.data_mesh) is ported, spatial meshes are ROADMAP.md, "
+                "Queue 1: spatial partitioning")
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
-        self.device = resolve_device(device)
+        if mesh is not None and cfg.use_transforms and cfg.fast_augmentation \
+                and cfg.batch_size % mesh.world_size:
+            raise ValueError(
+                "fast_augmentation on a data-parallel mesh runs the kernel on each "
+                f"rank's rows; batch_size ({cfg.batch_size}) must divide evenly over "
+                f"the {mesh.world_size} ranks")
+        self.device = resolve_device(device if device is not None or mesh is None
+                                     else mesh.device)
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"Engine on {self.device}: the mesh's device is {mesh.device}")
+        self.mesh = mesh
         set_float32_policy(self.device, cfg.compute_dtype)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -179,6 +210,56 @@ class Engine:
         return loss, {"seg_out": seg, "cls_out": cls, "seg_loss": seg_loss,
                       "cls_loss": cls_loss}
 
+    def _heads(self, out) -> Dict[str, Any]:
+        """The outputs the losses read, by name."""
+        if self.cfg.task == "segmentation":
+            return {"seg_out": out}
+        if self.cfg.task == "classification":
+            return {"cls_out": out}
+        cls, seg = multitask_pair(out)
+        return {"seg_out": seg, "cls_out": cls}
+
+    def _loss_shares(self, out, masks, cls_targets, n_local: int, n_global: int
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """This rank's share of the global batch's loss, from its
+        ``n_local`` rows: ``_losses`` scaled so that the shares of all ranks
+        add up to the global batch's loss (batch means by ``n_local /
+        n_global``; the Jaccard criterion, a batch sum, by 1). ``aux``'s
+        ``seg_loss``/``cls_loss`` are shares too. All the rows: ``_losses``
+        itself. With no rows the share is zero, still joined to every output
+        the loss reads, so that the backward runs (and joins the collectives
+        of) the whole model."""
+        if n_local == n_global:
+            return self._losses(out, masks, cls_targets)
+        if n_local == 0:
+            heads = self._heads(out)
+            leaves = []
+            tree_map(leaves.append, heads)
+            zero = sum(a.sum() for a in leaves) * 0.0
+            return zero, {**heads, "seg_loss": zero.detach(), "cls_loss": zero.detach()}
+        loss, aux = self._losses(out, masks, cls_targets)
+        mean = n_local / n_global
+        f_seg = 1.0 if self.cfg.seg_criterion == "Jaccard" else mean
+        if self.cfg.task == "segmentation":
+            return f_seg * loss, aux
+        if self.cfg.task == "classification":
+            return mean * loss, aux
+        seg, cls = f_seg * aux["seg_loss"], mean * aux["cls_loss"]
+        return (self.cfg.alpha * seg + (1 - self.cfg.alpha) * cls,
+                {**aux, "seg_loss": seg, "cls_loss": cls})
+
+    def _all_reduce_gradients(self, model: nn.Module) -> None:
+        """One flat all-reduce of every parameter's gradient over the mesh
+        (zeros stand in for a gradient this rank has not got, so every rank
+        sends the same sizes); a parameter without a gradient keeps none."""
+        params = [p for p in model.parameters() if p.requires_grad]
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        self.mesh.all_reduce_sum(flat)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            if p.grad is not None:
+                p.grad.copy_(g.view_as(p))
+
     def _check_cls_head(self, cls_out) -> None:
         """A head whose logit count disagrees with ``n_classes`` would train
         silently wrong through broadcasting: fail instead. Multi_FSB_BTSUNet
@@ -206,9 +287,11 @@ class Engine:
         return cls_out
 
     def _step_metrics(self, aux, masks, labels_int, cm) -> Dict[str, torch.Tensor]:
+        """The batch's Dice counts (tp, fp, fn; ``M.dice_counts``) and the
+        confusion matrix ``cm`` with the batch added, as the task has them."""
         out: Dict[str, torch.Tensor] = {}
         if "seg_out" in aux:
-            out["dice"] = M.dice_from_logits_batch(
+            out["dice_counts"] = M.dice_counts(
                 masks.float(), self._final_seg_head(aux["seg_out"]).detach())
         if "cls_out" in aux:
             logits = self._mean_cls_head(aux["cls_out"]).detach()
@@ -245,16 +328,18 @@ class Engine:
     # batches
     # ------------------------------------------------------------------
 
-    def _augmented_batch(self, data, rows: torch.Tensor, draws, step: int):
+    def _augmented_batch(self, data, rows: torch.Tensor, draws, step: int,
+                         shard: slice = slice(None)):
         """Rows ``rows`` (int32) of the fold, augmented with step ``step``'s
-        draws: (images, masks) as NCHW-contiguous tensors in the compute
-        dtype. On the fast path with the canvas equal to the image, a
-        one-channel image or mask is a view of the kernel's plane-major output
-        (f32) or of the one copy that unpacks its bf16 channel pairs."""
+        draws (their ``shard`` of the global batch, this rank's): (images,
+        masks) as NCHW-contiguous tensors in the compute dtype. On the fast
+        path with the canvas equal to the image, a one-channel image or mask
+        is a view of the kernel's plane-major output (f32) or of the one copy
+        that unpacks its bf16 channel pairs."""
         cfg = self.cfg
         if cfg.use_transforms and cfg.fast_augmentation:
             fmt, n_mask = self._aug_fmt
-            factors = FA.PipelineFactors(*(f[step] for f in draws["factors"]))
+            factors = FA.PipelineFactors(*(f[step][shard] for f in draws["factors"]))
             out = FA.fast_augment(data["aug_packed"], rows, factors)
             stack = FA.unpack_channels_nchw(out, fmt)
             return self._nchw(stack[:, n_mask:]), self._nchw(stack[:, :n_mask])
@@ -264,7 +349,7 @@ class Engine:
         msks = data["masks"].index_select(0, rows).to(self._dtype)
         if cfg.use_transforms:
             n_mask = msks.shape[1]
-            fh, fv, angle = (d[step] for d in draws["flips_angles"])
+            fh, fv, angle = (d[step][shard] for d in draws["flips_angles"])
             stack = joint_transform_stack_batch(torch.cat([msks, imgs], dim=1),
                                                 fh, fv, angle)
             msks, imgs = stack[:, :n_mask], stack[:, n_mask:]
@@ -358,50 +443,82 @@ class Engine:
         zero = torch.zeros((), device=self.device)
         sums = {"loss": zero, "seg_loss": zero, "cls_loss": zero, "dice": zero,
                 "cm": torch.zeros((n_cm, n_cm), device=self.device)}
+        mesh = self.mesh
+        shard = mesh.shard(b) if mesh is not None else slice(0, b)
+        n_local = shard.stop - shard.start
+        shares, counts = [], []  # per real step: (loss, seg, cls) shares, Dice counts
         model, opt = state.model, state.optimizer
         model.train()
-        with dropout_draws(model, dropout_generator):
+        with dropout_draws(model, dropout_generator), global_batch(model, mesh, b):
             for k in range(steps):
                 if valid[k] <= 0:
                     continue  # cross-fold padding: a no-op, not a zero-gradient step
-                rows = rows_all[k]
+                rows = rows_all[k, shard]
                 ctgt = data["cls_targets"].index_select(0, rows)
                 lint = data["labels_int"].index_select(0, rows)
-                imgs, msks = self._augmented_batch(data, rows, draws, k)
+                imgs, msks = self._augmented_batch(data, rows, draws, k, shard)
                 opt.zero_grad(set_to_none=True)
                 out = self._apply(model, imgs)
-                loss, aux = self._losses(out, msks, ctgt)
+                loss, aux = self._loss_shares(out, msks, ctgt, n_local, b)
                 loss.backward()
+                if mesh is not None:
+                    self._all_reduce_gradients(model)
                 opt.step()
                 state.step += 1
                 sm = self._step_metrics(aux, msks, lint, sums["cm"])
-                sums = {
-                    "loss": sums["loss"] + loss.detach(),
-                    "seg_loss": sums["seg_loss"] + aux["seg_loss"].detach()
-                    if "seg_loss" in aux else sums["seg_loss"],
-                    "cls_loss": sums["cls_loss"] + aux["cls_loss"].detach()
-                    if "cls_loss" in aux else sums["cls_loss"],
-                    "dice": sums["dice"] + sm["dice"] if "dice" in sm else sums["dice"],
-                    "cm": sm.get("cm", sums["cm"]),
-                }
-        return self._epoch_metrics(sums, max(float(valid.sum()), 1.0))
+                sums["cm"] = sm.get("cm", sums["cm"])
+                shares.append(torch.stack([loss.detach(), aux.get("seg_loss", zero).detach(),
+                                           aux.get("cls_loss", zero).detach()]))
+                if "dice_counts" in sm:
+                    counts.append(sm["dice_counts"])
+        return self._epoch_metrics(self._epoch_sums(sums, shares, counts),
+                                   max(float(valid.sum()), 1.0))
+
+    def _epoch_sums(self, sums, shares: list, counts: list) -> Dict[str, torch.Tensor]:
+        """The epoch sums from the per-step loss shares, Dice counts and the
+        confusion matrix: under a mesh each all-reduced once; the steps then
+        added one by one, in the order of the steps."""
+        def reduced(t: torch.Tensor) -> torch.Tensor:
+            return t if self.mesh is None else self.mesh.all_reduce_sum(t)
+
+        if shares:
+            for loss, seg, cls in reduced(torch.stack(shares)):
+                sums["loss"], sums["seg_loss"], sums["cls_loss"] = (
+                    sums["loss"] + loss, sums["seg_loss"] + seg, sums["cls_loss"] + cls)
+        if counts:
+            for dice in M.dice_from_counts(reduced(torch.stack(counts))):
+                sums["dice"] = sums["dice"] + dice
+        sums["cm"] = reduced(sums["cm"])
+        return sums
 
     @torch.no_grad()
     def _eval_metrics(self, state: TrainState, data: Dict[str, Any]
                       ) -> Dict[str, torch.Tensor]:
-        """Validation: the whole split as one batch, as the JAX Engine does."""
+        """Validation: the whole split as one batch, as the JAX Engine does
+        (under a mesh each rank takes its shard of the rows, and the loss
+        shares, Dice counts and confusion matrix are all-reduced)."""
         self._check_state(state)
         n_cm = max(self.cfg.n_classes, 2)
         model = state.model
         model.eval()
-        images = self._nchw(data["images"].to(self._dtype))
-        masks = self._nchw(data["masks"].float())
-        loss, aux = self._losses(self._apply(model, images), masks, data["cls_targets"])
-        sm = self._step_metrics(aux, masks, data["labels_int"],
+        n = data["images"].shape[0]
+        shard = self.mesh.shard(n) if self.mesh is not None else slice(0, n)
+        n_local = shard.stop - shard.start
+        images = self._nchw(data["images"][shard].to(self._dtype))
+        masks = self._nchw(data["masks"][shard].float())
+        targets = data["cls_targets"][shard]
+        loss, aux = self._loss_shares(self._apply(model, images), masks, targets, n_local, n)
+        sm = self._step_metrics(aux, masks, data["labels_int"][shard],
                                 torch.zeros((n_cm, n_cm), device=self.device))
         zero = torch.zeros((), device=self.device)
-        metrics = {"loss": loss, "seg_loss": aux.get("seg_loss", zero),
-                   "cls_loss": aux.get("cls_loss", zero), "dice": sm.get("dice", zero)}
+        shares = torch.stack([loss, aux.get("seg_loss", zero), aux.get("cls_loss", zero)])
+        if self.mesh is not None:
+            shares = self.mesh.all_reduce_sum(shares)
+            for k in ("dice_counts", "cm"):
+                if k in sm:
+                    sm[k] = self.mesh.all_reduce_sum(sm[k])
+        metrics = dict(zip(("loss", "seg_loss", "cls_loss"), shares))
+        metrics["dice"] = M.dice_from_counts(sm["dice_counts"]) if "dice_counts" in sm else zero
         if "cm" in sm:
             cm_metrics = self._epoch_metrics({**metrics, "cm": sm["cm"]}, 1.0)
             metrics.update({k: cm_metrics[k] for k in ("acc", "f1", "f1_micro", "f1_binary")})
@@ -447,7 +564,9 @@ class Engine:
         """Batched inference on NHWC images (numpy or tensor, as the JAX
         Engine takes them); sets larger than ``max_batch`` run in chunks.
         ``pad_to`` wrap-pads the batch and trims the outputs back. Returns the
-        model's output structure, NCHW f32 tensors on the Engine's device."""
+        model's output structure, NCHW f32 tensors on the Engine's device.
+        Under a mesh each rank runs its shard of the (padded) rows and the
+        outputs are all-gathered in order, so every rank returns them all."""
         x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
         x = self._nchw(x.to(self.device).permute(0, 3, 1, 2).to(self._dtype))
         n = x.shape[0]
@@ -457,8 +576,15 @@ class Engine:
             x = x[torch.arange(pad_to, device=self.device) % n]
         model = state.model
         model.eval()
-        outs = [self._apply(model, x[i:i + max_batch]) for i in range(0, x.shape[0], max_batch)]
-        return tree_map(lambda *parts: torch.cat(parts, dim=0)[:n], *outs)
+        total = x.shape[0]
+        if self.mesh is not None:
+            x = x[self.mesh.shard(total)]
+        outs = [self._apply(model, x[i:i + max_batch])
+                for i in range(0, max(x.shape[0], 1), max_batch)]
+        out = tree_map(lambda *parts: torch.cat(parts, dim=0), *outs)
+        if self.mesh is not None:
+            out = tree_map(lambda a: self.mesh.all_gather_rows(a, total), out)
+        return tree_map(lambda a: a[:n], out)
 
     # ------------------------------------------------------------------
     # data

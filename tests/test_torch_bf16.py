@@ -326,7 +326,7 @@ def test_losses_and_metrics_never_receive_bf16(monkeypatch, fast):
         return wrapped
 
     for mod, names in ((loop.L, ("apply_criterion_multitask",)),
-                       (loop.M, ("dice_from_logits_batch", "predicted_labels_from_logits"))):
+                       (loop.M, ("dice_counts", "predicted_labels_from_logits"))):
         for name in names:
             monkeypatch.setattr(mod, name, spy(getattr(mod, name)))
     monkeypatch.setattr(loop, "fused_dice_criterion", spy(loop.fused_dice_criterion))
@@ -339,7 +339,7 @@ def test_losses_and_metrics_never_receive_bf16(monkeypatch, fast):
                                 np.array([0, 1, 2, 3]), torch.Generator().manual_seed(1))
     (cls,), seg = engine.predict(state, val.images)
     assert {name for name, _ in seen} == {"apply_criterion_multitask", "fused_dice_criterion",
-                                          "dice_from_logits_batch",
+                                          "dice_counts",
                                           "predicted_labels_from_logits"}
     assert {dtype for _, dtype in seen} == {torch.float32}
     assert cls.dtype == torch.float32 and all(s.dtype == torch.float32 for s in seg)

@@ -370,10 +370,22 @@ def test_exporting_for_the_card_without_one_raises(tmp_path, monkeypatch):
 
 
 def test_data_parallel_over_gpus_raises(artifacts, monkeypatch):
-    monkeypatch.setattr(E, "resolve_device", lambda device: torch.device("cuda", 0))
+    """Data parallelism over several devices is ported: ``ExportedModel``
+    with two replicas no longer raises, keeps one weight copy per device and
+    answers as one replica; over several visible GPUs it picks one replica
+    per GPU."""
+    model = E.ExportedModel(artifacts["raw"], devices=["cpu", "cpu"])
+    assert model.devices == [torch.device("cpu")] * 2 and len(model._weights) == 1
+    images = _images(9, seed=2)
+    one = E.ExportedModel(artifacts["raw"], device="cpu")
+    for a, b in zip(_flat(model.predict(images)), _flat(one.predict(images))):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        E.ExportedModel(artifacts["raw"])
+    assert E.replica_devices(None) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert E.replica_devices("cuda:1") == [torch.device("cuda", 1)]
+    assert E.replica_devices(None, data_parallel=False) == [torch.device("cuda", 0)]
 
 
 def test_loading_an_artifact_imports_no_model_code(artifacts):
