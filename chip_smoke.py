@@ -37,6 +37,19 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    misaligned view, with the plan, kernel, forced-streaming, plain and
    library times (autograd backward of ``F.leaky_relu(F.instance_norm(x))``,
    timed here only) and the bytes bound; two calls must agree bit for bit;
+5a. split statistics: the four split entry points of #1 and #2
+   (``instance_norm_split_sums``, ``..._split_apply``,
+   ``..._split_backward_sums``, ``..._split_backward_apply``) at every site
+   shape of the flagship, batches 2 and 64, f32 and bf16: each plane's rows
+   in two calls, their sums combined in part order on the device as two
+   ``space`` ranks combine them; every call on every part against its own
+   plain twin on the same inputs (the sums and the f32 gradient within 1e-5
+   of their scale, the apply 1e-5 absolute, bf16 outputs one ulp), and the
+   combined result against the fused kernel on the whole plane, forward and
+   backward (``kink_free`` inputs; f32 1e-5, bf16 one ulp, as the fused
+   kernel against its twin); each entry point's time on
+   one part beside its plain twin's and its bytes bound (no library call
+   computes a part's sums or the apply);
 6. augmentation kernel: ``fast_augment`` against its plain version, bit for
    bit, under every launch plan it takes (staged, direct; 1-32 blocks per
    plane), at S=128 P=2 B∈{2, 64}, S=256 P=3 B=16 and S=16 P=2
@@ -106,6 +119,26 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    plan = JAX's rule, 25 launches per bucket execution); the gradient
    all-reduce's time under Gloo and NCCL (one rank) and the two-rank step
    beside the one-process step, with the card's name and power limit;
+7d. spatial partitioning, a main path (``phase_spatial``): MTnnUNet at full
+   width over a ``(1 data × 2 space)`` mesh, two ranks on the one card over
+   Gloo, each holding half the rows of every image: three batch-2 steps at
+   128² through the Engine (fast augmentation on) and an evaluation, with
+   per step and rank no fused norm launch, the split entry points
+   50/25/25/25, one augmentation launch, 25 halo exchanges forward and 24
+   backward; every loss and the evaluation against one process replaying
+   the ranks' weights before each step (1e-5 relative: the same weights, so
+   no element crosses the LeakyReLU's kink between the two; the
+   evaluation's thresholded Dice to two pixels); step 0's gradient after
+   the all-reduce against one process's from the same weights, tensor by
+   tensor (least-squares scale within 1e-2 of 1, distance within 5e-2 of
+   the norm); parameters bit-identical across the ranks; each rank's peak
+   memory over a batch-2 step at 256² (above what it held before the step:
+   weights, gradients, Adam's moments) at most 0.6 of one process's, each
+   process limited to 1.5 GiB so that cuDNN takes convolution algorithms
+   whose workspace fits (the ranks and one process without the limit
+   beside, printed); ``run_experiment`` with
+   ``spatial_partitions: 2`` on both ranks (24 images, CV 2, 1 epoch):
+   finite rows, the same on both ranks, the mesh's axes logged; its time;
 8. driver, a main path: ``run_experiment(cfg, "multitask", "CV")`` at the
    ``Config()`` defaults on a 450-image 128² synthetic BUSI tree (CV 2, 2
    epochs), the ``training_multitask`` CLI in a process of its own, a killed
@@ -173,8 +206,10 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    and times and bounds summed over the sites (``sites_*``, 9a), and under
    ``seg_zoo`` each kernel's launches per seg-zoo architecture (9b: 0 for
    #1 and #2; #3 per four steps, with the forward and step ms), under
-   ``parallel`` 7c's launches per rank of each multi-rank run; then, last,
-   ``{"ok": true, "device": ...}``.
+   ``parallel`` 7c's launches per rank of each multi-rank run; the four
+   split entry points with 7d's launches (both ranks) and 5a's totals over
+   the sites at batch 64 f32 (one part of two; ``batch_2``, ``bf16``
+   beside); then, last, ``{"ok": true, "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
 (two bf16 forwards round at other places, so each is held to its own f32
@@ -793,6 +828,185 @@ def phase_backward_kernel(shapes: Counter, extras: bool = True,
     return result
 
 
+# the split entry points' work per element of their part: (tensors read or
+# written once, operations)
+SPLIT_WORK = {"instance_norm_split_sums": (2, 4),           # x twice: Σx; centre, square, add
+              "instance_norm_leaky_relu_split_apply": (2, 6),  # x, y; centre, scale, select
+              "instance_norm_leaky_relu_split_backward_sums": (2, 7),
+              "instance_norm_leaky_relu_split_backward_apply": (3, 10)}
+
+
+def _split_entry_ok(got, want) -> tuple:
+    """An entry point's f32 sums or input gradient against its plain twin's
+    on the same inputs: within tolerance, and the largest absolute error.
+    f32: within ``F32_TOL`` of the output's largest magnitude (sums over a
+    part's elements in another order); a bf16 gradient within one bf16 ulp
+    beside that (the apply's output goes by :func:`_forward_ok`)."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        return err.max().item() <= F32_TOL * scale, err.max().item()
+    return (bool((err <= BF16_REL_TOL * want.float().abs() + F32_TOL * scale).all()),
+            err.max().item())
+
+
+def split_entry_calls(x, g, parts: int = 2):
+    """Kernel #1 and #2's split entry points on ``parts`` row parts of
+    ``x`` (and ``g``), each part's sums combined in part order on the
+    device, as a ``space`` group of ``parts`` ranks combines them. Every
+    call, on every part, is held against its plain twin on the same inputs
+    (the combined sums the kernels produced): the apply by
+    :func:`_forward_ok`, the others by :func:`_split_entry_ok`. Returns
+    (y, dx) of the whole planes, each entry point's largest error against
+    its twin over the parts, and the inputs of the first part's launches
+    (part, gradient part, Σx, Σ(x − mean)², backward sums, total)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    h = x.shape[2]
+    cuts = [i * h // parts for i in range(parts + 1)]
+    xs = [x[:, :, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    gs = [g[:, :, a:b].contiguous() for a, b in zip(cuts, cuts[1:])]
+    total = h * x.shape[3]
+    errs = dict.fromkeys(SPLIT_ENTRIES, 0.0)
+
+    def call(name, *args):
+        got = getattr(hk, name)(*args)
+        want = getattr(hk, f"{name}_reference")(*args)
+        ok, err = (_forward_ok if name == "instance_norm_leaky_relu_split_apply"
+                   else _split_entry_ok)(got, want)
+        check(ok, f"{name} != its plain twin on part {tuple(args[0].shape)} of "
+                  f"{tuple(x.shape)} {x.dtype}: max abs err {err:.3g}")
+        errs[name] = max(errs[name], err)
+        return got
+
+    def combined(parts_):
+        out = parts_[0].clone()
+        for p in parts_[1:]:
+            out += p
+        return out
+
+    sums = combined([call("instance_norm_split_sums", p, total) for p in xs])
+    sq = combined([call("instance_norm_split_sums", p, total, sums) for p in xs])
+    y = torch.cat([call("instance_norm_leaky_relu_split_apply", p, sums, sq, total)
+                   for p in xs], 2)
+    gsums = combined([call("instance_norm_leaky_relu_split_backward_sums", p, q, sums, sq,
+                           total) for p, q in zip(xs, gs)])
+    dx = torch.cat([call("instance_norm_leaky_relu_split_backward_apply", p, q, sums, sq,
+                         gsums, total) for p, q in zip(xs, gs)], 2)
+    return y, dx, errs, (xs[0], gs[0], sums, sq, gsums, total)
+
+
+def _split_times(first) -> dict:
+    """Each split entry point's time on the first part (its two passes
+    together for the sums), its plain twin's, and its bound."""
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    p, q, sums, sq, gsums, total = first
+    calls = {
+        "instance_norm_split_sums": (
+            lambda: (hk.instance_norm_split_sums(p, total),
+                     hk.instance_norm_split_sums(p, total, sums)),
+            lambda: (hk.instance_norm_split_sums_reference(p, total),
+                     hk.instance_norm_split_sums_reference(p, total, sums))),
+        "instance_norm_leaky_relu_split_apply": (
+            lambda: hk.instance_norm_leaky_relu_split_apply(p, sums, sq, total),
+            lambda: hk.instance_norm_leaky_relu_split_apply_reference(p, sums, sq, total)),
+        "instance_norm_leaky_relu_split_backward_sums": (
+            lambda: hk.instance_norm_leaky_relu_split_backward_sums(p, q, sums, sq, total),
+            lambda: hk.instance_norm_leaky_relu_split_backward_sums_reference(
+                p, q, sums, sq, total)),
+        "instance_norm_leaky_relu_split_backward_apply": (
+            lambda: hk.instance_norm_leaky_relu_split_backward_apply(p, q, sums, sq, gsums,
+                                                                     total),
+            lambda: hk.instance_norm_leaky_relu_split_backward_apply_reference(
+                p, q, sums, sq, gsums, total))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        tensors, ops = SPLIT_WORK[name]
+        b_ms, kind = bound_ms(p.numel(), p.element_size(), tensors, ops)
+        out[name] = {"ms": time_ms(kernel, 10), "plain_ms": time_ms(plain, 10),
+                     "bound_ms": b_ms, "bound_by": kind}
+    return out
+
+
+def phase_split_kernel(shapes: Counter) -> dict:
+    """5a. The split-statistics entry points of kernels #1 and #2 at every
+    norm site's shape of the flagship, batches 2 and 64, f32 and bf16: each
+    plane's rows split over two calls on the one card, the sums combined in
+    part order on the device (as two ``space`` ranks combine them); each
+    call on each part against its plain twin on the same inputs
+    (:func:`split_entry_calls`), and the combined result against the fused
+    kernel on the whole plane, forward and backward (``kink_free`` inputs),
+    within the fused kernel's own tolerances against its twin; each entry
+    point timed on one part against its plain twin and its bytes bound (no
+    single library call computes a part's sums or the apply). Returns, per
+    batch and type, each entry point's totals over the sites, its largest
+    error against its twin (``max_abs_err``) and the combined result's
+    against the fused kernel (``fused_max_abs_err``)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    result = {}
+    for batch in (2, BATCH):
+        result[batch] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            result[batch][dtype] = {name: {"max_abs_err": 0.0, "fused_max_abs_err": 0.0,
+                                           "ms": 0.0, "plain_ms": 0.0,
+                                           "bound_ms": 0.0, "bound_by": "bytes",
+                                           "library_ms": None} for name in SPLIT_ENTRIES}
+        log(f"split entry points of #1/#2 at batch {batch}: each plane's rows in two calls, "
+            f"against the fused kernel on the whole plane; times of the first part's launch")
+        for (c, h, w), sites in sorted(shapes.items(), key=lambda kv: -kv[0][1] * kv[0][2]):
+            x = kink_free((batch, c, h, w), gen)
+            gy = torch.randn(batch, c, h, w, device=DEVICE, generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd, gd = x.to(dtype), gy.to(dtype)
+                y, dx, errs, first = split_entry_calls(xd, gd)
+                y0 = hk.instance_norm_leaky_relu(xd)
+                dx0 = hk.instance_norm_leaky_relu_backward(xd, gd)
+                torch.cuda.synchronize()
+                ok, f_err = _forward_ok(y, y0)
+                check(ok, f"split forward != fused at B={batch} C={c} HxW={h}x{w} {dtype}: "
+                          f"max abs err {f_err:.3g}")
+                b_err = (dx.float() - dx0.float()).abs()
+                scale = dx0.float().abs().max().item()
+                tol = (F32_TOL * scale if dtype == torch.float32
+                       else BF16_REL_TOL * dx0.float().abs() + F32_TOL * scale)
+                check(bool((b_err <= tol).all()),
+                      f"split backward != fused at B={batch} C={c} HxW={h}x{w} {dtype}: "
+                      f"max abs err {b_err.max().item():.3g} (scale {scale:.3g})")
+                times = _split_times(first)
+                rows = result[batch][dtype]
+                for name, t in times.items():
+                    row = rows[name]
+                    row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+                    fused = f_err if "backward" not in name else b_err.max().item()
+                    row["fused_max_abs_err"] = max(row["fused_max_abs_err"], fused)
+                    for key in ("ms", "plain_ms", "bound_ms"):
+                        row[key] += sites * t[key]
+                    if t["bound_by"] != "bytes":
+                        row["bound_by"] = "operations"
+                log(f"  C={c:4d} HxW={h:3d}x{w:<3d} x{sites} {str(dtype)[6:]:8s} "
+                    f"err vs twin " + "/".join(f"{errs[n]:.3g}" for n in SPLIT_ENTRIES)
+                    + f", vs fused fwd {f_err:.3g} bwd {b_err.max().item():.3g}  "
+                    + "  ".join(f"{name.split('_split_')[-1].replace('instance_norm_', '')} "
+                                f"{t['ms']:.4f}/{t['plain_ms']:.4f}/{t['bound_ms']:.4f}"
+                                for name, t in times.items())
+                    + " ms (kernel/plain/bound)")
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, row in result[batch][dtype].items():
+                log(f"split totals at batch {batch} {str(dtype)[6:]}, {name} over the "
+                    f"{sum(shapes.values())} sites (one part): kernel {row['ms']:.4f} ms, "
+                    f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}), max abs err {row['max_abs_err']:.3g} against its "
+                    f"twin, {row['fused_max_abs_err']:.3g} of the combined result against "
+                    f"the fused kernel")
+    log(f"split kernel phase ({_card()}): {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def _special_draws(b: int, gen):
     """Random flips and angles with the boundary cases first: ±180°, the
     multiples of 90°, 0°, just beside them, under all four flip pairs."""
@@ -969,19 +1183,20 @@ def phase_augment_kernel(index_plane_lib) -> dict:
     return main, bf16
 
 
-def synthetic_fold(n: int, seed: int):
-    """A BUSI-like fold: uint8-valued 128² images with a brighter elliptic
-    lesion, its binary mask, labels benign/malignant/normal in turn, and
-    empty masks for 'normal'."""
+def synthetic_fold(n: int, seed: int, size: int = 0):
+    """A BUSI-like fold: uint8-valued ``size``² images (default ``SIZE``)
+    with a brighter elliptic lesion, its binary mask, labels
+    benign/malignant/normal in turn, and empty masks for 'normal'."""
     import numpy as np
     from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
+    size = size or SIZE
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    yy, xx = np.mgrid[0:size, 0:size]
     labels = (np.arange(n) % 3).astype(np.int32)
-    masks = np.zeros((n, SIZE, SIZE, 1), np.float32)
+    masks = np.zeros((n, size, size, 1), np.float32)
     for i in np.flatnonzero(labels != 2):
-        cy, cx = rng.integers(SIZE // 4, 3 * SIZE // 4, 2)
-        ry, rx = rng.integers(SIZE // 12, SIZE // 5, 2)
+        cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+        ry, rx = rng.integers(size // 12, size // 5, 2)
         masks[i, ..., 0] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
     images = np.clip(rng.normal(90, 30, masks.shape) + 70 * masks, 0, 255).round()
     return ArrayDataset(images=images.astype(np.float32), masks=masks, labels=labels,
@@ -1016,9 +1231,27 @@ def _counts():
 def _reset_counts() -> None:
     from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.parallel import spatial
     hk.instance_norm_leaky_relu.launches = 0
     hk.instance_norm_leaky_relu_backward.launches = 0
     FA.fast_augment.launches = 0
+    for name in SPLIT_ENTRIES:
+        getattr(hk, name).launches = 0
+    spatial.reset_counts()
+
+
+# the split-statistics entry points of kernels #1 (the first two) and #2
+SPLIT_ENTRIES = ("instance_norm_split_sums", "instance_norm_leaky_relu_split_apply",
+                 "instance_norm_leaky_relu_split_backward_sums",
+                 "instance_norm_leaky_relu_split_backward_apply")
+
+
+def _split_counts() -> dict:
+    """The split entry points' launches and the ``space`` group's halo
+    exchanges and collectives, by name."""
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.parallel import spatial
+    return {**{name: getattr(hk, name).launches for name in SPLIT_ENTRIES}, **spatial.counts}
 
 
 def _snapshot(state):
@@ -1144,7 +1377,7 @@ def dispatch_cost(engine, state, data, perm, gen) -> None:
     from multi_task_breast_cancer_tpu_torch.models import blocks
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
-    def via_op(x, eps=1e-5, slope=0.01):
+    def via_op(x, eps=1e-5, slope=0.01, space=None):  # no space group in this phase
         return hk.instance_norm_leaky_relu_op(x, eps, slope)
 
     steps = len(perm) // engine.cfg.batch_size
@@ -3480,15 +3713,24 @@ def parallel_rank() -> None:
     WORLD PORT OUT BACKEND DEVICE``."""
     import torch
     from multi_task_breast_cancer_tpu_torch.parallel import multihost
-    from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_mesh
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_mesh, data_space_mesh
 
     case, rank, world, port, out, backend, device = sys.argv[1:8]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank), backend=backend,
                          timeout_s=300)
-    mesh = data_mesh(device=device)
-    if case == "steps":
+    if case.startswith("spatial_ranks") or case == "spatial":
+        mesh = data_space_mesh(SPATIAL_N, device=device)
+    else:
+        mesh = data_mesh(device=device)
+    if case == "spatial":
+        result = spatial_case(mesh, out)
+    elif case == "spatial_ranks_peak":  # the ranks' step peak without the limit
+        result = _spatial_peak(mesh, cap=False)
+    elif case.startswith("spatial_peak"):  # one process, no mesh
+        result = _spatial_peak(None, cap=case.endswith("capped"))
+    elif case == "steps":
         result = {arch: _parallel_run(arch, mesh) for arch in ("MTnnUNet", "ResidualUNet")}
         result["allreduce_ms"] = _allreduce_ms(mesh)
     elif case == "steps_mtnnunet":
@@ -3500,10 +3742,11 @@ def parallel_rank() -> None:
     torch.distributed.destroy_process_group()
 
 
-def _run_ranks(case: str, world: int, backend: str, devices: list, work: str) -> list:
-    """``case`` on ``world`` ranks, each a process of its own on its device
-    of ``devices``; every rank's result, rank by rank. A rank that fails
-    stops the others and fails the phase."""
+def _start_ranks(case: str, world: int, backend: str, devices: list, work: str):
+    """Start ``case`` on ``world`` ranks, each a process of its own on its
+    device of ``devices``; returns a function that waits for them and gives
+    every rank's result, rank by rank. A rank that fails stops the others
+    and fails the phase."""
     import torch
     out = os.path.join(work, f"{case}_{backend}_{world}")
     os.makedirs(out, exist_ok=True)
@@ -3516,16 +3759,25 @@ def _run_ranks(case: str, world: int, backend: str, devices: list, work: str) ->
                                str(world), str(port), out, backend, devices[r]],
                               cwd=root, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"{case}: rank {r} of {world} ({backend}) exited "
-                                 f"{p.returncode}:\n{text[-3000:]}")
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+
+    def wait() -> list:
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"{case}: rank {r} of {world} ({backend}) exited "
+                                     f"{p.returncode}:\n{text[-3000:]}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    return wait
+
+
+def _run_ranks(case: str, world: int, backend: str, devices: list, work: str) -> list:
+    """:func:`_start_ranks` and wait for them."""
+    return _start_ranks(case, world, backend, devices, work)()
 
 
 def _parallel_grad_check(what: str, arch: str, single: dict, ranks_grads: dict, b: int,
@@ -3996,6 +4248,354 @@ def phase_parallel_alone() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+SPATIAL_N = 2                   # space ranks, on the one card over Gloo
+SPATIAL_STEPS = 3               # real batch-2 steps, one train_epoch each
+SPATIAL_MEMORY_SIZE = 256       # the peak-memory step's image side
+SPATIAL_PEAK_RATIO = 0.6        # a rank's step peak against one process's
+# the peak-memory steps run in processes limited to this much device memory
+# (``torch.cuda.set_per_process_memory_fraction``): cuDNN then takes
+# convolution algorithms whose workspace fits, as a process short of memory
+# must; without the limit one convolution's backward alone takes a workspace
+# of ~2 GiB at 256² (measured beside it, in a process of its own)
+SPATIAL_MEMORY_CAP = 1.5 * 2 ** 30
+SPATIAL_LOSS_REL_TOL = 1e-5     # from the same weights: only the order of the sums differs
+# step 0's gradient per tensor against one process's: the least-squares scale
+# within this of 1, and the distance within this of the tensor's norm. A
+# gradient term lost or counted twice (a missing sum over the group, a halo's
+# gradient not sent back, the 1/n_space weight) moves the scale by tens of
+# percent; one element that the two sum orders put on different sides of the
+# LeakyReLU's kink moves the first layers' gradients by ~1 % of their largest
+# element (phase 7c's measurement), a few of their elements only
+SPATIAL_GRAD_SCALE_TOL = 1e-2
+SPATIAL_GRAD_DIST_TOL = 5e-2
+SPATIAL_TREE_PER_CLASS = 8      # the driver run: 24 images, CV 2, 1 epoch
+SPATIAL_BUDGET_S = 90.0
+
+
+def _spatial_engine(mesh, size: int = 0):
+    """MTnnUNet at full width from generator seed 0 at the ``Config()``
+    defaults (batch 2, fast augmentation), its state replicated over
+    ``mesh``, and its device data (``SPATIAL_STEPS`` steps of ``size``²)."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import replicate_to_mesh
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    device = mesh.device if mesh is not None else torch.device(DEVICE)
+    engine = Engine(_parallel_model("MTnnUNet", mesh),
+                    _engine_config(cfg, task="multitask", fast_augmentation=True),
+                    device=device, mesh=mesh)
+    state = replicate_to_mesh(mesh, create_train_state(engine.model, cfg.optimizer.opt,
+                                                       cfg.optimizer.lr))
+    b = cfg.data.batch_size
+    fold = synthetic_fold(b * SPATIAL_STEPS, 41, size)
+    return engine, state, engine.device_data(fold), b
+
+
+def _spatial_steps(mesh, replay=None) -> dict:
+    """``SPATIAL_STEPS`` real steps at 128² through the Engine, then an
+    evaluation of 4 images: per step the loss, the launches (#1, #2, #3 and
+    the split entry points, halo exchanges, collectives), and this rank's
+    weights before it (rank 0 returns them); the first step's gradient as
+    the optimizer gets it (after the all-reduce; rank 0 and one process);
+    the state's digest; the evaluation. ``replay`` (one process): the ranks'
+    weights, loaded before each step and before the evaluation, so its
+    losses and first gradient come from the same weights as theirs."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.train.loop import plan_epoch_indices
+
+    engine, state, train, b = _spatial_engine(mesh)
+    val = engine.device_data(synthetic_fold(4, 42), for_training=False)
+    perm = plan_epoch_indices(b * SPATIAL_STEPS, b, np.random.default_rng(0))
+    gen = torch.Generator().manual_seed(0)
+    losses, launches, weights, grads = [], [], [], {}
+    keep = mesh is not None and mesh.rank == 0
+    named, opt_step = dict(engine.model.named_parameters()), state.optimizer.step
+
+    def record_grads(*args, **kwargs):
+        if not grads:
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in named.items()
+                          if p.grad is not None})
+        return opt_step(*args, **kwargs)
+
+    state.optimizer.step = record_grads
+    for k in range(SPATIAL_STEPS):
+        if replay is not None:
+            state.model.load_state_dict(replay["weights"][k])
+        if keep:
+            weights.append({n: t.detach().cpu().clone() for n, t in
+                            state.model.state_dict().items()})
+        _sync(engine.device)
+        _reset_counts()
+        state, tm = engine.train_epoch(state, train, perm[k * b:(k + 1) * b], gen)
+        _sync(engine.device)
+        launches.append({"#1": _counts()[0], "#2": _counts()[1], "#3": _counts()[2],
+                         **_split_counts()})
+        losses.append(tm["loss"])
+    del state.optimizer.step  # the class's again: no cycle keeps the state alive
+    if replay is not None:
+        state.model.load_state_dict(replay["final"])
+    _reset_counts()
+    ev = engine.eval_epoch(state, val)
+    eval_launches = {"#1": _counts()[0], **_split_counts()}
+    return {"losses": losses, "launches": launches, "weights": weights,
+            "grads": grads if keep or mesh is None else None,
+            "final": ({n: t.detach().cpu().clone() for n, t in state.model.state_dict().items()}
+                      if keep else None),
+            "digest": _digest(state.model.state_dict()), "eval": ev,
+            "eval_launches": eval_launches}
+
+
+def _spatial_peak(mesh, cap: bool = True) -> dict:
+    """One batch-2 step at ``SPATIAL_MEMORY_SIZE``² after a warm-up step, in
+    a process limited to ``SPATIAL_MEMORY_CAP`` (``cap``) or not: the bytes
+    allocated before it (weights, gradients, Adam's moments, the fold) and
+    the step's peak above them. Call it before any other step at this size
+    in the process: cuDNN keeps the algorithms it chose."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.train.loop import plan_epoch_indices
+
+    device = torch.device(mesh.device if mesh is not None else DEVICE)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    torch.cuda.empty_cache()
+    if cap:
+        torch.cuda.set_per_process_memory_fraction(
+            SPATIAL_MEMORY_CAP / torch.cuda.get_device_properties(index).total_memory, index)
+    engine, state, train, b = _spatial_engine(mesh, SPATIAL_MEMORY_SIZE)
+    perm = plan_epoch_indices(b * SPATIAL_STEPS, b, np.random.default_rng(0))
+    gen = torch.Generator().manual_seed(0)
+    engine.train_epoch(state, train, perm[:b], gen)
+    _sync(engine.device)
+    base = torch.cuda.memory_allocated(engine.device)
+    torch.cuda.reset_peak_memory_stats(engine.device)
+    engine.train_epoch(state, train, perm[b:2 * b], gen)
+    _sync(engine.device)
+    peak = torch.cuda.max_memory_allocated(engine.device)
+    params = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    del engine, state, train
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(1.0, index)
+    return {"base": base, "peak": peak, "params": params, "cap": cap}
+
+
+def _spatial_driver(mesh, tree: str, run_root: str) -> dict:
+    """``run_experiment`` with ``spatial_partitions: 2`` as this rank
+    (rank 0 under ``run_root``, the other in a scratch root), CV 2, one
+    epoch at the ``Config()`` defaults: its metrics rows and launches."""
+    from multi_task_breast_cancer_tpu_torch.parallel import multihost
+    from multi_task_breast_cancer_tpu_torch.train.driver import run_experiment
+
+    cfg = _driver_config(tree, 2, 1, spatial_partitions=SPATIAL_N)
+    _reset_counts()
+    run = run_experiment(cfg, "multitask", "CV", run_root=multihost.coordinator_run_root(run_root),
+                         device=mesh.device)
+    _sync(mesh.device)
+    log_text = open(os.path.join(run, "execution.log")).read()
+    return {"rows": [_metric_rows(run, f) for f in (0, 1)],
+            "launches": {"#1": _counts()[0], "#2": _counts()[1], "#3": _counts()[2],
+                         **_split_counts()},
+            "mesh_logged": "mesh axes ('data', 'space'), shape (1, 2)" in log_text}
+
+
+def _spatial_grad_check(ranks: dict, single: dict) -> tuple:
+    """Each tensor of the ranks' step-0 gradient (after the all-reduce)
+    against one process's from the same weights and rows: its least-squares
+    scale ``<a, b> / <b, b>`` within ``SPATIAL_GRAD_SCALE_TOL`` of 1 and
+    ``|a − b| / |b|`` within ``SPATIAL_GRAD_DIST_TOL`` (a tensor whose
+    gradient is zero in one process must be zero on the ranks). Returns the
+    largest of each with its tensor's name."""
+    check(ranks.keys() == single.keys() and len(single) > 0,
+          f"spatial: the ranks' gradient has {len(ranks)} tensors, one process's "
+          f"{len(single)}")
+    worst_scale, worst_dist = (0.0, ""), (0.0, "")
+    for name, b in single.items():
+        a, b = ranks[name].double().flatten(), b.double().flatten()
+        bb = float(b @ b)
+        if bb == 0.0:
+            check(float(a @ a) == 0.0, f"spatial: {name}'s gradient is not zero on the ranks")
+            continue
+        fit = float(a @ b) / bb
+        dist = float((a - b).norm()) / bb ** 0.5
+        worst_scale = max(worst_scale, (abs(fit - 1.0), name))
+        worst_dist = max(worst_dist, (dist, name))
+        check(abs(fit - 1.0) <= SPATIAL_GRAD_SCALE_TOL and dist <= SPATIAL_GRAD_DIST_TOL,
+              f"spatial: step 0's gradient of {name}: scale {fit:.4g} or distance "
+              f"{dist:.3g} of its norm from one process's")
+    return worst_scale, worst_dist
+
+
+def spatial_case(mesh, out: str) -> dict:
+    """The ranks' part of 7d (``parallel_rank``'s case ``spatial``)."""
+    t0 = time.perf_counter()
+    steps = _spatial_steps(mesh)
+    peak = _spatial_peak(mesh)
+    driver = _spatial_driver(mesh, os.path.join(os.path.dirname(out), "spatial_busi"),
+                             os.path.join(os.path.dirname(out), "spatial_runs"))
+    return {"steps": steps, "peak": peak, "driver": driver,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_spatial() -> dict:
+    """7d. Spatial partitioning, a main path: MTnnUNet at full width over a
+    ``(1 data × 2 space)`` mesh, two ranks on the one card over Gloo (one
+    card: no NCCL across cards). Each rank holds half the rows of every
+    image. Engine: ``SPATIAL_STEPS`` batch-2 steps at 128² (fast
+    augmentation on) and an evaluation; per real step and rank 0 launches of
+    #1/#2 (every norm site takes the split path), the split entry points
+    50/25/25/25, one #3, 25 halo exchanges forward and 24 backward; each
+    loss and the evaluation's against one process replaying the ranks'
+    weights (1e-5 relative); step 0's gradient after the all-reduce against
+    one process's from the same weights (:func:`_spatial_grad_check`);
+    parameters bit-identical across the ranks. Peak memory: one batch-2 step
+    at 256² on each rank against one process (a process of its own), each
+    limited to ``SPATIAL_MEMORY_CAP``, above what each held before the step
+    (weights, gradients, Adam's moments), at most ``SPATIAL_PEAK_RATIO``;
+    the same without the limit beside, on the ranks and on one process,
+    printed and not held. ``run_experiment`` with
+    ``spatial_partitions: 2`` on both ranks (24 images, CV 2, one epoch):
+    finite rows, equal on both ranks, the mesh logged. Returns every
+    kernel's launches on these main paths, summed over the ranks."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+
+    t0 = time.perf_counter()
+    log(f"spatial: MTnnUNet over a (1 data x {SPATIAL_N} space) mesh, two ranks on one card "
+        f"over Gloo")
+    work = tempfile.mkdtemp(prefix="mtbc_spatial_")
+    try:
+        make_preprocessed_busi(os.path.join(work, "spatial_busi"), size=SIZE, seed=6,
+                               n_per_class=SPATIAL_TREE_PER_CLASS)
+        # the one-process peak steps run beside the ranks: each process
+        # counts its own memory
+        waits = [_start_ranks(case, n, "gloo", [DEVICE] * n, work) for case, n in
+                 (("spatial", SPATIAL_N), ("spatial_peak_capped", 1), ("spatial_peak", 1),
+                  ("spatial_ranks_peak", SPATIAL_N))]
+        ranks, (single_peak,), (uncapped,), ranks_uncapped = (wait() for wait in waits)
+        torch.backends.cudnn.deterministic = True
+        replay = _spatial_steps(None, replay=ranks[0]["steps"])
+        torch.backends.cudnn.deterministic = False
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    r0 = ranks[0]["steps"]
+    # the evaluation's thresholded Dice may move by a pixel at the 0.5
+    # threshold: two pixels' worth, 3/P each for P lesion pixels
+    pixel = 3.0 / float(synthetic_fold(4, 42).masks.sum())
+    for r, res in enumerate(ranks):
+        st = res["steps"]
+        check(st["digest"] == r0["digest"], f"spatial: rank {r}'s parameters differ from rank 0's")
+        check(all(math.isfinite(v) for v in st["losses"]), f"spatial: rank {r} loss not finite")
+        for k, got in enumerate(st["launches"]):
+            want = {"#1": 0, "#2": 0, "#3": 1, "instance_norm_split_sums": 50,
+                    "instance_norm_leaky_relu_split_apply": 25,
+                    "instance_norm_leaky_relu_split_backward_sums": 25,
+                    "instance_norm_leaky_relu_split_backward_apply": 25,
+                    "halo_exchanges": 25, "halo_exchanges_backward": 24}
+            check(all(got[key] == v for key, v in want.items()),
+                  f"spatial: rank {r} step {k} launches {got}, want {want}")
+        ev = st["eval_launches"]
+        check(ev["#1"] == 0 and ev["instance_norm_split_sums"] == 50
+              and ev["instance_norm_leaky_relu_split_apply"] == 25
+              and ev["halo_exchanges"] == 25, f"spatial: rank {r} evaluation launches {ev}")
+        for k, (got, want) in enumerate(zip(st["losses"], replay["losses"])):
+            check(abs(got - want) <= SPATIAL_LOSS_REL_TOL * abs(want),
+                  f"spatial: rank {r} step {k} loss {got!r} vs one process {want!r}")
+        for key in ("loss", "seg_loss", "cls_loss", "dice"):
+            got, want = st["eval"][key], replay["eval"][key]
+            check(abs(got - want) <= SPATIAL_LOSS_REL_TOL * max(abs(want), 1e-6) or
+                  (key == "dice" and abs(got - want) <= 2 * pixel),
+                  f"spatial: rank {r} evaluation {key} {got!r} vs one process {want!r}")
+        d = res["driver"]
+        check(d["mesh_logged"], f"spatial: rank {r}'s run did not log the (data, space) mesh")
+        check(d["rows"] == ranks[0]["driver"]["rows"],
+              f"spatial: rank {r}'s metrics rows differ from rank 0's")
+        check(d["launches"]["#1"] == 0 and d["launches"]["instance_norm_split_sums"] > 0,
+              f"spatial: rank {r}'s driver run launches {d['launches']}")
+    grad_scale, grad_dist = _spatial_grad_check(r0["grads"], replay["grads"])
+    for fold_rows in ranks[0]["driver"]["rows"]:
+        for line in fold_rows[1:]:
+            check("nan" not in line.lower(), f"spatial: a metrics row is not finite: {line}")
+    step = ranks[0]["steps"]["launches"][0]
+    log(f"  per real step and rank: #1 {step['#1']}, #2 {step['#2']}, #3 {step['#3']}; split "
+        + ", ".join(f"{n} {step[n]}" for n in SPLIT_ENTRIES)
+        + f"; halo exchanges {step['halo_exchanges']} forward, "
+          f"{step['halo_exchanges_backward']} backward; collectives {step['collectives']}")
+    log(f"  losses of {SPATIAL_STEPS} steps, rank 0: "
+        + ", ".join(repr(v) for v in r0["losses"]) + "; one process from the same weights: "
+        + ", ".join(repr(v) for v in replay["losses"]))
+    log(f"  step 0's gradient after the all-reduce, rank 0, against one process's from "
+        f"the same weights, over {len(r0['grads'])} tensors: least-squares scale within "
+        f"{grad_scale[0]:.3g} of 1 (at most {SPATIAL_GRAD_SCALE_TOL}; {grad_scale[1]}), "
+        f"distance {grad_dist[0]:.3g} of the tensor's norm (at most "
+        f"{SPATIAL_GRAD_DIST_TOL}; {grad_dist[1]})")
+    log(f"  evaluation, rank 0: " + ", ".join(f"{k} {r0['eval'][k]!r}" for k in
+                                                 ("loss", "dice", "acc"))
+        + "; one process: " + ", ".join(f"{k} {replay['eval'][k]!r}" for k in
+                                         ("loss", "dice", "acc")))
+    single_act = single_peak["peak"] - single_peak["base"]
+    uncapped_act = uncapped["peak"] - uncapped["base"]
+    log(f"  peak memory, batch-2 step at {SPATIAL_MEMORY_SIZE}², one process without a limit: "
+        f"{uncapped_act / 2**20:.1f} MiB above the {uncapped['base'] / 2**20:.1f} MiB held "
+        f"before the step; under the {SPATIAL_MEMORY_CAP / 2**30:.1f} GiB limit below")
+    for r, p in enumerate(ranks_uncapped):
+        act = p["peak"] - p["base"]
+        log(f"  peak memory, batch-2 step at {SPATIAL_MEMORY_SIZE}² without a limit, rank {r}: "
+            f"max_memory_allocated {p['peak'] / 2**20:.1f} MiB, held before the step "
+            f"{p['base'] / 2**20:.1f} MiB, the step's {act / 2**20:.1f} MiB against one "
+            f"process's {uncapped_act / 2**20:.1f} MiB without a limit: "
+            f"{act / uncapped_act:.3f} (not held: cuDNN's workspace, which the partition "
+            f"does not shrink, dominates it)")
+    for r, res in enumerate(ranks):
+        p = res["peak"]
+        act = p["peak"] - p["base"]
+        ratio = act / single_act
+        log(f"  peak memory, batch-2 step at {SPATIAL_MEMORY_SIZE}² under the "
+            f"{SPATIAL_MEMORY_CAP / 2**30:.1f} GiB limit, rank {r}: "
+            f"max_memory_allocated {p['peak'] / 2**20:.1f} MiB, held before the step "
+            f"{p['base'] / 2**20:.1f} MiB (parameters {p['params'] / 2**20:.1f} MiB), the "
+            f"step's {act / 2**20:.1f} MiB against one process's {single_act / 2**20:.1f} MiB "
+            f"({single_peak['peak'] / 2**20:.1f} - {single_peak['base'] / 2**20:.1f}): "
+            f"{ratio:.3f}")
+        check(ratio <= SPATIAL_PEAK_RATIO, f"spatial: rank {r}'s step peak is {ratio:.3f} of "
+                                           f"one process's (at most {SPATIAL_PEAK_RATIO})")
+    seconds = time.perf_counter() - t0
+    log(f"spatial ({_card()}): ranks {max(r['seconds'] for r in ranks):.1f} s of work each; "
+        f"phase {seconds:.1f} s (budget {SPATIAL_BUDGET_S:.0f} s)")
+    totals = {}
+    for res in ranks:
+        for part in [*res["steps"]["launches"], res["steps"]["eval_launches"],
+                     res["driver"]["launches"]]:
+            for key, v in part.items():
+                totals[key] = totals.get(key, 0) + v
+    return totals
+
+
+def phase_spatial_alone() -> None:
+    """5a and 7d by themselves: build the kernels, check and time the split
+    entry points, run the spatial phase. ``python3 -c "import chip_smoke;
+    chip_smoke.phase_spatial_alone()"`` from the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
+    shapes = norm_shapes(model.to(DEVICE).eval(), DEVICE)
+    del model
+    phase_split_kernel(shapes)
+    log(json.dumps({"spatial_launches": phase_spatial()}))
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -4018,6 +4618,7 @@ def main() -> int:
     serve_launches = phase_serving()
     totals = phase_backward_kernel(shapes)
     backward, backward_bf16 = totals[2][F32], {b: totals[b][BF16] for b in (2, BATCH)}
+    split = phase_split_kernel(shapes)
     augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
     work = tempfile.mkdtemp(prefix="mtbc_smoke_")
     try:
@@ -4027,6 +4628,7 @@ def main() -> int:
         (p_fwd, p_bwd, p_aug), parallel_rows = phase_parallel(os.path.join(work, "artifact_f32"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    spatial_launches = phase_spatial()
     d_fwd, d_bwd, d_aug = phase_driver()
     b_fwd, b_bwd, b_aug = phase_driver_bf16()
     t_fwd = phase_tools()
@@ -4069,7 +4671,14 @@ def main() -> int:
                                               "forward_ms_64": r["forward_ms_64"],
                                               "step_ms_2": r["step_ms_2"]}
                                           for a, r in seg_zoo_rows.items()}},
-         "parallel": per_rank(2)}]}))
+         "parallel": per_rank(2)},
+        *({"name": name, "route": "cuda", "source": norm_src,
+           "replaces": ("multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45" if "backward" in name
+                        else "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34"),
+           "launches": spatial_launches[name], **split[BATCH][F32][name],
+           "parts": 2, "batch_2": split[2][F32][name],
+           "bf16": {f"batch_{b}": split[b][BF16][name] for b in (2, BATCH)}}
+          for name in SPLIT_ENTRIES)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

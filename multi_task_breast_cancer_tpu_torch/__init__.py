@@ -14,7 +14,9 @@ training so far:
 - :mod:`.train` — the epoch ``Engine``, optimizers, schedulers, train state;
 - :mod:`.data` — the in-memory fold and the exact joint augmentation;
 - :mod:`.parallel` — data parallelism over ``torch.distributed``: the data
-  mesh (one rank per GPU) and multi-process start-up;
+  mesh (one rank per GPU), the ``(data × space)`` mesh of spatial
+  partitioning and its collectives (:mod:`.parallel.spatial`), and
+  multi-process start-up;
 - :mod:`.serve` — serving artifacts (``serve export``: ``torch.export``
   programs) and the micro-batching HTTP server over a live model, a port
   artifact or a JAX serving artifact's weights.

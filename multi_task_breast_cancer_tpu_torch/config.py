@@ -63,10 +63,11 @@ class TrainingConfig:
     # TPU-native additions (absent keys default so reference configs load as-is)
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
     data_parallel: bool = True      # shard batches over all visible devices
-    # Spatial partitioning: also shard image ROWS over this many devices
-    # (mesh becomes (devices/n) data × n space; GSPMD inserts conv halo
-    # exchanges). Lets activations exceed one chip's HBM — raise for
-    # full-resolution (≥512²) training. 1 = pure data parallelism.
+    # Spatial partitioning: also shard image ROWS over this many ranks
+    # (mesh becomes (ranks/n) data × n space; parallel/spatial.py exchanges
+    # the conv halos and sums the norm, Dice and pooling statistics over the
+    # space group). Each rank holds 1/n of every activation plane. The
+    # nnU-Net and BTS families only. 1 = pure data parallelism.
     spatial_partitions: int = 1
     # False (default): best state is snapshotted on device and the checkpoint
     # file is written once per fold (a per-epoch full-state host fetch costs

@@ -53,6 +53,21 @@
 //    not a multiple of the vector width): the first design, one block of at
 //    most 256 threads per plane that re-reads the plane for every pass (three
 //    times forward; x four times and g twice backward), kept as it was.
+//
+// Split statistics (the `space` axis of a spatial partition, where each rank
+// holds some rows of every plane). The caller combines the partial sums of
+// all the parts, in one fixed order, between the launches; `total` is the
+// element count of the whole plane. Still two-pass, never E[x^2]-mean^2:
+//   split_sums (no sums given)  part[p] = sum(x)               over the rows
+//   split_sums (sums given)     part[p] = sum((x - mean)^2),   mean = S/total
+//   split_apply                 y = LeakyReLU((x - mean) * rsqrt(Q/total + eps))
+//   split_backward_sums         part[p] = (sum(dxhat), sum(dxhat * xhat))
+//   split_backward_apply        dx = rstd * (dxhat - G1/total - xhat * G2/total)
+// where S, Q, (G1, G2) are the combined parts. mean and rstd are formed from
+// S and Q exactly as the fused kernels form them, so a plane cut into parts
+// differs from the fused kernel only by the order of the sums. The sums take
+// one block per plane part (the streaming design's loops); the applies are
+// elementwise over a flat grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -643,6 +658,97 @@ instance_norm_leaky_relu_backward_subwarp_kernel(const T* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split statistics (see the header). `sums`, `sq`, `gsums`: the combined
+// parts, f32, one (or two, gsums) per plane.
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+split_sums_kernel(const T* __restrict__ x, const float* __restrict__ sums,
+                  float* __restrict__ part, int hw, float inv_total) {
+  __shared__ float scratch[kMaxWarps];
+  const T* xp = x + static_cast<size_t>(blockIdx.x) * hw;
+  float s = 0.0f;
+  if (sums == nullptr) {
+    for (int i = threadIdx.x; i < hw; i += blockDim.x) s += load_f32(xp + i);
+  } else {
+    const float mean = sums[blockIdx.x] * inv_total;
+    for (int i = threadIdx.x; i < hw; i += blockDim.x) {
+      const float d = load_f32(xp + i) - mean;
+      s += d * d;
+    }
+  }
+  s = block_sum(s, scratch);
+  if (threadIdx.x == 0) part[blockIdx.x] = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+split_apply_kernel(const T* __restrict__ x, const float* __restrict__ sums,
+                   const float* __restrict__ sq, T* __restrict__ y, long long n,
+                   int hw, float inv_total, float eps, float slope) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const int p = static_cast<int>(i / hw);
+    const float mean = sums[p] * inv_total;
+    const float rstd = rsqrtf(sq[p] * inv_total + eps);
+    const float v = (load_f32(x + i) - mean) * rstd;
+    store_f32(y + i, v >= 0.0f ? v : slope * v);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+split_backward_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                           const float* __restrict__ sums,
+                           const float* __restrict__ sq, float* __restrict__ part,
+                           int hw, float inv_total, float eps, float slope) {
+  __shared__ float scratch[kMaxWarps];
+  const size_t base = static_cast<size_t>(blockIdx.x) * hw;
+  const T* xp = x + base;
+  const T* gp = g + base;
+  const float mean = sums[blockIdx.x] * inv_total;
+  const float rstd = rsqrtf(sq[blockIdx.x] * inv_total + eps);
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int i = threadIdx.x; i < hw; i += blockDim.x) {
+    const float xhat = (load_f32(xp + i) - mean) * rstd;
+    const float gv = load_f32(gp + i);
+    const float dxhat = xhat >= 0.0f ? gv : slope * gv;
+    s1 += dxhat;
+    s2 += dxhat * xhat;
+  }
+  s1 = block_sum(s1, scratch);
+  s2 = block_sum(s2, scratch);
+  if (threadIdx.x == 0) {
+    part[2 * blockIdx.x] = s1;
+    part[2 * blockIdx.x + 1] = s2;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+split_backward_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const float* __restrict__ sums,
+                            const float* __restrict__ sq,
+                            const float* __restrict__ gsums, T* __restrict__ dx,
+                            long long n, int hw, float inv_total, float eps,
+                            float slope) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const int p = static_cast<int>(i / hw);
+    const float mean = sums[p] * inv_total;
+    const float rstd = rsqrtf(sq[p] * inv_total + eps);
+    const float m1 = gsums[2 * p] * inv_total;
+    const float m2 = gsums[2 * p + 1] * inv_total;
+    const float xhat = (load_f32(x + i) - mean) * rstd;
+    const float gv = load_f32(g + i);
+    const float dxhat = xhat >= 0.0f ? gv : slope * gv;
+    store_f32(dx + i, rstd * (dxhat - m1 - xhat * m2));
+  }
+}
+
 __global__ void instance_norm_leaky_relu_empty_kernel() {}
 
 // ---------------------------------------------------------------------------
@@ -813,6 +919,64 @@ cudaError_t launch_backward(const void* x, const void* g, void* dx, int planes,
   }
 }
 
+// The split launches: one block per plane part for the sums, a flat grid of
+// at most kApplyBlocks blocks for the applies.
+constexpr long long kApplyBlocks = 132 * 16;
+
+int apply_blocks(long long n) {
+  const long long b = (n + kMaxThreads - 1) / kMaxThreads;
+  return static_cast<int>(b < kApplyBlocks ? b : kApplyBlocks);
+}
+
+float inverse(int total) { return 1.0f / static_cast<float>(total); }
+
+template <typename T>
+cudaError_t launch_split_sums(const void* x, const float* sums, float* part,
+                              int planes, int hw, int total, cudaStream_t stream) {
+  if (planes <= 0 || hw <= 0 || total < hw) return cudaErrorInvalidValue;
+  split_sums_kernel<T><<<planes, threads_for(hw), 0, stream>>>(
+      static_cast<const T*>(x), sums, part, hw, inverse(total));
+  return last_error(cudaSuccess);
+}
+
+template <typename T>
+cudaError_t launch_split_apply(const void* x, const float* sums, const float* sq,
+                               void* y, int planes, int hw, int total, float eps,
+                               float slope, cudaStream_t stream) {
+  if (planes <= 0 || hw <= 0 || total < hw) return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(planes) * hw;
+  split_apply_kernel<T><<<apply_blocks(n), kMaxThreads, 0, stream>>>(
+      static_cast<const T*>(x), sums, sq, static_cast<T*>(y), n, hw,
+      inverse(total), eps, slope);
+  return last_error(cudaSuccess);
+}
+
+template <typename T>
+cudaError_t launch_split_backward_sums(const void* x, const void* g,
+                                       const float* sums, const float* sq,
+                                       float* part, int planes, int hw, int total,
+                                       float eps, float slope, cudaStream_t stream) {
+  if (planes <= 0 || hw <= 0 || total < hw) return cudaErrorInvalidValue;
+  split_backward_sums_kernel<T><<<planes, threads_for(hw), 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), sums, sq, part, hw,
+      inverse(total), eps, slope);
+  return last_error(cudaSuccess);
+}
+
+template <typename T>
+cudaError_t launch_split_backward_apply(const void* x, const void* g,
+                                        const float* sums, const float* sq,
+                                        const float* gsums, void* dx, int planes,
+                                        int hw, int total, float eps, float slope,
+                                        cudaStream_t stream) {
+  if (planes <= 0 || hw <= 0 || total < hw) return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(planes) * hw;
+  split_backward_apply_kernel<T><<<apply_blocks(n), kMaxThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), sums, sq, gsums,
+      static_cast<T*>(dx), n, hw, inverse(total), eps, slope);
+  return last_error(cudaSuccess);
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes. `x` and `y` are NCHW-contiguous device
@@ -855,6 +1019,41 @@ extern "C" cudaError_t instance_norm_leaky_relu_backward_bf16(
   return launch_backward<__nv_bfloat16>(x, g, dx, planes, hw, eps, slope, stream,
                                         Plan{variant, cluster, threads, vectors, group});
 }
+
+// Split-statistics entry points (see the header): `x`, `g`, `y`, `dx`
+// NCHW-contiguous device buffers of this part's rows, planes = N*C planes
+// of hw = rows*W elements; `total` the whole plane's element count; `sums`
+// (null for the first pass), `sq` and `gsums` the combined parts, `part` the
+// f32 output (one value per plane, two for the backward sums).
+#define SPLIT_ENTRIES(SUFFIX, T)                                                  \
+  extern "C" cudaError_t instance_norm_split_sums_##SUFFIX(                      \
+      const void* x, const float* sums, float* part, int planes, int hw,         \
+      int total, cudaStream_t stream) {                                          \
+    return launch_split_sums<T>(x, sums, part, planes, hw, total, stream);       \
+  }                                                                              \
+  extern "C" cudaError_t instance_norm_leaky_relu_split_apply_##SUFFIX(          \
+      const void* x, const float* sums, const float* sq, void* y, int planes,    \
+      int hw, int total, float eps, float slope, cudaStream_t stream) {          \
+    return launch_split_apply<T>(x, sums, sq, y, planes, hw, total, eps, slope,  \
+                                 stream);                                        \
+  }                                                                              \
+  extern "C" cudaError_t instance_norm_leaky_relu_split_backward_sums_##SUFFIX(  \
+      const void* x, const void* g, const float* sums, const float* sq,          \
+      float* part, int planes, int hw, int total, float eps, float slope,        \
+      cudaStream_t stream) {                                                     \
+    return launch_split_backward_sums<T>(x, g, sums, sq, part, planes, hw,       \
+                                         total, eps, slope, stream);             \
+  }                                                                              \
+  extern "C" cudaError_t instance_norm_leaky_relu_split_backward_apply_##SUFFIX( \
+      const void* x, const void* g, const float* sums, const float* sq,          \
+      const float* gsums, void* dx, int planes, int hw, int total, float eps,    \
+      float slope, cudaStream_t stream) {                                        \
+    return launch_split_backward_apply<T>(x, g, sums, sq, gsums, dx, planes, hw, \
+                                          total, eps, slope, stream);            \
+  }
+
+SPLIT_ENTRIES(f32, float)
+SPLIT_ENTRIES(bf16, __nv_bfloat16)
 
 // One launch of an empty kernel of this library: the floor under every
 // launch above, for the measurements.

@@ -18,6 +18,15 @@ batch variance in the running update), :class:`GroupNorm` and
 and the ``padding="SAME"`` convolutions :class:`SameConv2d` and
 :class:`SameConvTranspose2d`. Flax's ``nn.gelu`` is ``F.gelu(x,
 approximate="tanh")``.
+
+Spatial partitioning (:mod:`..parallel.spatial`): under a ``space`` group a
+tensor holds this rank's rows. :class:`Conv3x3` takes a halo row from each
+neighbour, :class:`ConvInNormLeReLU` runs the norm kernel's split-statistics
+entry points, :class:`MLPHead` flattens the gathered rows; the 1×1 and
+kernel-equals-stride convolutions, :class:`DeconvHead`, the 2×2 max pool and
+the nearest upsample are row-local as they are. A layer with no row rule
+(the plain norms, the flax ``SAME`` convolutions, the average pool, the
+batch statistics, dropout) raises ``NotImplementedError`` there.
 """
 
 from __future__ import annotations
@@ -31,11 +40,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import instance_norm_leaky_relu
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
 
 
-def conv3x3(in_features: int, features: int, *, use_bias: bool = False) -> nn.Conv2d:
+class Conv3x3(nn.Conv2d):
+    """3×3 conv, padding 1 (the spatial size kept). Under a ``space`` group
+    it exchanges one halo row with each neighbour and pads the width only,
+    so this rank's output rows are those of the whole image's convolution."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = False):
+        super().__init__(in_features, features, 3, padding=1, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        space = spatial.current()
+        if space is None:
+            return super().forward(x)
+        return F.conv2d(spatial.halo_exchange(x, space, 1), self.weight, self.bias,
+                        padding=(0, 1))
+
+
+def conv3x3(in_features: int, features: int, *, use_bias: bool = False) -> Conv3x3:
     """3×3 conv, padding preserves spatial size (bias off, as in JAX)."""
-    return nn.Conv2d(in_features, features, 3, padding=1, bias=use_bias)
+    return Conv3x3(in_features, features, bias=use_bias)
 
 
 def conv1x1(in_features: int, features: int, *, use_bias: bool = True) -> nn.Conv2d:
@@ -53,12 +79,14 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    spatial.refuse("an average pool")
     return F.avg_pool2d(x, k, stride=k)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) → (B, C)."""
-    return x.mean(dim=(2, 3))
+    """(B, C, H, W) → (B, C), over the whole plane
+    (:func:`..parallel.spatial.plane_mean`)."""
+    return spatial.plane_mean(x)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
@@ -92,6 +120,7 @@ class InstanceNorm(nn.Module):
             self.scale = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("the plain InstanceNorm")
         xf = x.float()
         centered = xf - xf.mean(dim=(2, 3), keepdim=True)
         var = (centered * centered).mean(dim=(2, 3), keepdim=True)
@@ -110,6 +139,9 @@ class ConvInNormLeReLU(nn.Module):
     instead, the twin of the JAX default path; ``chip_smoke.plain_twin``
     does so to give a reference on the same device.
 
+    Under a ``space`` group the norm takes the group
+    (:func:`~..ops.hopper_kernels.split_forward`).
+
     bf16: both compute the statistics in f32. The JAX module and
     :class:`InstanceNorm` round the normalised value to bf16 before the
     LeakyReLU; the kernel applies the LeakyReLU in f32 and rounds once,
@@ -126,7 +158,7 @@ class ConvInNormLeReLU(nn.Module):
         x = self.conv(x)
         if self.norm is not None:
             return F.leaky_relu(self.norm(x), self.negative_slope)
-        return instance_norm_leaky_relu(x, 1e-5, self.negative_slope)
+        return instance_norm_leaky_relu(x, 1e-5, self.negative_slope, space=spatial.current())
 
 
 class LevelBlock(nn.Module):
@@ -169,7 +201,8 @@ class DeconvHead(nn.Module):
 
 class MLPHead(nn.Module):
     """Flatten (in JAX's (h, w, c) order) → Linear(hidden) → ReLU →
-    Linear(n_out). ``in_features`` is C·H·W of the tensor it flattens."""
+    Linear(n_out). ``in_features`` is C·H·W of the tensor it flattens; under
+    a ``space`` group it flattens the gathered rows."""
 
     def __init__(self, in_features: int, hidden: int, n_out: int):
         super().__init__()
@@ -177,7 +210,7 @@ class MLPHead(nn.Module):
         self.fc2 = nn.Linear(hidden, n_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(flatten_hwc(x))))
+        return self.fc2(F.relu(self.fc1(flatten_hwc(spatial.whole_rows(x)))))
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +299,7 @@ class SameConv2d(nn.Conv2d):
         super().__init__(in_features, features, kernel, stride=stride, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("a flax SAME convolution")
         (k, _), (s, _) = self.kernel_size, self.stride
         top, bottom = _same_pads(x.shape[2], k, s)
         left, right = _same_pads(x.shape[3], k, s)
@@ -282,6 +316,7 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(in_features, features, kernel, stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("a flax SAME transposed convolution")
         s = self.stride[0]
         return super().forward(x)[:, :, :s * x.shape[2], :s * x.shape[3]]
 
@@ -344,6 +379,7 @@ class BatchNorm(nn.Module):
         return mean, (moments[1] - mean * mean).clamp(min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("BatchNorm")
         if self.training:
             xf = x.to(_stats_dtype(x))
             mean, var = (_fast_stats(xf, (0, 2, 3)) if self.shard is None
@@ -370,6 +406,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("GroupNorm")
         n, c, h, w = x.shape
         mean, var = _fast_stats(x.to(_stats_dtype(x)).reshape(n, self.groups, -1), (2,))
         per = c // self.groups
@@ -389,6 +426,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spatial.refuse("LayerNorm")
         mean, var = _fast_stats(x.to(_stats_dtype(x)), (-1,))
         return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps, channels_last=True)
 
@@ -423,6 +461,7 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        spatial.refuse("Dropout")
         if self.generator is None:
             raise RuntimeError("Dropout in training draws from an explicit generator: "
                                "run the step inside blocks.dropout_draws(model, generator)")

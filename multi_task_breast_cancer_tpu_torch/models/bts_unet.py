@@ -23,6 +23,8 @@ class BTSUNet(_BTSTrunk):
     deep supervision the coarse→fine tuple ``(out3, out2, out1)``, all at
     full resolution. 17 fused norms per forward."""
 
+    space_row_multiple = 8  # three pools
+
     def __init__(self, in_features: int = 1, regions: int = 1, width: int = 24,
                  deep_supervision: bool = False):
         super().__init__(in_features, width, fsb=False)

@@ -18,6 +18,7 @@ from multi_task_breast_cancer_tpu_torch.models.blocks import (
     LevelBlock,
     MLPHead,
     deconv,
+    global_avg_pool,
     max_pool_2x2,
 )
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNET_WIDTHS
@@ -27,6 +28,8 @@ class BTSUNetClassifier(nn.Module):
     """BTS encoder (four pooled levels and a level block, 10 fused norms) →
     Flatten → MLP(256). The flatten sees ``8·width`` channels at
     ``size/16``²: 8·8·192 features at 128² and width 24."""
+
+    space_row_multiple = 16  # four pools
 
     def __init__(self, in_features: int = 1, n_classes: int = 3, width: int = 24,
                  size: int = 128):
@@ -49,7 +52,9 @@ class BTSUNetClassifier(nn.Module):
 
 
 class NNUNetClassifierHead(nn.Module):
-    """cat(proc(e5), up5, proc(d5)) → ConvINLReLU(512) → GAP → MLP(256)."""
+    """cat(proc(e5), up5, proc(d5)) → ConvINLReLU(512) → GAP → MLP(256).
+    The GAP is over the whole plane: under a ``space`` group the rows' sums
+    summed over the group (:func:`~..models.blocks.global_avg_pool`)."""
 
     def __init__(self, n_out: int = 3, widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()
@@ -63,7 +68,7 @@ class NNUNetClassifierHead(nn.Module):
     def forward(self, e5: torch.Tensor, up5: torch.Tensor, d5: torch.Tensor) -> torch.Tensor:
         feats = torch.cat([self.process_encoder_5(e5), up5,
                            self.process_decoder_5(d5)], dim=1)
-        feats = self.cls_conv(feats).mean(dim=(2, 3))
+        feats = global_avg_pool(self.cls_conv(feats))
         return self.fc2(F.relu(self.fc1(feats)))
 
 
@@ -75,6 +80,8 @@ class NNUNetClassifier(nn.Module):
     ``nnUNet_classifier.py:168-169``): with more than two classes the forward
     returns softmax probabilities, so the loss receives probabilities, not
     logits."""
+
+    space_row_multiple = 32  # five pools
 
     def __init__(self, in_features: int = 1, n_classes: int = 3,
                  widths: Tuple[int, ...] = NNUNET_WIDTHS, apply_softmax: bool = True):

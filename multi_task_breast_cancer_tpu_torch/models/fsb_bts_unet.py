@@ -19,6 +19,8 @@ class FSBBTSUNet(_BTSTrunk):
     npl1, npl2, npl3, npl4, input1, out1)`` (finest last); otherwise one
     logits map. 25 fused norms per forward."""
 
+    space_row_multiple = 8  # three pools
+
     def __init__(self, in_features: int = 1, regions: int = 1, width: int = 24,
                  deep_supervision: bool = False):
         super().__init__(in_features, width, fsb=True)

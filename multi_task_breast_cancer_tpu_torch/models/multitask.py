@@ -47,6 +47,8 @@ class MTnnUNet(nn.Module):
     cat(proc(e5), upsample5(bottleneck), proc(d5)); the head shares the
     backbone's ``upsample5`` output. Returns ``((cls,), (out4, out3, out2, out1))``."""
 
+    space_row_multiple = 32  # five pools
+
     def __init__(self, in_features: int = 1, regions: int = 1, n_classes: int = 3,
                  widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()
@@ -161,6 +163,8 @@ class MultiBTSUNet(nn.Module):
     """BTS U-Net + classification head (19 fused norms per forward). Deep
     supervision → ``((cls,), (out3, out2, out1))``, else ``(cls, out1)``."""
 
+    space_row_multiple = 8  # three pools
+
     def __init__(self, in_features: int = 1, regions: int = 1, n_classes: int = 3,
                  width: int = 24, deep_supervision: bool = False, size: int = 128):
         super().__init__()
@@ -182,6 +186,8 @@ class MultiFSBBTSUNet(nn.Module):
     class count (``Multi_FSB_BTS_UNet.py:152``), and with deep supervision
     the class output is returned bare. Deep supervision → ``(cls, 8-head
     tuple)``, else ``(cls, out1)``."""
+
+    space_row_multiple = 8  # three pools
 
     def __init__(self, in_features: int = 1, regions: int = 1, width: int = 24,
                  deep_supervision: bool = False, size: int = 128):

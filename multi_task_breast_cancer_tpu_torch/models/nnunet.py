@@ -84,6 +84,8 @@ class SegHeads(nn.Module):
 class NNUNet2021(nn.Module):
     """Segmentation nnU-Net; returns the 4-head coarse→fine tuple."""
 
+    space_row_multiple = 32  # five pools
+
     def __init__(self, in_features: int = 1, regions: int = 1,
                  widths: Tuple[int, ...] = NNUNET_WIDTHS):
         super().__init__()

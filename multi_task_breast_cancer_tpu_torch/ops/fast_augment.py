@@ -470,12 +470,14 @@ def fast_joint_transform(packed: torch.Tensor, batch_idx: torch.Tensor,
     ``shard_map`` branch) the draws are the global batch's, made once; this
     rank launches the kernel on its own ``mesh.shard(B)`` rows only and
     returns those (B / n, H, W, C) rows, bit-identical to the same rows of
-    the single-device batch. B must divide evenly over the ranks."""
+    the single-device batch. B must divide evenly over the ranks of the
+    ``data`` axis: under a ``(data × space)`` mesh every rank of a ``space``
+    group gets its data shard's whole planes, as in JAX."""
     if mesh is not None:
-        b = batch_idx.shape[0]
-        if b % mesh.world_size:
+        b, n_data = batch_idx.shape[0], mesh.data.world_size
+        if b % n_data:
             raise ValueError(f"fast_augmentation under a data mesh needs batch_size ({b}) "
-                             f"divisible by the {mesh.world_size} ranks")
+                             f"divisible by the {n_data} ranks of its data axis")
         shard = mesh.shard(b)
         batch_idx, draws = batch_idx[shard], tuple(d[shard] for d in draws)
     factors = pipeline_factors_from_draws(*draws, packed.shape[-1], packed.device)

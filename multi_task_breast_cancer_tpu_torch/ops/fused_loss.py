@@ -13,11 +13,18 @@ evaluates the analytic gradient in one elementwise pass:
 (``sq`` = 1 for squared_pred), recomputing ``p`` from the logits. Plain
 PyTorch, not a kernel: it is not a Pallas kernel on the JAX side either.
 NCHW in, scalar (mean over B, C) out.
+
+Under a ``space`` group (:mod:`..parallel.spatial`) the logits and target
+hold this rank's rows: the plane sums are summed over the group before the
+ratio (so the loss is the whole image's, alike on every rank), and the
+backward sums the ranks' upstream gradients first, the adjoint of that sum.
 """
 
 from __future__ import annotations
 
 import torch
+
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
 
 _SPATIAL = (2, 3)
 
@@ -35,9 +42,13 @@ class _FusedDice(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, target, smooth_nr: float, smooth_dr: float,
-                squared_pred: bool):
+                squared_pred: bool, space=None):
         p = torch.sigmoid(logits)
         intersection, denominator = _plane_stats(p, target, squared_pred)
+        if space is not None:
+            intersection, denominator = space.sum_partials(
+                torch.stack([intersection, denominator])).unbind(0)
+        ctx.space = space
         f = 1.0 - (2.0 * intersection + smooth_nr) / (denominator + smooth_dr)
         ctx.save_for_backward(logits, target, intersection, denominator)
         ctx.smooth = (smooth_nr, smooth_dr, squared_pred)
@@ -48,6 +59,8 @@ class _FusedDice(torch.autograd.Function):
     def backward(ctx, g):
         logits, target, intersection, denominator = ctx.saved_tensors
         smooth_nr, smooth_dr, squared_pred = ctx.smooth
+        if ctx.space is not None:
+            g = ctx.space.sum_partials(g)
         p = torch.sigmoid(logits)
         n_planes = intersection.numel()
         denom = (denominator + smooth_dr)[:, :, None, None]
@@ -62,14 +75,16 @@ class _FusedDice(torch.autograd.Function):
             dt_sq = 2.0 * target if squared_pred else 1.0
             dldt = -(2.0 * p * denom - numer * dt_sq) / (denom * denom)
             dtarget = (g * dldt / n_planes).to(target.dtype)
-        return dlogits, dtarget, None, None, None
+        return dlogits, dtarget, None, None, None, None
 
 
 def fused_dice_loss(logits: torch.Tensor, target: torch.Tensor, smooth_nr: float = 1.0,
                     smooth_dr: float = 1.0, squared_pred: bool = True) -> torch.Tensor:
     """MONAI ``DiceLoss(sigmoid=True, smooth_nr/dr, squared_pred)`` with the
-    analytic single-pass backward."""
-    return _FusedDice.apply(logits, target, smooth_nr, smooth_dr, squared_pred)
+    analytic single-pass backward; over the whole image under a ``space``
+    group."""
+    space = spatial.current() if logits.shape[0] else None
+    return _FusedDice.apply(logits, target, smooth_nr, smooth_dr, squared_pred, space)
 
 
 def fused_dice_criterion(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

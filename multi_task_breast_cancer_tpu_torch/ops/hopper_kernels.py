@@ -32,6 +32,20 @@ to 4.5 % over three runs of ``chip_smoke.py`` phase 7, the two in turns);
 a call made while
 ``torch.export`` traces goes through the operator. Both reach the one
 :func:`_forward` / :func:`_backward` pair, which counts the launches.
+
+Split statistics (a spatial partition, :mod:`..parallel.spatial`): when a
+plane's rows are spread over the ranks of a ``space`` group, four more
+entry points of the same source compute the norm from partial sums, each
+beside its plain twin and with its own launch counter:
+:func:`instance_norm_split_sums` (a plane part's Σx, then, given the
+combined Σx, its Σ(x − mean)²: two passes, as the fused kernel),
+:func:`instance_norm_leaky_relu_split_apply`,
+:func:`instance_norm_leaky_relu_split_backward_sums` (Σdxhat, Σdxhat·xhat)
+and :func:`instance_norm_leaky_relu_split_backward_apply`. The group adds
+the parts of all its ranks in rank order (``space.sum_partials``), so every
+rank gets the same bits. The autograd function takes the group; without one
+it is the fused path above, launch for launch. The forward saves ``x`` and
+the two combined f32 sums per plane.
 """
 
 from __future__ import annotations
@@ -276,19 +290,28 @@ def instance_norm_leaky_relu_backward(x: torch.Tensor, g: torch.Tensor,
 
 class _InstanceNormLeakyReLU(torch.autograd.Function):
     """Forward kernel; backward kernel on the saved input (the JAX custom VJP
-    ``_inlr_fwd``/``_inlr_bwd`` keeps ``x`` alone as its residual)."""
+    ``_inlr_fwd``/``_inlr_bwd`` keeps ``x`` alone as its residual). With a
+    ``space`` group: :func:`split_forward` / :func:`split_backward`, saving
+    ``x`` and the two combined sums per plane."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, eps: float, slope: float) -> torch.Tensor:
-        ctx.save_for_backward(x)
-        ctx.eps, ctx.slope = eps, slope
-        return _forward(x, eps, slope)
+    def forward(ctx, x: torch.Tensor, eps: float, slope: float, space=None) -> torch.Tensor:
+        ctx.eps, ctx.slope, ctx.space = eps, slope, space
+        if space is None:
+            ctx.save_for_backward(x)
+            return _forward(x, eps, slope)
+        y, sums, sq = split_forward(x, eps, slope, space)
+        ctx.save_for_backward(x, sums, sq)
+        return y
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
-        (x,) = ctx.saved_tensors
-        return instance_norm_leaky_relu_backward(x, g, ctx.eps, ctx.slope), None, None
+        if ctx.space is None:
+            (x,) = ctx.saved_tensors
+            return instance_norm_leaky_relu_backward(x, g, ctx.eps, ctx.slope), None, None, None
+        x, sums, sq = ctx.saved_tensors
+        return split_backward(x, g, sums, sq, ctx.eps, ctx.slope, ctx.space), None, None, None
 
 
 @torch.library.custom_op("mtbc_torch::instance_norm_leaky_relu", mutates_args=(),
@@ -318,7 +341,7 @@ instance_norm_leaky_relu_op.register_autograd(_op_backward, setup_context=_op_se
 
 
 def instance_norm_leaky_relu(x: torch.Tensor, eps: float = 1e-5,
-                             slope: float = 0.01) -> torch.Tensor:
+                             slope: float = 0.01, space=None) -> torch.Tensor:
     """Fused InstanceNorm(affine=False) + LeakyReLU over NCHW input.
 
     CPU tensor → :func:`instance_norm_leaky_relu_reference`. CUDA tensor →
@@ -328,15 +351,219 @@ def instance_norm_leaky_relu(x: torch.Tensor, eps: float = 1e-5,
     :func:`instance_norm_leaky_relu_backward` (kernel or plain twin, by the
     same device rule). Under ``torch.export`` the call is the custom operator
     :func:`instance_norm_leaky_relu_op`, which a traced program keeps as one
-    node."""
+    node. ``space`` (a :class:`~..parallel.spatial.Space`): ``x`` holds this
+    rank's rows of every plane and the split-statistics entry points run
+    instead (:func:`split_forward`); an exported program has no ``space``
+    group (``NotImplementedError``)."""
     if torch.compiler.is_exporting():
+        if space is not None:
+            raise NotImplementedError(
+                "instance_norm_leaky_relu: torch.export under spatial partitioning: an "
+                "exported program has no space group; export without one")
         return instance_norm_leaky_relu_op(x, eps, slope)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"instance_norm_leaky_relu: unsupported device {x.device}")
     if x.requires_grad and torch.is_grad_enabled():
-        return _InstanceNormLeakyReLU.apply(x, eps, slope)
+        return _InstanceNormLeakyReLU.apply(x, eps, slope, space)
+    if space is not None:
+        return split_forward(x, eps, slope, space)[0]
     return _forward(x, eps, slope)
+
+
+# ---------------------------------------------------------------------------
+# split statistics: a plane's rows in parts (the ranks of a ``space`` group)
+# ---------------------------------------------------------------------------
+
+
+def instance_norm_split_sums_reference(x: torch.Tensor, total: int,
+                                       sums: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of the split-sums kernel: per (n, c) plane part of NCHW
+    ``x``, Σx over its rows; given ``sums`` (the whole planes' combined Σx
+    of ``total`` elements each), Σ(x − mean)² with ``mean = sums / total``.
+    (N, C) in f32 (f64 for f64 input)."""
+    xf = x.to(_compute_dtype(x))
+    if sums is None:
+        return xf.sum(dim=(2, 3))
+    d = xf - (sums / total)[:, :, None, None]
+    return (d * d).sum(dim=(2, 3))
+
+
+def _split_statistics(x: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+                      total: int, eps: float):
+    xf = x.to(_compute_dtype(x))
+    mean = (sums / total)[:, :, None, None]
+    rstd = torch.rsqrt(sq / total + eps)[:, :, None, None]
+    return (xf - mean) * rstd, rstd
+
+
+def instance_norm_leaky_relu_split_apply_reference(
+        x: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor, total: int,
+        eps: float = 1e-5, slope: float = 0.01) -> torch.Tensor:
+    """Plain twin of the split apply: ``LeakyReLU((x − mean)·rsqrt(var +
+    eps))`` from the combined sums (mean ``sums/total``, var ``sq/total``),
+    in f32, cast to ``x``'s dtype."""
+    xhat, _ = _split_statistics(x, sums, sq, total, eps)
+    return torch.where(xhat >= 0, xhat, slope * xhat).to(x.dtype)
+
+
+def instance_norm_leaky_relu_split_backward_sums_reference(
+        x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+        total: int, eps: float = 1e-5, slope: float = 0.01) -> torch.Tensor:
+    """Plain twin of the split backward sums: per plane part (Σdxhat,
+    Σdxhat·xhat), ``dxhat`` the gradient after the LeakyReLU; (N, C, 2)."""
+    xhat, _ = _split_statistics(x, sums, sq, total, eps)
+    gf = g.to(xhat.dtype)
+    dxhat = torch.where(xhat >= 0, gf, slope * gf)
+    return torch.stack([dxhat.sum(dim=(2, 3)), (dxhat * xhat).sum(dim=(2, 3))], dim=-1)
+
+
+def instance_norm_leaky_relu_split_backward_apply_reference(
+        x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+        gsums: torch.Tensor, total: int, eps: float = 1e-5,
+        slope: float = 0.01) -> torch.Tensor:
+    """Plain twin of the split backward apply: ``rstd·(dxhat − G1/total −
+    xhat·G2/total)`` from the combined backward sums ``gsums`` (N, C, 2)."""
+    xhat, rstd = _split_statistics(x, sums, sq, total, eps)
+    gf = g.to(xhat.dtype)
+    dxhat = torch.where(xhat >= 0, gf, slope * gf)
+    m1 = (gsums[..., 0] / total)[:, :, None, None]
+    m2 = (gsums[..., 1] / total)[:, :, None, None]
+    return (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _split_launch(wrapper, tensors, out: torch.Tensor, ints, floats) -> None:
+    """Launch ``wrapper``'s split kernel (``wrapper.__name__``): pointers of
+    ``tensors`` (``None``: a null pointer) and ``out``, the planes and
+    elements of this part, then ``ints`` and ``floats``; count it."""
+    x = tensors[0]
+    n, c, h, w = x.shape
+    fn = getattr(_build.library(_SOURCE), f"{wrapper.__name__}_{_DTYPES[x.dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * (len(tensors) + 1) + [_I, _I] + [_I] * len(ints)
+                       + [_F] * len(floats) + [_P])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), out.data_ptr(),
+                 n * c, h * w, *ints, *(float(f) for f in floats),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__}: CUDA launch failed with error {err} "
+                           f"at shape {tuple(x.shape)}")
+    wrapper.launches += 1
+
+
+def _check_split_inputs(what: str, x: torch.Tensor, *stats: torch.Tensor,
+                        g: torch.Tensor | None = None) -> None:
+    _check_cuda_input(x, what)
+    if g is not None and (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device
+                          or not g.is_contiguous()):
+        raise ValueError(f"{what}: gradient {tuple(g.shape)} {g.dtype} {g.device} does not "
+                         f"match input {tuple(x.shape)} {x.dtype} {x.device}, or is not "
+                         "NCHW-contiguous")
+    for t in stats:
+        if t is not None and (t.device != x.device or t.dtype != torch.float32
+                              or not t.is_contiguous() or t.shape[:2] != x.shape[:2]):
+            raise ValueError(f"{what}: statistics must be contiguous f32 (N, C[, 2]) on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def instance_norm_split_sums(x: torch.Tensor, total: int,
+                             sums: torch.Tensor | None = None) -> torch.Tensor:
+    """A plane part's Σx (``sums`` None) or Σ(x − mean)² (``sums``: the
+    combined Σx of the whole planes of ``total`` elements); (N, C) f32. CPU
+    tensor → :func:`instance_norm_split_sums_reference`; CUDA tensor → the
+    kernel, counted in ``instance_norm_split_sums.launches``."""
+    if x.device.type == "cpu":
+        return instance_norm_split_sums_reference(x, total, sums)
+    _check_split_inputs("instance_norm_split_sums", x, sums)
+    part = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
+    if x.numel():
+        _split_launch(instance_norm_split_sums, (x, sums), part, (total,), ())
+    return part
+
+
+def instance_norm_leaky_relu_split_apply(x: torch.Tensor, sums: torch.Tensor,
+                                         sq: torch.Tensor, total: int, eps: float = 1e-5,
+                                         slope: float = 0.01) -> torch.Tensor:
+    """Normalise and LeakyReLU a plane part from the combined sums; CPU →
+    its plain twin, CUDA → the kernel (counted)."""
+    if x.device.type == "cpu":
+        return instance_norm_leaky_relu_split_apply_reference(x, sums, sq, total, eps, slope)
+    _check_split_inputs("instance_norm_leaky_relu_split_apply", x, sums, sq)
+    y = torch.empty_like(x)
+    if x.numel():
+        _split_launch(instance_norm_leaky_relu_split_apply, (x, sums, sq), y, (total,),
+                      (eps, slope))
+    return y
+
+
+def instance_norm_leaky_relu_split_backward_sums(
+        x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+        total: int, eps: float = 1e-5, slope: float = 0.01) -> torch.Tensor:
+    """A plane part's (Σdxhat, Σdxhat·xhat), (N, C, 2) f32; CPU → its plain
+    twin, CUDA → the kernel (counted)."""
+    if x.device.type == "cpu":
+        return instance_norm_leaky_relu_split_backward_sums_reference(
+            x, g, sums, sq, total, eps, slope)
+    _check_split_inputs("instance_norm_leaky_relu_split_backward_sums", x, sums, sq, g=g)
+    part = torch.empty(x.shape[:2] + (2,), dtype=torch.float32, device=x.device)
+    if x.numel():
+        _split_launch(instance_norm_leaky_relu_split_backward_sums, (x, g, sums, sq), part,
+                      (total,), (eps, slope))
+    return part
+
+
+def instance_norm_leaky_relu_split_backward_apply(
+        x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+        gsums: torch.Tensor, total: int, eps: float = 1e-5,
+        slope: float = 0.01) -> torch.Tensor:
+    """A plane part's input gradient from the combined backward sums
+    ``gsums``; CPU → its plain twin, CUDA → the kernel (counted)."""
+    if x.device.type == "cpu":
+        return instance_norm_leaky_relu_split_backward_apply_reference(
+            x, g, sums, sq, gsums, total, eps, slope)
+    _check_split_inputs("instance_norm_leaky_relu_split_backward_apply", x, sums, sq,
+                        gsums, g=g)
+    dx = torch.empty_like(x)
+    if x.numel():
+        _split_launch(instance_norm_leaky_relu_split_backward_apply,
+                      (x, g, sums, sq, gsums), dx, (total,), (eps, slope))
+    return dx
+
+
+def split_forward(x: torch.Tensor, eps: float, slope: float, space):
+    """The norm of this rank's rows of each plane, the parts combined by
+    ``space.sum_partials`` over ``space.size`` equal parts: (y, Σx, Σ(x −
+    mean)²). An empty batch launches nothing and joins no collective (every
+    rank of its group has none)."""
+    total = x.shape[2] * space.size * x.shape[3]
+    if x.shape[0] == 0:
+        empty = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), empty, empty
+    sums = space.sum_partials(instance_norm_split_sums(x, total))
+    sq = space.sum_partials(instance_norm_split_sums(x, total, sums))
+    return instance_norm_leaky_relu_split_apply(x, sums, sq, total, eps, slope), sums, sq
+
+
+def split_backward(x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
+                   eps: float, slope: float, space) -> torch.Tensor:
+    """The input gradient of :func:`split_forward` on this rank's rows."""
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    total = x.shape[2] * space.size * x.shape[3]
+    g = g.contiguous(memory_format=torch.contiguous_format)
+    gsums = space.sum_partials(
+        instance_norm_leaky_relu_split_backward_sums(x, g, sums, sq, total, eps, slope))
+    return instance_norm_leaky_relu_split_backward_apply(x, g, sums, sq, gsums, total,
+                                                         eps, slope)
 
 
 instance_norm_leaky_relu.launches = 0
 instance_norm_leaky_relu_backward.launches = 0
+instance_norm_split_sums.launches = 0
+instance_norm_leaky_relu_split_apply.launches = 0
+instance_norm_leaky_relu_split_backward_sums.launches = 0
+instance_norm_leaky_relu_split_backward_apply.launches = 0

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
+
 HAUSSDORF = "Haussdorf distance"
 DICE = "DICE"
 SENS = "Sensitivity"
@@ -46,10 +48,16 @@ def dice_from_logits_batch(gt: torch.Tensor, seg_logits: torch.Tensor) -> torch.
 def dice_counts(gt: torch.Tensor, seg_logits: torch.Tensor) -> torch.Tensor:
     """(tp, fp, fn) of ``sigmoid(logits) > 0.5`` against ``gt > 0.5`` over
     every element, int64: the sums a batch-level Dice needs, which ranks of
-    a data mesh add up before :func:`dice_from_counts`."""
+    a data mesh add up before :func:`dice_from_counts`. Under a ``space``
+    group (this rank's rows) the counts are summed over the group: every
+    rank gets the whole images'."""
     seg = torch.sigmoid(seg_logits) > 0.5
     gt_b = gt > 0.5
-    return torch.stack([(seg & gt_b).sum(), (seg & ~gt_b).sum(), (~seg & gt_b).sum()])
+    counts = torch.stack([(seg & gt_b).sum(), (seg & ~gt_b).sum(), (~seg & gt_b).sum()])
+    space = spatial.current()
+    if space is not None and gt.shape[0]:
+        counts = space.sum_partials(counts)
+    return counts
 
 
 def dice_from_counts(counts: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the mesh and its sharding
-helpers (:mod:`.mesh`), and multi-process start-up (:mod:`.multihost`)."""
+"""Data parallelism and spatial partitioning over ``torch.distributed``: the
+mesh and its sharding helpers (:mod:`.mesh`), the ``space`` axis's
+collectives (:mod:`.spatial`), and multi-process start-up (:mod:`.multihost`)."""
 
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import (  # noqa: F401
     DataMesh,

@@ -1,10 +1,10 @@
-"""The data-parallel mesh over ``torch.distributed`` (twin of
+"""The device mesh over ``torch.distributed`` (twin of
 ``multi_task_breast_cancer_tpu/parallel/mesh.py``).
 
-JAX builds a 1-D ``Mesh(('data',))`` over every visible chip and lets GSPMD
-shard each batch and insert the gradient all-reduce. Here one process runs
-per device (a rank of the default process group, :mod:`.multihost`) and the
-collectives are written out:
+JAX builds a ``Mesh(('data',))`` or ``Mesh(('data', 'space'))`` over every
+visible chip and lets GSPMD shard each batch and insert the collectives.
+Here one process runs per device (a rank of the default process group,
+:mod:`.multihost`) and the collectives are written out:
 
 - a batch of ``B`` global rows is split into contiguous shards,
   ``ceil(B / n)`` rows each, the last ones shorter or empty (``DataMesh.shard``;
@@ -17,21 +17,27 @@ collectives are written out:
   broadcast once (:func:`replicate_to_mesh`) and every rank then takes
   identical steps.
 
-A rank whose shard is empty still joins every collective. Spatial
-partitioning (a ``space`` axis) is not ported: :func:`data_space_mesh`
-raises for it.
+A rank whose shard is empty still joins every collective.
+
+:func:`data_space_mesh` with ``n_space > 1`` gives a :class:`DataMesh` with
+a ``space`` group: the W ranks in JAX's row-major ``(W/n data × n space)``
+grid, rank r at data index ``r // n`` and space index ``r % n``. The batch
+shards over ``data``; each rank of a ``space`` group holds ``1/n`` of the
+rows of every image (:mod:`.spatial`), and the gradient sum runs over every
+rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from multi_task_breast_cancer_tpu_torch.device import resolve_device
 from multi_task_breast_cancer_tpu_torch.parallel import multihost
+from multi_task_breast_cancer_tpu_torch.parallel.spatial import Space
 
 
 def device_count() -> int:
@@ -53,19 +59,34 @@ def shard_slice(n_global: int, world_size: int, rank: int) -> slice:
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """The 1-D ``data`` mesh as this rank sees it: ``world_size`` ranks,
-    this one ``rank``, computing on ``device``, over the process ``group``
-    (``None``: the default group)."""
+    """The mesh as this rank sees it: ``world_size`` ranks, this one
+    ``rank``, computing on ``device``, over the process ``group`` (``None``:
+    the default group). A ``(data × space)`` mesh also holds this rank's
+    ``space`` group and its ``data_axis``: the ranks of its space index, a
+    1-D mesh of their own with this rank at its data index."""
 
     world_size: int
     rank: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    space: Optional[Space] = None
+    data_axis: Optional["DataMesh"] = None
+
+    @property
+    def data(self) -> "DataMesh":
+        """The ``data`` axis: ``data_axis``, or the mesh itself without a
+        ``space`` group."""
+        return self if self.data_axis is None else self.data_axis
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """The ranks along (``data``, ``space``)."""
+        return self.data.world_size, 1 if self.space is None else self.space.size
 
     def shard(self, n_global: int) -> slice:
-        """This rank's rows of a global batch of ``n_global``
-        (:func:`shard_slice`)."""
-        return shard_slice(n_global, self.world_size, self.rank)
+        """This rank's rows of a global batch of ``n_global``, its shard on
+        the ``data`` axis (:func:`shard_slice`)."""
+        return shard_slice(n_global, self.data.world_size, self.data.rank)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the ranks, in place; returns ``t``."""
@@ -79,15 +100,16 @@ class DataMesh:
         return _AllReduceSum.apply(t, self)
 
     def all_gather_rows(self, t: torch.Tensor, n_global: int) -> torch.Tensor:
-        """Every rank's shard of a ``n_global``-row batch (this rank's is
+        """Every ``data`` shard of a ``n_global``-row batch (this rank's is
         ``t``, ``len(self.shard(n_global))`` rows), concatenated in global
         row order on every rank."""
-        per = -(-n_global // self.world_size)
+        data = self.data
+        per = -(-n_global // data.world_size)
         padded = t.new_zeros((per,) + tuple(t.shape[1:]))
         padded[:t.shape[0]] = t
-        parts = [torch.empty_like(padded) for _ in range(self.world_size)]
-        dist.all_gather(parts, padded, group=self.group)
-        shards = (shard_slice(n_global, self.world_size, r) for r in range(self.world_size))
+        parts = [torch.empty_like(padded) for _ in range(data.world_size)]
+        dist.all_gather(parts, padded, group=data.group)
+        shards = (shard_slice(n_global, data.world_size, r) for r in range(data.world_size))
         return torch.cat([p[:sl.stop - sl.start] for p, sl in zip(parts, shards)], dim=0)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -130,15 +152,33 @@ def data_mesh(n_devices: Optional[int] = None,
 def data_space_mesh(n_space: int = 1, n_devices: Optional[int] = None,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Optional[DataMesh]:
-    """``n_space == 1``: :func:`data_mesh`. A ``space`` axis (image rows
-    split over ranks) needs halo exchanges around every convolution and
-    split-statistics variants of the norm kernels, and is not ported:
-    ``n_space > 1`` raises ``NotImplementedError``."""
+    """``n_space == 1``: :func:`data_mesh`. Else the 2-D ``(data ×
+    space)`` mesh over every rank, JAX's row-major grid: rank r is data
+    index ``r // n_space`` and space index ``r % n_space``. The ``data`` and
+    ``space`` process groups are made on every rank in one order (all
+    ``data`` groups, then all ``space`` groups), as ``new_group`` needs.
+    ``n_space`` must divide the world size (``ValueError``, as in JAX)."""
     if n_space <= 1:
         return data_mesh(n_devices, device)
-    raise NotImplementedError(
-        f"training.spatial_partitions={n_space}: spatial partitioning is not ported "
-        "(ROADMAP.md, Queue 1: spatial partitioning); set spatial_partitions: 1")
+    world = multihost.process_count()
+    n = world if n_devices is None else n_devices
+    if world % n_space or n % n_space:
+        raise ValueError(f"spatial_partitions={n_space} must divide the device count "
+                         f"({n})")
+    if n != world:
+        raise ValueError(f"data_space_mesh: the mesh spans every rank of the process "
+                         f"group ({world}), not {n}")
+    rank, n_data = multihost.process_index(), world // n_space
+    data_groups = [dist.new_group([d * n_space + s for d in range(n_data)])
+                   for s in range(n_space)]
+    space_ranks = [tuple(d * n_space + s for s in range(n_space)) for d in range(n_data)]
+    space_groups = [dist.new_group(list(r)) for r in space_ranks]
+    d, s = divmod(rank, n_space)
+    dev = resolve_device(device)
+    return DataMesh(world, rank, dev,
+                    space=Space(n_space, s, space_ranks[d], space_groups[d],
+                                dist.get_backend(space_groups[d])),
+                    data_axis=DataMesh(n_data, d, dev, data_groups[s]))
 
 
 def _module_tensors(module: torch.nn.Module) -> list:

@@ -13,8 +13,8 @@ kill mid-write never destroys the previous good file.
 
 ``load_pretrained_model`` restores the weights only (the reference's
 optimizer restore is commented out, ``src/utils/models.py:29-31``);
-``restore_checkpoint`` restores the weights, Adam's moments, the step count,
-the epoch and the resume counters. A parameter whose shape differs from the
+``restore_checkpoint`` restores the weights, the optimizer's state, the step
+count, the epoch and the resume counters. A parameter whose shape differs from the
 model's raises ``ValueError``, as the JAX ``_check_shapes`` does.
 
 Both read the JAX package's flax-msgpack checkpoints too, current and legacy
@@ -23,8 +23,9 @@ without flax: the weights and any batch statistics map through
 ``models/jax_weights.params_from_jax``, and ``restore_checkpoint`` carries
 optax Adam's ``mu`` / ``nu`` / ``count`` and
 injected learning rate into ``torch.optim.Adam``'s (or ``AdamW``'s)
-``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``lr``, so a JAX run resumes in the
-port.
+``exp_avg`` / ``exp_avg_sq`` / ``step`` and ``lr``, and optax SGD's Nesterov
+``trace`` into ``torch.optim.SGD``'s ``momentum_buffer``, so a JAX run
+resumes in the port.
 """
 
 from __future__ import annotations
@@ -164,22 +165,36 @@ def check_fits(state_dict: Mapping[str, torch.Tensor], model: torch.nn.Module,
             f"mismatch(es) — wrong architecture/width? ({detail})")
 
 
-def _adam_state_from_jax(opt_state: dict, model: torch.nn.Module,
-                         optimizer: torch.optim.Optimizer) -> dict:
-    """optax ``inject_hyperparams(adam | adamw)`` state → the optimizer's
-    ``state_dict``: ``inner_state["0"]`` is ``ScaleByAdamState`` (count, mu,
-    nu), whose trees map like the weights; ``hyperparams`` holds the lr."""
-    adam = opt_state.get("inner_state", {}).get("0", {})
-    if not (isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
-            and {"count", "mu", "nu"} <= set(adam)):
+def _optimizer_state_from_jax(opt_state: dict, model: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer) -> dict:
+    """optax ``inject_hyperparams(...)`` state → the optimizer's
+    ``state_dict``; ``hyperparams`` holds the lr. ``inner_state["0"]`` is
+
+    - ``ScaleByAdamState`` (count, mu, nu) of ``adam | adamw``: Adam's or
+      AdamW's step and moments;
+    - ``TraceState`` (trace) of ``sgd(momentum, nesterov)``: SGD's
+      ``momentum_buffer``. optax's Nesterov trace ``t ← g + m·t`` (update
+      ``g + m·t``) and torch's buffer without dampening ``b ← m·b + g``
+      (step ``g + m·b``) are one recursion from zero.
+
+    The trees map like the weights."""
+    inner = opt_state.get("inner_state", {}).get("0", {})
+    names = [name for name, _ in model.named_parameters()]
+    if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)) \
+            and {"count", "mu", "nu"} <= set(inner):
+        mu, nu = params_from_jax(inner["mu"], model), params_from_jax(inner["nu"], model)
+        step = torch.tensor(float(inner["count"]), dtype=torch.float32)
+        state = {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                 for i, name in enumerate(names)}
+    elif isinstance(optimizer, torch.optim.SGD) and "trace" in inner:
+        trace = params_from_jax(inner["trace"], model)
+        state = {i: {"momentum_buffer": trace[name]} for i, name in enumerate(names)}
+    else:
         raise ValueError(
-            f"only Adam's and AdamW's state is carried over from a JAX checkpoint; "
-            f"got optax state {sorted(adam)} for {type(optimizer).__name__}")
-    mu, nu = params_from_jax(adam["mu"], model), params_from_jax(adam["nu"], model)
-    step = torch.tensor(float(adam["count"]), dtype=torch.float32)
+            f"only Adam's, AdamW's and SGD's state is carried over from a JAX checkpoint; "
+            f"got optax state {sorted(inner)} for {type(optimizer).__name__}")
     sd = optimizer.state_dict()
-    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-                   for i, (name, _) in enumerate(model.named_parameters())}
+    sd["state"] = state
     for group in sd["param_groups"]:
         group["lr"] = float(opt_state["hyperparams"]["learning_rate"])
     return sd
@@ -201,7 +216,7 @@ def restore_checkpoint(state: TrainState, ckpt_path: str
     payload = _load(ckpt_path, state.model)
     state.model.load_state_dict(payload["model_state_dict"], strict=True)
     if "jax_optimizer_state" in payload:
-        state.optimizer.load_state_dict(_adam_state_from_jax(
+        state.optimizer.load_state_dict(_optimizer_state_from_jax(
             payload["jax_optimizer_state"], state.model, state.optimizer))
     else:
         state.optimizer.load_state_dict(payload["optimizer_state_dict"])

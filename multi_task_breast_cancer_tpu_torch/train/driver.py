@@ -35,9 +35,16 @@ the whole driver on its own device over the data mesh (``data_mesh()``),
 each step on its shard of the global batch; rank 0's fresh or restored
 state is broadcast to the others, so every rank takes the same steps and
 writes the same rows. Only rank 0's run root is the user's (the CLI sends
-the others to scratch). A batch that does not divide over the ranks turns
-fast augmentation off, with a warning. ``training.spatial_partitions > 1``
-raises: spatial partitioning is ``ROADMAP.md`` Queue 1.
+the others to scratch). A batch that does not divide over the ranks of the
+``data`` axis turns fast augmentation off, with a warning.
+
+Spatial partitioning, as in JAX: ``training.spatial_partitions: n`` (with
+``data_parallel``) makes the mesh ``data_space_mesh(n)``, a ``(W/n data ×
+n space)`` grid of the W ranks, whose ``space`` groups split every image's
+rows (:mod:`..parallel.spatial`). n must divide W (``ValueError``). Only the
+nnU-Net and BTS families have row rules; another architecture raises
+``NotImplementedError`` before anything is written (``ROADMAP.md``,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ from multi_task_breast_cancer_tpu_torch.ops.metrics import (
     dice_score,
     multiclass_classification_metrics,
 )
-from multi_task_breast_cancer_tpu_torch.parallel import multihost
+from multi_task_breast_cancer_tpu_torch.parallel import multihost, spatial
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_space_mesh, replicate_to_mesh
 from multi_task_breast_cancer_tpu_torch.train import inference as I
 from multi_task_breast_cancer_tpu_torch.train.checkpoint import (
@@ -473,9 +480,9 @@ def _engine_config(cfg: Config, task: str, max_angle: float,
 
 def _fast_augmentation(cfg: Config, mesh) -> bool:
     """``training.fast_augmentation``, unless the batch does not divide over
-    the mesh's ranks: then the exact augmentation, with a warning (JAX's
-    fallback; the Engine built directly raises instead)."""
-    n = mesh.world_size if mesh is not None else 1
+    the ranks of the mesh's ``data`` axis: then the exact augmentation, with
+    a warning (JAX's fallback; the Engine built directly raises instead)."""
+    n = mesh.data.world_size if mesh is not None else 1
     if cfg.training.fast_augmentation and n > 1 and cfg.data.batch_size % n:
         logging.warning(
             "fast_augmentation disabled for this run: batch_size (%d) does not divide "
@@ -510,6 +517,9 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             "semantic-mask objective (the reference has no such path either "
             "— its flag only changes the dataset, BUSI_dataset.py:51)")
     device = resolve_device(device)
+    if cfg.training.data_parallel and cfg.training.spatial_partitions > 1:
+        # an architecture without row rules raises before the mesh is made
+        spatial.row_multiple(_build_model(cfg, task), cfg.model.architecture)
     mesh = (data_space_mesh(cfg.training.spatial_partitions, device=device)
             if cfg.training.data_parallel else None)
     if cfg.training.CV < 2:
@@ -537,7 +547,10 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
     if multihost.active():
         logging.info("Process group: rank %d of %d (%s)", multihost.process_index(),
                      multihost.process_count(), torch.distributed.get_backend())
-    if mesh is not None:
+    if mesh is not None and mesh.space is not None:
+        logging.info("Parallelism over %d ranks (mesh axes ('data', 'space'), shape %s), "
+                     "this rank %d", mesh.world_size, mesh.shape, mesh.rank)
+    elif mesh is not None:
         logging.info("Parallelism over %d ranks (data mesh), this rank %d",
                      mesh.world_size, mesh.rank)
     if resume_dir is not None:

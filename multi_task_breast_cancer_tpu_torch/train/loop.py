@@ -45,6 +45,23 @@ Per-step loss shares, Dice counts and the confusion matrix are all-reduced
 once per epoch; validation and ``predict`` shard their rows the same way
 (``predict`` all-gathers its outputs in order). Padding steps stay no-ops
 on every rank.
+
+A ``(data × space)`` mesh (a :class:`~..parallel.mesh.DataMesh` with a ``space`` group,
+``training.spatial_partitions``) also splits the image rows: each step takes
+its data shard of the batch (augmented on whole planes, as JAX augments on
+the ``data`` axis), then this rank's rows of every image-shaped tensor;
+vectors (labels, class targets) are sharded by ``data`` only. The forward
+runs under :func:`~..parallel.spatial.partitioned` (halo exchanges, split
+norm statistics, the Dice and pooling sums over the ``space`` group). Every
+term that the ranks of a ``space`` group compute alike (the Dice from
+summed plane sums, the classification loss on replicated logits) is weighed
+by 1/n_space on top of the batch share, so the one flat gradient all-reduce,
+now over every rank, gives the global batch's gradient. The epoch's loss
+shares are summed over every rank, the Dice counts (already summed over
+``space``) and the confusion matrix over ``data``. Only the nnU-Net and BTS
+families have row rules (``space_row_multiple``), with DICE as the
+segmentation criterion; an image height must be a multiple of n_space ·
+2^pools.
 """
 
 from __future__ import annotations
@@ -72,6 +89,7 @@ from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import losses as L
 from multi_task_breast_cancer_tpu_torch.ops import metrics as M
 from multi_task_breast_cancer_tpu_torch.ops.fused_loss import fused_dice_criterion
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import DataMesh
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
 from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
@@ -142,24 +160,32 @@ def step_valid_mask(n: int, batch_size: int, total_steps: int) -> np.ndarray:
 class Engine:
     """Epoch training, validation and prediction for one model + task
     configuration on one device (``cuda`` unless ``device='cpu'``), or on
-    this rank's device of a data ``mesh``."""
+    this rank's device of a data or ``(data × space)`` ``mesh``."""
 
     def __init__(self, model: nn.Module, cfg: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh: Optional[DataMesh] = None):
         if mesh is not None and not isinstance(mesh, DataMesh):
             raise NotImplementedError(
-                f"Engine: {type(mesh).__name__} is not a data mesh; only the 1-D data "
-                "mesh (parallel.data_mesh) is ported, spatial meshes are ROADMAP.md, "
-                "Queue 1: spatial partitioning")
+                f"Engine: {type(mesh).__name__} is not a data mesh or a (data × space) "
+                "mesh (parallel.data_space_mesh)")
         if cfg.task not in ("segmentation", "classification", "multitask"):
             raise ValueError(f"Engine: unknown task {cfg.task!r}")
+        n_data = mesh.data.world_size if mesh is not None else 1
         if mesh is not None and cfg.use_transforms and cfg.fast_augmentation \
-                and cfg.batch_size % mesh.world_size:
+                and cfg.batch_size % n_data:
             raise ValueError(
                 "fast_augmentation on a data-parallel mesh runs the kernel on each "
                 f"rank's rows; batch_size ({cfg.batch_size}) must divide evenly over "
-                f"the {mesh.world_size} ranks")
+                f"the {n_data} ranks")
+        self._space = mesh.space if mesh is not None else None
+        if self._space is not None:
+            self._row_multiple = spatial.row_multiple(model)
+            if cfg.task != "classification" and cfg.seg_criterion != "DICE":
+                raise NotImplementedError(
+                    f"seg_criterion {cfg.seg_criterion!r} under spatial partitioning is "
+                    "not ported (DICE is; the others need whole planes or are not held "
+                    "to JAX there): ROADMAP.md, Queue 1")
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
         if mesh is not None and torch.device(mesh.device) != self.device:
@@ -224,12 +250,15 @@ class Engine:
         """This rank's share of the global batch's loss, from its
         ``n_local`` rows: ``_losses`` scaled so that the shares of all ranks
         add up to the global batch's loss (batch means by ``n_local /
-        n_global``; the Jaccard criterion, a batch sum, by 1). ``aux``'s
-        ``seg_loss``/``cls_loss`` are shares too. All the rows: ``_losses``
-        itself. With no rows the share is zero, still joined to every output
-        the loss reads, so that the backward runs (and joins the collectives
-        of) the whole model."""
-        if n_local == n_global:
+        n_global``; the Jaccard criterion, a batch sum, by 1; both by
+        1/n_space more under a ``space`` group, whose ranks all compute the
+        whole images' loss). ``aux``'s ``seg_loss``/``cls_loss`` are shares
+        too. All the rows of one process: ``_losses`` itself. With no rows
+        the share is zero, still joined to every output the loss reads, so
+        that the backward runs (and joins the collectives of) the whole
+        model."""
+        n_space = self._space.size if self._space is not None else 1
+        if n_local == n_global and n_space == 1:
             return self._losses(out, masks, cls_targets)
         if n_local == 0:
             heads = self._heads(out)
@@ -238,8 +267,8 @@ class Engine:
             zero = sum(a.sum() for a in leaves) * 0.0
             return zero, {**heads, "seg_loss": zero.detach(), "cls_loss": zero.detach()}
         loss, aux = self._losses(out, masks, cls_targets)
-        mean = n_local / n_global
-        f_seg = 1.0 if self.cfg.seg_criterion == "Jaccard" else mean
+        mean = n_local / n_global / n_space
+        f_seg = 1.0 / n_space if self.cfg.seg_criterion == "Jaccard" else mean
         if self.cfg.task == "segmentation":
             return f_seg * loss, aux
         if self.cfg.task == "classification":
@@ -370,6 +399,25 @@ class Engine:
             return x[:, 0].unsqueeze(1)
         return x.clone(memory_format=torch.contiguous_format)
 
+    def _check_rows(self, height: int) -> None:
+        """Under a ``space`` group every level's rows must split evenly:
+        ``H % (n_space · 2^pools) == 0`` (JAX pads uneven shards instead)."""
+        if self._space is None:
+            return
+        need = self._space.size * self._row_multiple
+        if height % need:
+            raise ValueError(
+                f"spatial partitioning needs the image height to be a multiple of "
+                f"n_space · 2^pools = {self._space.size} · {self._row_multiple} = {need} "
+                f"(H % (n_space · 2^pools) == 0), got H={height}")
+
+    def _space_rows(self, *tensors: torch.Tensor):
+        """This rank's rows of each NCHW tensor under a ``space`` group
+        (NCHW-contiguous copies); the tensors as they are without one."""
+        if self._space is None:
+            return tensors
+        return tuple(self._nchw(t[:, :, self._space.rows(t.shape[2])]) for t in tensors)
+
     def _epoch_draws(self, steps: int, generator: Optional[torch.Generator]):
         """Every step's augmentation draws for one epoch, drawn at once from
         ``generator`` (on the CPU) and, for the fast path, folded into the
@@ -449,14 +497,16 @@ class Engine:
         shares, counts = [], []  # per real step: (loss, seg, cls) shares, Dice counts
         model, opt = state.model, state.optimizer
         model.train()
-        with dropout_draws(model, dropout_generator), global_batch(model, mesh, b):
+        with dropout_draws(model, dropout_generator), global_batch(model, mesh, b), \
+                spatial.partitioned(self._space):
             for k in range(steps):
                 if valid[k] <= 0:
                     continue  # cross-fold padding: a no-op, not a zero-gradient step
                 rows = rows_all[k, shard]
                 ctgt = data["cls_targets"].index_select(0, rows)
                 lint = data["labels_int"].index_select(0, rows)
-                imgs, msks = self._augmented_batch(data, rows, draws, k, shard)
+                imgs, msks = self._space_rows(
+                    *self._augmented_batch(data, rows, draws, k, shard))
                 opt.zero_grad(set_to_none=True)
                 out = self._apply(model, imgs)
                 loss, aux = self._loss_shares(out, msks, ctgt, n_local, b)
@@ -474,21 +524,27 @@ class Engine:
         return self._epoch_metrics(self._epoch_sums(sums, shares, counts),
                                    max(float(valid.sum()), 1.0))
 
+    def _reduced(self, t: torch.Tensor, over_space: bool = True) -> torch.Tensor:
+        """``t`` summed over every rank of the mesh, or (``over_space``
+        False: a value every rank of a ``space`` group holds alike) over its
+        ``data`` axis; ``t`` itself without a mesh."""
+        if self.mesh is None:
+            return t
+        return (self.mesh if over_space else self.mesh.data).all_reduce_sum(t)
+
     def _epoch_sums(self, sums, shares: list, counts: list) -> Dict[str, torch.Tensor]:
         """The epoch sums from the per-step loss shares, Dice counts and the
-        confusion matrix: under a mesh each all-reduced once; the steps then
+        confusion matrix: under a mesh each all-reduced once (the shares over
+        every rank, the counts and the matrix over ``data``); the steps then
         added one by one, in the order of the steps."""
-        def reduced(t: torch.Tensor) -> torch.Tensor:
-            return t if self.mesh is None else self.mesh.all_reduce_sum(t)
-
         if shares:
-            for loss, seg, cls in reduced(torch.stack(shares)):
+            for loss, seg, cls in self._reduced(torch.stack(shares)):
                 sums["loss"], sums["seg_loss"], sums["cls_loss"] = (
                     sums["loss"] + loss, sums["seg_loss"] + seg, sums["cls_loss"] + cls)
         if counts:
-            for dice in M.dice_from_counts(reduced(torch.stack(counts))):
+            for dice in M.dice_from_counts(self._reduced(torch.stack(counts), False)):
                 sums["dice"] = sums["dice"] + dice
-        sums["cm"] = reduced(sums["cm"])
+        sums["cm"] = self._reduced(sums["cm"], False)
         return sums
 
     @torch.no_grad()
@@ -504,19 +560,20 @@ class Engine:
         n = data["images"].shape[0]
         shard = self.mesh.shard(n) if self.mesh is not None else slice(0, n)
         n_local = shard.stop - shard.start
-        images = self._nchw(data["images"][shard].to(self._dtype))
-        masks = self._nchw(data["masks"][shard].float())
+        images, masks = self._space_rows(self._nchw(data["images"][shard].to(self._dtype)),
+                                         self._nchw(data["masks"][shard].float()))
         targets = data["cls_targets"][shard]
-        loss, aux = self._loss_shares(self._apply(model, images), masks, targets, n_local, n)
-        sm = self._step_metrics(aux, masks, data["labels_int"][shard],
-                                torch.zeros((n_cm, n_cm), device=self.device))
+        with spatial.partitioned(self._space):
+            loss, aux = self._loss_shares(self._apply(model, images), masks, targets,
+                                          n_local, n)
+            sm = self._step_metrics(aux, masks, data["labels_int"][shard],
+                                    torch.zeros((n_cm, n_cm), device=self.device))
         zero = torch.zeros((), device=self.device)
-        shares = torch.stack([loss, aux.get("seg_loss", zero), aux.get("cls_loss", zero)])
-        if self.mesh is not None:
-            shares = self.mesh.all_reduce_sum(shares)
-            for k in ("dice_counts", "cm"):
-                if k in sm:
-                    sm[k] = self.mesh.all_reduce_sum(sm[k])
+        shares = self._reduced(torch.stack([loss, aux.get("seg_loss", zero),
+                                            aux.get("cls_loss", zero)]))
+        for k in ("dice_counts", "cm"):
+            if k in sm:
+                sm[k] = self._reduced(sm[k], False)
         metrics = dict(zip(("loss", "seg_loss", "cls_loss"), shares))
         metrics["dice"] = M.dice_from_counts(sm["dice_counts"]) if "dice_counts" in sm else zero
         if "cm" in sm:
@@ -566,12 +623,15 @@ class Engine:
         ``pad_to`` wrap-pads the batch and trims the outputs back. Returns the
         model's output structure, NCHW f32 tensors on the Engine's device.
         Under a mesh each rank runs its shard of the (padded) rows and the
-        outputs are all-gathered in order, so every rank returns them all."""
+        outputs are all-gathered in order, so every rank returns them all;
+        under a ``space`` group each rank runs its image rows and the
+        image-shaped outputs' rows are gathered first."""
         x = torch.as_tensor(np.asarray(images) if not torch.is_tensor(images) else images)
         x = self._nchw(x.to(self.device).permute(0, 3, 1, 2).to(self._dtype))
         n = x.shape[0]
         if n == 0:
             raise ValueError("predict: empty batch (images has 0 rows)")
+        self._check_rows(x.shape[2])
         if pad_to is not None and n < pad_to:
             x = x[torch.arange(pad_to, device=self.device) % n]
         model = state.model
@@ -579,11 +639,16 @@ class Engine:
         total = x.shape[0]
         if self.mesh is not None:
             x = x[self.mesh.shard(total)]
-        outs = [self._apply(model, x[i:i + max_batch])
-                for i in range(0, max(x.shape[0], 1), max_batch)]
+        (x,) = self._space_rows(x)
+        with spatial.partitioned(self._space):
+            outs = [self._apply(model, x[i:i + max_batch])
+                    for i in range(0, max(x.shape[0], 1), max_batch)]
         out = tree_map(lambda *parts: torch.cat(parts, dim=0), *outs)
+        if self._space is not None:
+            out = tree_map(lambda a: spatial.gather_rows(a, self._space) if a.dim() == 4
+                           else a, out)
         if self.mesh is not None:
-            out = tree_map(lambda a: self.mesh.all_gather_rows(a, total), out)
+            out = tree_map(lambda a: self.mesh.data.all_gather_rows(a, total), out)
         return tree_map(lambda a: a[:n], out)
 
     # ------------------------------------------------------------------
@@ -621,6 +686,7 @@ class Engine:
             t = torch.from_numpy(np.ascontiguousarray(_pad(a).transpose(0, 3, 1, 2)))
             return self._nchw(t.to(self._storage_dtype(a))).to(self.device)
 
+        self._check_rows(ds.images.shape[1])
         data = {
             "images": _nchw_tensor(ds.images),
             "masks": _nchw_tensor(ds.masks),

@@ -147,6 +147,54 @@ def test_resumed_adam_step_matches_optax(jax_state, files):
         np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("opt", ["SGD", "Lion"])
+def test_resumed_sgd_step_matches_optax(tmp_path, opt):
+    """A JAX run trained with SGD resumes in the port: optax's Nesterov
+    ``trace`` goes into ``torch.optim.SGD``'s ``momentum_buffer`` and the
+    next step equals optax's. Both factories take SGD(momentum 0.9,
+    nesterov) for ``SGD`` and for a name they do not know (``Lion``). An
+    optimizer of another type than the state raises."""
+    port0 = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
+                                 generator=torch.Generator().manual_seed(3))
+    params = jax.tree_util.tree_map(jnp.asarray, params_to_jax(port0.state_dict(), port0))
+    tx = jax_optimizer(opt, LR)
+    update = jax.jit(tx.update)
+    opt_state = tx.init(params)
+    for seed in (1, 2):  # two steps, so the trace is not the first gradient
+        updates, opt_state = update(_grads(params, seed), opt_state, params)
+        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+    state = JaxTrainState(params=params, batch_stats={}, opt_state=opt_state,
+                          step=jnp.asarray(2, jnp.int32))
+    path = tmp_path / "model_fold_0"
+    jax_ckpt.save_checkpoint(str(path), state, epoch=1, val_loss=0.5, resume_state=RESUME)
+
+    model = init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
+    port, _, _, _ = ckpt.restore_checkpoint(create_train_state(model, opt, LR), str(path))
+    assert isinstance(port.optimizer, torch.optim.SGD) and port.step == 2
+    trace = params_from_jax(opt_state.inner_state[0].trace, port.model)
+    for p, (name, _) in zip(port.optimizer.param_groups[0]["params"],
+                            port.model.named_parameters()):
+        assert torch.equal(port.optimizer.state[p]["momentum_buffer"], trace[name])
+    assert port.optimizer.param_groups[0]["lr"] == pytest.approx(LR)
+
+    grads = _grads(state.params, 3)
+    updates, _ = update(grads, state.opt_state, state.params)
+    want = params_from_jax(jax.tree_util.tree_map(lambda p, u: p + u, state.params, updates),
+                           port.model)
+    g = params_from_jax(grads, port.model)
+    for name, p in port.model.named_parameters():
+        p.grad = g[name]
+    port.optimizer.step()
+    got = port.model.state_dict()
+    for name, _ in port.model.named_parameters():
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), rtol=0, atol=1e-6)
+
+    adam = create_train_state(init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS),
+                              "Adam", LR)
+    with pytest.raises(ValueError, match=r"got optax state \['trace'\] for Adam"):
+        ckpt.restore_checkpoint(adam, str(path))
+
+
 def test_checkpoint_backend_serves_a_jax_checkpoint(files):
     cfg = Config(model=ModelConfig(architecture="MTnnUNet", nnunet_widths=WIDTHS),
                  data=DataConfig(input_img="unused"))

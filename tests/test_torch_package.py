@@ -39,12 +39,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 64  # every module was walked: the driver's, the tools', the zoo's
+    assert len(names) >= 65  # every module was walked: the driver's, the tools', the zoo's
     tools = {"predict", "evaluate", "native", "data.holdout_check", "data.preprocessing",
              "data.ssim", "models.torch_import", "train.flax_msgpack", "serve.export",
              "models.bts_unet", "models.fsb_bts_unet", "models.unetpp",
              "models.residual_unet", "models.monai_zoo", "models.swin_unetr",
-             "parallel", "parallel.mesh", "parallel.multihost"}
+             "parallel", "parallel.mesh", "parallel.multihost", "parallel.spatial"}
     assert {f"multi_task_breast_cancer_tpu_torch.{m}" for m in tools} <= names
 
 

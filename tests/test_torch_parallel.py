@@ -102,6 +102,12 @@ def _rank_main() -> None:
     else:
         result = fn(rank, world, int(port), **args)
     torch.save(result, Path(out) / f"rank{rank}.pt")
+    if torch.distributed.is_initialized():
+        # leave together and shut Gloo's threads down before the interpreter
+        # exits: otherwise a rank can abort at exit ("terminate called without
+        # an active exception") once the others have gone
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 def _perturbed_unless_rank0(model: torch.nn.Module, rank: int) -> torch.nn.Module:
@@ -119,14 +125,24 @@ def _engine_run(model, cfg: EngineConfig, mesh, train, perm, val=None, predict=N
                 seed: int = 2, dropout_seed=None) -> dict:
     """One epoch of ``train`` on ``perm``, validation on ``val`` and a
     prediction of ``predict``, on one process (``mesh=None``) or as this
-    rank; the metrics, the final state and the outputs."""
+    rank; the metrics, the first step's gradient as the optimizer gets it
+    (after the all-reduce), the final state and the outputs."""
     engine = Engine(model, cfg, device="cpu", mesh=mesh)
     state = replicate_to_mesh(mesh, create_train_state(engine.model, "Adam", 1e-3))
+    grads, named, opt_step = {}, dict(engine.model.named_parameters()), state.optimizer.step
+
+    def record_grads(*args, **kwargs):
+        if not grads:
+            grads.update({n: p.grad.clone() for n, p in named.items() if p.grad is not None})
+        return opt_step(*args, **kwargs)
+
+    state.optimizer.step = record_grads
     data = engine.device_data(train)
     drop = None if dropout_seed is None else torch.Generator().manual_seed(dropout_seed)
     state, tm = engine.train_epoch(state, data, perm, torch.Generator().manual_seed(seed),
                                    dropout_generator=drop)
-    out = {"train": tm, "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
+    out = {"train": tm, "grads": grads,
+           "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
     if val is not None:
         out["val"] = engine.eval_epoch(state, engine.device_data(val, for_training=False))
     if predict is not None:
@@ -440,19 +456,25 @@ def test_fast_augmentation_on_two_ranks_gives_the_single_device_rows(tmp_path, c
 
 def test_one_rank_has_no_mesh_and_spatial_partitions_raise(tmp_path):
     """As JAX returns no mesh for one device, one rank gets ``None``; a
-    ``space`` axis is not ported and raises, in the driver too (which runs
-    ``data_parallel`` over one rank as one process); the mesh spans every
-    rank."""
-    from multi_task_breast_cancer_tpu_torch.config import Config, TrainingConfig
+    ``space`` axis of 2 does not divide one rank and raises ``ValueError``,
+    as JAX's ``data_space_mesh`` does, in the driver too (which runs
+    ``data_parallel`` over one rank as one process), and an architecture
+    without row rules raises ``NotImplementedError`` naming the queue before
+    the mesh; neither writes anything. The mesh spans every rank."""
+    from multi_task_breast_cancer_tpu_torch.config import Config, ModelConfig, TrainingConfig
     from multi_task_breast_cancer_tpu_torch.train import driver
 
     assert data_mesh() is None and data_mesh(1) is None
     assert data_space_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="spatial_partitions=2 must divide the device count"):
         data_space_mesh(2)
     cfg = Config(training=TrainingConfig(spatial_partitions=2))
-    with pytest.raises(NotImplementedError, match="spatial_partitions=2"):
+    with pytest.raises(ValueError, match="spatial_partitions=2"):
         driver.run_experiment(cfg, "multitask", run_root=str(tmp_path), device="cpu")
+    cfg = Config(model=ModelConfig(architecture="SwinUNETR"),
+                 training=TrainingConfig(spatial_partitions=2))
+    with pytest.raises(NotImplementedError, match="SwinUNETR.*ROADMAP.md, Queue 1"):
+        driver.run_experiment(cfg, "segmentation", run_root=str(tmp_path), device="cpu")
     assert not any(tmp_path.iterdir())
     with pytest.raises(NotImplementedError, match="not a data mesh"):
         Engine(registry.init_segmentation_model("BTSUNet", width=4, size=32),
