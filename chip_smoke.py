@@ -1514,7 +1514,7 @@ def profile_step(engine, state, data, perm, gen, step_ms: float, bf16: bool = Fa
 
 
 def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
-                              casts: int = 0) -> None:
+                              casts: int = 0, attempts: int = 3) -> None:
     """The launches of one training step from the augmentation to the
     model's first convolution, in the order the card ran them. Empty-kernel
     markers are launched just before and just after ``Engine._augmented_batch``
@@ -1524,49 +1524,75 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
     path is one launch, the kernel (no cast, no copy), and nothing runs
     between it and the convolution; at bf16 (``unpack=1``) the kernel and one
     copy that unpacks the channel pairs, and between it and the convolution
-    only the ``casts`` casts of the f32 parameters to their bf16 copies."""
+    only the ``casts`` casts of the f32 parameters to their bf16 copies.
+
+    The profiler has been seen, on the card, to return a step's record
+    without the three markers although all three were launched; such a
+    record cannot place the path, so the step is profiled again, up to
+    ``attempts`` times, each miss logged with what the record held. The
+    first record that holds the three markers is checked; none in
+    ``attempts`` fails the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 
-    armed = []
+    armed, launched = [], []
     inner = engine._augmented_batch
 
+    def marker() -> None:
+        hk.empty_launch(engine.device)
+        launched.append(True)
+
     def augmented_batch(*args):
-        hk.empty_launch(engine.device)
+        marker()
         out = inner(*args)
-        hk.empty_launch(engine.device)
+        marker()
         armed.append(True)
         return out
 
     def first_conv(_module, _args):
         if armed:
             armed.clear()
-            hk.empty_launch(engine.device)
+            marker()
 
     hooks = [m.register_forward_pre_hook(first_conv) for m in engine.model.modules()
              if isinstance(m, torch.nn.Conv2d)]
     engine._augmented_batch = augmented_batch
+    misses = []
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            engine.train_epoch(state, data, perm, gen)
-            torch.cuda.synchronize()
+        for attempt in range(attempts):
+            armed.clear()
+            launched.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.train_epoch(state, data, perm, gen)
+                torch.cuda.synchronize()
+            check(len(launched) == 3, f"augmentation path: {len(launched)} markers launched, "
+                  "want 3 (one step must call the augmentation and a convolution once)")
+            names = [e.name for e in sorted((e for e in prof.events()
+                                             if e.device_type == DeviceType.CUDA),
+                                            key=lambda e: e.time_range.start)]
+            check(bool(names), "augmentation path: the profiler saw no device events")
+            marks = [k for k, name in enumerate(names)
+                     if "instance_norm_leaky_relu_empty" in name]
+            if len(marks) == 3:
+                break
+            kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+            misses.append(f"attempt {attempt}: {len(marks)} of 3 markers in {len(names)} device "
+                          f"events ({len(kernels)} kernels, "
+                          f"{sum('fast_augment' in n for n in names)} fast_augment)")
+            log(f"  augmentation path profile: the record lacks markers, {misses[-1]}")
     finally:
         del engine._augmented_batch
         for h in hooks:
             h.remove()
-    names = [e.name for e in sorted((e for e in prof.events()
-                                     if e.device_type == DeviceType.CUDA),
-                                    key=lambda e: e.time_range.start)]
-    check(bool(names), "augmentation path: the profiler saw no device events")
-    marks = [k for k, name in enumerate(names) if "instance_norm_leaky_relu_empty" in name]
-    check(len(marks) == 3, f"augmentation path profile: {len(marks)} markers, want 3")
+    check(len(marks) == 3, f"augmentation path profile: {len(marks)} markers, want 3 "
+          f"({'; '.join(misses)})")
     path, between = names[marks[0] + 1:marks[1]], names[marks[1] + 1:marks[2]]
     copies = [n for n in path + between if re.search(r"copy|cast|elementwise", n, re.I)]
-    log(f"  augmentation path of one step (profile): {len(path)} launch(es) "
-        f"{[n[:60] for n in path]}; {len(between)} launch(es) between it and the first "
-        f"convolution; {len(copies)} copies or casts")
+    log(f"  augmentation path of one step (profile, attempt {len(misses)}): {len(path)} "
+        f"launch(es) {[n[:60] for n in path]}; {len(between)} launch(es) between it and the "
+        f"first convolution; {len(copies)} copies or casts")
     check(len(path) == 1 + unpack and "fast_augment" in path[0] and len(between) == casts
           and len(copies) == unpack + casts,
           f"the augmentation path at 128^2 must be the kernel and {unpack} unpacking "
@@ -3595,12 +3621,14 @@ def _digest(state_dict) -> str:
 
 
 def _parallel_model(arch: str, mesh):
-    """Full-width ``arch`` from generator seed 0; ranks other than 0 move
-    their weights first, which ``replicate_to_mesh`` must undo."""
+    """Full-width ``arch`` from generator seed 0 (the segmentation zoo as
+    phase 9b builds it, the others as 9a); ranks other than 0 move their
+    weights first, which ``replicate_to_mesh`` must undo."""
     import torch
     from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
     model = (init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
-             if arch == "MTnnUNet" else seg_zoo_model(arch))
+             if arch == "MTnnUNet" else seg_zoo_model(arch)
+             if _zoo_task(arch) == "segmentation" else zoo_model(arch))
     if mesh is not None and mesh.rank:
         gen = torch.Generator().manual_seed(100 + mesh.rank)
         with torch.no_grad():
@@ -3720,12 +3748,14 @@ def parallel_rank() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank), backend=backend,
                          timeout_s=300)
-    if case.startswith("spatial_ranks") or case == "spatial":
+    if case.startswith("spatial_ranks") or case in ("spatial", "spatial_zoo"):
         mesh = data_space_mesh(SPATIAL_N, device=device)
     else:
         mesh = data_mesh(device=device)
     if case == "spatial":
         result = spatial_case(mesh, out)
+    elif case == "spatial_zoo":
+        result = spatial_zoo_case(mesh, out)
     elif case == "spatial_ranks_peak":  # the ranks' step peak without the limit
         result = _spatial_peak(mesh, cap=False)
     elif case.startswith("spatial_peak"):  # one process, no mesh
@@ -4270,12 +4300,36 @@ SPATIAL_GRAD_SCALE_TOL = 1e-2
 SPATIAL_GRAD_DIST_TOL = 5e-2
 SPATIAL_TREE_PER_CLASS = 8      # the driver run: 24 images, CV 2, 1 epoch
 SPATIAL_BUDGET_S = 90.0
+# 7e: the rest of the zoo on the two space ranks, two real steps each, and
+# one driver run with a criterion other than DICE
+SPATIAL_ZOO = ("UNet", "AttentionUNet", "SegResNet", "ResidualUNet", "SwinUNETR",
+               "UnetPlusPlus", "UNetPlusPlusClassifier", "MTUNetPlusPlus", "Adityan")
+SPATIAL_ZOO_STEPS = 2
+SPATIAL_ZOO_DRIVER = ("ResidualUNet", "FocalDICE")
+SPATIAL_ZOO_BUDGET_S = 90.0
+# 7e's gradients that are zero or nearly so in exact arithmetic (a bias
+# before a mean-removing norm: the MONAI twins', UNet++'s, Swin's decoder
+# blocks'; SwinUNETR's encoder0.conv_skip, a 1×1 weight before an instance
+# norm, 1.04e-5 of the model's largest in the CPU rehearsal, its ranks'
+# gradient 0.94 of one process's) are f32 rounding on both sides: held
+# against the f64 gradient of the same step instead (_spatial_grad_check),
+# the ranks no further from it than this many times one process. The f64
+# gradient must be f64 throughout: while InstanceNorm's statistics and
+# Swin's attention logits were cast to f32 in it, one process shared their
+# rounding, and the ranks' conv_skip gradient, 3.9 % of its norm from one
+# process's, measured 4.61 times as far from it on an H100 80GB HBM3 at
+# 700 W (7e logs both distances of the worst tensor). Two rounding noises of one small tensor can differ by any ratio, so a
+# tensor that f32 cannot resolve in one process is held to the model's f32
+# noise instead; a lost or doubled term puts the ranks thousands of times
+# further from f64 than one process
+SPATIAL_F64_RATIO = 4.0
 
 
-def _spatial_engine(mesh, size: int = 0):
-    """MTnnUNet at full width from generator seed 0 at the ``Config()``
-    defaults (batch 2, fast augmentation), its state replicated over
-    ``mesh``, and its device data (``SPATIAL_STEPS`` steps of ``size``²)."""
+def _spatial_engine(mesh, size: int = 0, arch: str = "MTnnUNet", steps: int = SPATIAL_STEPS):
+    """``arch`` (MTnnUNet, or one of the zoo) at full width from generator
+    seed 0 at the ``Config()`` defaults (batch 2, fast augmentation), its
+    state replicated over ``mesh``, and its device data (``steps`` steps of
+    ``size``²)."""
     import torch
     from multi_task_breast_cancer_tpu_torch.config import Config
     from multi_task_breast_cancer_tpu_torch.parallel.mesh import replicate_to_mesh
@@ -4284,34 +4338,43 @@ def _spatial_engine(mesh, size: int = 0):
 
     cfg = Config()
     device = mesh.device if mesh is not None else torch.device(DEVICE)
-    engine = Engine(_parallel_model("MTnnUNet", mesh),
-                    _engine_config(cfg, task="multitask", fast_augmentation=True),
+    task = "multitask" if arch == "MTnnUNet" else _zoo_task(arch)
+    engine = Engine(_parallel_model(arch, mesh),
+                    _engine_config(cfg, task=task, fast_augmentation=True),
                     device=device, mesh=mesh)
     state = replicate_to_mesh(mesh, create_train_state(engine.model, cfg.optimizer.opt,
                                                        cfg.optimizer.lr))
     b = cfg.data.batch_size
-    fold = synthetic_fold(b * SPATIAL_STEPS, 41, size)
+    fold = synthetic_fold(b * steps, 41, size)
     return engine, state, engine.device_data(fold), b
 
 
-def _spatial_steps(mesh, replay=None) -> dict:
-    """``SPATIAL_STEPS`` real steps at 128² through the Engine, then an
+def _spatial_steps(mesh, replay=None, arch: str = "MTnnUNet",
+                   steps: int = SPATIAL_STEPS, f64: bool = False) -> dict:
+    """``steps`` real steps of ``arch`` at 128² through the Engine, then an
     evaluation of 4 images: per step the loss, the launches (#1, #2, #3 and
-    the split entry points, halo exchanges, collectives), and this rank's
-    weights before it (rank 0 returns them); the first step's gradient as
-    the optimizer gets it (after the all-reduce; rank 0 and one process);
-    the state's digest; the evaluation. ``replay`` (one process): the ranks'
-    weights, loaded before each step and before the evaluation, so its
-    losses and first gradient come from the same weights as theirs."""
+    the split entry points, halo exchanges, cyclic shifts, row gathers,
+    collectives), the host-clock ms, and this rank's weights before it
+    (rank 0 returns them); the first step's gradient as the optimizer gets
+    it (after the all-reduce; rank 0 and one process); the state's digest;
+    the evaluation. ``replay`` (one process): the ranks' weights, loaded
+    before each step and before the evaluation, so its losses and first
+    gradient come from the same weights as theirs. A model with dropout
+    draws from a generator of seed 1 on the device (the ranks' and one
+    process's masks are then the same draws). ``f64`` (with ``replay``):
+    also the first step's gradient in float64 (:func:`_grads64`)."""
     import numpy as np
     import torch
+    from multi_task_breast_cancer_tpu_torch.models.blocks import has_dropout
     from multi_task_breast_cancer_tpu_torch.train.loop import plan_epoch_indices
 
-    engine, state, train, b = _spatial_engine(mesh)
+    engine, state, train, b = _spatial_engine(mesh, arch=arch, steps=steps)
     val = engine.device_data(synthetic_fold(4, 42), for_training=False)
-    perm = plan_epoch_indices(b * SPATIAL_STEPS, b, np.random.default_rng(0))
+    perm = plan_epoch_indices(b * steps, b, np.random.default_rng(0))
     gen = torch.Generator().manual_seed(0)
-    losses, launches, weights, grads = [], [], [], {}
+    drop = (torch.Generator(device=engine.device).manual_seed(1)
+            if has_dropout(engine.model) else None)
+    losses, launches, weights, grads, step_ms = [], [], [], {}, []
     keep = mesh is not None and mesh.rank == 0
     named, opt_step = dict(engine.model.named_parameters()), state.optimizer.step
 
@@ -4322,7 +4385,16 @@ def _spatial_steps(mesh, replay=None) -> dict:
         return opt_step(*args, **kwargs)
 
     state.optimizer.step = record_grads
-    for k in range(SPATIAL_STEPS):
+    batches, augmented = [], engine._augmented_batch
+
+    def record_batch(*args, **kwargs):
+        out = augmented(*args, **kwargs)
+        if not batches:
+            batches.append(tuple(t.detach().clone() for t in out))
+        return out
+
+    engine._augmented_batch = record_batch
+    for k in range(steps):
         if replay is not None:
             state.model.load_state_dict(replay["weights"][k])
         if keep:
@@ -4330,23 +4402,50 @@ def _spatial_steps(mesh, replay=None) -> dict:
                             state.model.state_dict().items()})
         _sync(engine.device)
         _reset_counts()
-        state, tm = engine.train_epoch(state, train, perm[k * b:(k + 1) * b], gen)
+        t0 = time.perf_counter()
+        state, tm = engine.train_epoch(state, train, perm[k * b:(k + 1) * b], gen,
+                                       dropout_generator=drop)
         _sync(engine.device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append({"#1": _counts()[0], "#2": _counts()[1], "#3": _counts()[2],
                          **_split_counts()})
         losses.append(tm["loss"])
     del state.optimizer.step  # the class's again: no cycle keeps the state alive
+    del engine._augmented_batch
+    grads64 = None
+    if f64 and replay is not None:
+        rows = torch.as_tensor(perm[:b], dtype=torch.long, device=engine.device)
+        grads64 = _grads64(arch, engine, replay["weights"][0], batches[0],
+                           train["cls_targets"].index_select(0, rows))
     if replay is not None:
         state.model.load_state_dict(replay["final"])
     _reset_counts()
     ev = engine.eval_epoch(state, val)
     eval_launches = {"#1": _counts()[0], **_split_counts()}
-    return {"losses": losses, "launches": launches, "weights": weights,
+    return {"losses": losses, "launches": launches, "weights": weights, "step_ms": step_ms,
             "grads": grads if keep or mesh is None else None,
             "final": ({n: t.detach().cpu().clone() for n, t in state.model.state_dict().items()}
                       if keep else None),
             "digest": _digest(state.model.state_dict()), "eval": ev,
-            "eval_launches": eval_launches}
+            "eval_launches": eval_launches, "grads64": grads64}
+
+
+def _grads64(arch: str, engine, weights: dict, batch: tuple, targets) -> dict:
+    """A step's gradient in float64 on ``engine``'s device: ``arch`` from
+    ``weights`` in f64, in train mode, on the step's augmented ``batch``
+    (images, masks) and class ``targets``, through the Engine's loss; its
+    dropout from a fresh generator of seed 1, as the first step drew."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.blocks import dropout_draws
+
+    model = _parallel_model(arch, None)
+    model.load_state_dict(weights)
+    model = model.double().to(engine.device).train()
+    imgs, msks = (t.double() for t in batch)
+    with dropout_draws(model, torch.Generator(device=engine.device).manual_seed(1)):
+        loss, _ = engine._losses(model(imgs), msks, targets.double())
+    loss.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
 
 
 def _spatial_peak(mesh, cap: bool = True) -> dict:
@@ -4382,16 +4481,21 @@ def _spatial_peak(mesh, cap: bool = True) -> dict:
     return {"base": base, "peak": peak, "params": params, "cap": cap}
 
 
-def _spatial_driver(mesh, tree: str, run_root: str) -> dict:
+def _spatial_driver(mesh, tree: str, run_root: str, arch: str = "",
+                    criterion: str = "") -> dict:
     """``run_experiment`` with ``spatial_partitions: 2`` as this rank
     (rank 0 under ``run_root``, the other in a scratch root), CV 2, one
-    epoch at the ``Config()`` defaults: its metrics rows and launches."""
+    epoch at the ``Config()`` defaults (or ``arch`` and the segmentation
+    ``criterion``, on its task): its metrics rows and launches."""
     from multi_task_breast_cancer_tpu_torch.parallel import multihost
     from multi_task_breast_cancer_tpu_torch.train.driver import run_experiment
 
     cfg = _driver_config(tree, 2, 1, spatial_partitions=SPATIAL_N)
+    cfg.model.architecture = arch or cfg.model.architecture
+    cfg.loss.function = criterion or cfg.loss.function
     _reset_counts()
-    run = run_experiment(cfg, "multitask", "CV", run_root=multihost.coordinator_run_root(run_root),
+    run = run_experiment(cfg, _zoo_task(arch) if arch else "multitask", "CV",
+                         run_root=multihost.coordinator_run_root(run_root),
                          device=mesh.device)
     _sync(mesh.device)
     log_text = open(os.path.join(run, "execution.log")).read()
@@ -4401,17 +4505,32 @@ def _spatial_driver(mesh, tree: str, run_root: str) -> dict:
             "mesh_logged": "mesh axes ('data', 'space'), shape (1, 2)" in log_text}
 
 
-def _spatial_grad_check(ranks: dict, single: dict) -> tuple:
+def _spatial_grad_check(ranks: dict, single: dict, f64=None) -> tuple:
     """Each tensor of the ranks' step-0 gradient (after the all-reduce)
     against one process's from the same weights and rows: its least-squares
     scale ``<a, b> / <b, b>`` within ``SPATIAL_GRAD_SCALE_TOL`` of 1 and
     ``|a − b| / |b|`` within ``SPATIAL_GRAD_DIST_TOL`` (a tensor whose
-    gradient is zero in one process must be zero on the ranks). Returns the
-    largest of each with its tensor's name."""
+    gradient is zero in one process must be zero on the ranks). ``f64``:
+    the same step's gradient in float64; a tensor outside that rule passes
+    if the ranks' gradient is no further from it than
+    ``SPATIAL_F64_RATIO`` times one process's (a term lost or counted twice
+    puts the ranks far from f64 and one process near it), or, where one
+    process's own f32 gradient is more than ``SPATIAL_GRAD_DIST_TOL`` of
+    its norm from f64 (f32 cannot resolve it: a gradient zero or nearly so
+    in exact arithmetic, as a bias before a norm that takes its mean out),
+    if the ranks' largest error against f64 is within ``SPATIAL_F64_RATIO``
+    times one process's largest f32 error over the whole model: two
+    rounding noises of a few elements can differ by any ratio. Returns the
+    largest scale error and distance under the first rule, each with its
+    tensor's name, and the number of tensors held by f64 with, of the one
+    with the largest ratio, the ratio, its name and one process's and the
+    ranks' distances to f64 as shares of the f64 gradient's norm."""
     check(ranks.keys() == single.keys() and len(single) > 0,
           f"spatial: the ranks' gradient has {len(ranks)} tensors, one process's "
           f"{len(single)}")
-    worst_scale, worst_dist = (0.0, ""), (0.0, "")
+    worst_scale, worst_dist, by_f64 = (0.0, ""), (0.0, ""), []
+    noise = (max(float((t.double() - f64[n].double()).abs().max()) for n, t in single.items())
+             if f64 is not None else 0.0)
     for name, b in single.items():
         a, b = ranks[name].double().flatten(), b.double().flatten()
         bb = float(b @ b)
@@ -4420,12 +4539,26 @@ def _spatial_grad_check(ranks: dict, single: dict) -> tuple:
             continue
         fit = float(a @ b) / bb
         dist = float((a - b).norm()) / bb ** 0.5
-        worst_scale = max(worst_scale, (abs(fit - 1.0), name))
-        worst_dist = max(worst_dist, (dist, name))
-        check(abs(fit - 1.0) <= SPATIAL_GRAD_SCALE_TOL and dist <= SPATIAL_GRAD_DIST_TOL,
+        if abs(fit - 1.0) <= SPATIAL_GRAD_SCALE_TOL and dist <= SPATIAL_GRAD_DIST_TOL:
+            worst_scale = max(worst_scale, (abs(fit - 1.0), name))
+            worst_dist = max(worst_dist, (dist, name))
+            continue
+        check(f64 is not None,
               f"spatial: step 0's gradient of {name}: scale {fit:.4g} or distance "
               f"{dist:.3g} of its norm from one process's")
-    return worst_scale, worst_dist
+        c = f64[name].double().flatten()
+        ratio = float((a - c).norm()) / max(float((b - c).norm()), 1e-300)
+        by_f64.append((ratio, name, float((b - c).norm()) / float(c.norm()),
+                       float((a - c).norm()) / float(c.norm())))
+        unresolved = float((b - c).norm()) > SPATIAL_GRAD_DIST_TOL * float(c.norm())
+        check(ratio <= SPATIAL_F64_RATIO or (
+            unresolved and float((a - c).abs().max()) <= SPATIAL_F64_RATIO * noise),
+              f"spatial: step 0's gradient of {name}: scale {fit:.4g}, distance {dist:.3g} "
+              f"of its norm from one process's, {ratio:.3g} times as far from the f64 "
+              f"gradient as one process's, its largest error against f64 "
+              f"{float((a - c).abs().max()):.3g} (one process's largest over the model "
+              f"{noise:.3g})")
+    return worst_scale, worst_dist, (len(by_f64), max(by_f64, default=(0.0, "", 0.0, 0.0)))
 
 
 def spatial_case(mesh, out: str) -> dict:
@@ -4517,7 +4650,7 @@ def phase_spatial() -> dict:
               f"spatial: rank {r}'s metrics rows differ from rank 0's")
         check(d["launches"]["#1"] == 0 and d["launches"]["instance_norm_split_sums"] > 0,
               f"spatial: rank {r}'s driver run launches {d['launches']}")
-    grad_scale, grad_dist = _spatial_grad_check(r0["grads"], replay["grads"])
+    grad_scale, grad_dist, _ = _spatial_grad_check(r0["grads"], replay["grads"])
     for fold_rows in ranks[0]["driver"]["rows"]:
         for line in fold_rows[1:]:
             check("nan" not in line.lower(), f"spatial: a metrics row is not finite: {line}")
@@ -4576,6 +4709,137 @@ def phase_spatial() -> dict:
     return totals
 
 
+def spatial_zoo_case(mesh, out: str) -> dict:
+    """The ranks' part of 7e (``parallel_rank``'s case ``spatial_zoo``):
+    each of ``SPATIAL_ZOO`` in turn, then the driver run."""
+    import torch
+
+    t0 = time.perf_counter()
+    runs = {}
+    for arch in SPATIAL_ZOO:
+        runs[arch] = _spatial_steps(mesh, arch=arch, steps=SPATIAL_ZOO_STEPS)
+        torch.cuda.empty_cache()
+    arch, criterion = SPATIAL_ZOO_DRIVER
+    driver = _spatial_driver(mesh, os.path.join(os.path.dirname(out), "spatial_zoo_busi"),
+                             os.path.join(os.path.dirname(out), "spatial_zoo_runs"),
+                             arch, criterion)
+    return {"runs": runs, "driver": driver, "seconds": time.perf_counter() - t0}
+
+
+def phase_spatial_zoo() -> dict:
+    """7e. The rest of the zoo under spatial partitioning, a main path: the
+    nine architectures of ``SPATIAL_ZOO`` at full width (phases 9a/9b's:
+    width 24 where it applies, deep supervision where the architecture
+    takes it, ResidualUNet's dropout 0.2, SwinUNETR at feature size 24) on
+    a ``(1 data × 2 space)`` mesh, the two ranks on the one card over Gloo,
+    one model after another. Per model: ``SPATIAL_ZOO_STEPS`` batch-2 steps
+    at 128² (fast augmentation on) and an evaluation of 4 images; each loss
+    and the evaluation's against one process replaying the ranks' weights
+    before each step (``SPATIAL_LOSS_REL_TOL``); step 0's all-reduced
+    gradient by :func:`_spatial_grad_check` (a tensor outside 7d's rule,
+    zero or nearly so in exact arithmetic, against the step's f64
+    gradient); parameters and batch
+    statistics bit-identical across the ranks; one launch of #3 per real
+    step per rank and none of #1/#2 (no fused norm site); halo exchanges on
+    every model, cyclic shifts in SwinUNETR, row gathers in SwinUNETR and
+    Adityan. Printed: the exchanges, shifts and gathers per step and rank,
+    and the step's host-clock time beside one process's (a correctness path
+    through the host: no speed is expected). Then ``run_experiment`` with
+    ``spatial_partitions: 2`` and a criterion other than DICE
+    (``SPATIAL_ZOO_DRIVER``): finite rows, equal on both ranks. Returns
+    #3's launches on these main paths, summed over the ranks, by model."""
+    import tempfile
+    import torch
+    from multi_task_breast_cancer_tpu_torch.data.synthetic import make_preprocessed_busi
+
+    t0 = time.perf_counter()
+    log(f"spatial zoo: {len(SPATIAL_ZOO)} architectures over a (1 data x {SPATIAL_N} space) "
+        f"mesh, two ranks on one card over Gloo")
+    work = tempfile.mkdtemp(prefix="mtbc_spatial_zoo_")
+    try:
+        make_preprocessed_busi(os.path.join(work, "spatial_zoo_busi"), size=SIZE, seed=7,
+                               n_per_class=SPATIAL_TREE_PER_CLASS)
+        ranks = _run_ranks("spatial_zoo", SPATIAL_N, "gloo", [DEVICE] * SPATIAL_N, work)
+        torch.backends.cudnn.deterministic = True
+        replays = {}
+        for arch in SPATIAL_ZOO:
+            replays[arch] = _spatial_steps(None, replay=ranks[0]["runs"][arch], arch=arch,
+                                           steps=SPATIAL_ZOO_STEPS, f64=True)
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    pixel = 3.0 / float(synthetic_fold(4, 42).masks.sum())
+    launches = {}
+    for arch in SPATIAL_ZOO:
+        replay, r0 = replays[arch], ranks[0]["runs"][arch]
+        for r, res in enumerate(ranks):
+            st = res["runs"][arch]
+            check(st["digest"] == r0["digest"],
+                  f"spatial zoo: {arch}: rank {r}'s parameters or buffers differ from rank 0's")
+            for k, got in enumerate(st["launches"]):
+                check(got["#3"] == 1 and got["#1"] == 0 and got["#2"] == 0
+                      and got["halo_exchanges"] > 0,
+                      f"spatial zoo: {arch}: rank {r} step {k} launches {got}")
+                if arch == "SwinUNETR":
+                    check(got["cyclic_shifts"] > 0 and got["row_gathers"] > 0,
+                          f"spatial zoo: {arch}: rank {r} step {k} shifts and gathers {got}")
+                if arch == "Adityan":
+                    check(got["row_gathers"] > 0,
+                          f"spatial zoo: {arch}: rank {r} step {k} gathers {got}")
+            for k, (got, want) in enumerate(zip(st["losses"], replay["losses"])):
+                check(math.isfinite(got) and abs(got - want) <= SPATIAL_LOSS_REL_TOL * abs(want),
+                      f"spatial zoo: {arch}: rank {r} step {k} loss {got!r} vs one process "
+                      f"{want!r}")
+            for key in ("loss", "seg_loss", "cls_loss", "dice"):
+                got, want = st["eval"][key], replay["eval"][key]
+                check(abs(got - want) <= SPATIAL_LOSS_REL_TOL * max(abs(want), 1e-6) or
+                      (key == "dice" and abs(got - want) <= 2 * pixel),
+                      f"spatial zoo: {arch}: rank {r} evaluation {key} {got!r} vs one "
+                      f"process {want!r}")
+        scale, dist, (n64, worst64) = _spatial_grad_check(r0["grads"], replay["grads"],
+                                                          replay["grads64"])
+        step = r0["launches"][0]
+        launches[arch] = sum(sum(k["#3"] for k in res["runs"][arch]["launches"])
+                             for res in ranks)
+        log(f"  {arch}: per step and rank: #3 {step['#3']}, halo exchanges "
+            f"{step['halo_exchanges']} forward / {step['halo_exchanges_backward']} backward, "
+            f"cyclic shifts {step['cyclic_shifts']} / {step['cyclic_shifts_backward']}, row "
+            f"gathers {step['row_gathers']}, collectives {step['collectives']}; losses "
+            + ", ".join(repr(v) for v in r0["losses"]) + " (one process from the same "
+            "weights: " + ", ".join(repr(v) for v in replay["losses"]) + "); step 0's "
+            f"gradient over {len(r0['grads'])} tensors: scale within {scale[0]:.3g} of 1 "
+            f"({scale[1]}), distance {dist[0]:.3g} ({dist[1]}); {n64} held against f64 "
+            f"instead, the ranks at most {worst64[0]:.3g} times as far from it as one "
+            f"process ({worst64[1]}: {worst64[3]:.3g} and {worst64[2]:.3g} of its norm); "
+            f"step host-clock ms, rank 0: "
+            + ", ".join(f"{v:.1f}" for v in r0["step_ms"]) + "; one process: "
+            + ", ".join(f"{v:.1f}" for v in replay["step_ms"]))
+    for r, res in enumerate(ranks):
+        d = res["driver"]
+        check(d["mesh_logged"], f"spatial zoo: rank {r}'s run did not log the (data, space) mesh")
+        check(d["rows"] == ranks[0]["driver"]["rows"],
+              f"spatial zoo: rank {r}'s metrics rows differ from rank 0's")
+        check(d["launches"]["#3"] > 0 and d["launches"]["halo_exchanges"] > 0
+              and d["launches"]["row_gathers"] > 0,
+              f"spatial zoo: rank {r}'s driver run launches {d['launches']}")
+    for fold_rows in ranks[0]["driver"]["rows"]:
+        for line in fold_rows[1:]:
+            check("nan" not in line.lower(), f"spatial zoo: a metrics row is not finite: {line}")
+    launches["driver"] = sum(res["driver"]["launches"]["#3"] for res in ranks)
+    arch, criterion = SPATIAL_ZOO_DRIVER
+    log(f"  run_experiment ({arch}, {criterion}, spatial_partitions {SPATIAL_N}, "
+        f"{3 * SPATIAL_TREE_PER_CLASS} images, CV 2, 1 epoch): rows equal on both ranks, "
+        f"finite; #3 launches {launches['driver']}, halo exchanges "
+        f"{ranks[0]['driver']['launches']['halo_exchanges']}, row gathers "
+        f"{ranks[0]['driver']['launches']['row_gathers']} on rank 0")
+    log(f"spatial zoo ({_card()}): ranks {max(r['seconds'] for r in ranks):.1f} s of work "
+        f"each; phase {time.perf_counter() - t0:.1f} s (budget {SPATIAL_ZOO_BUDGET_S:.0f} s)")
+    return launches
+
+
 def phase_spatial_alone() -> None:
     """5a and 7d by themselves: build the kernels, check and time the split
     entry points, run the spatial phase. ``python3 -c "import chip_smoke;
@@ -4594,6 +4858,21 @@ def phase_spatial_alone() -> None:
     del model
     phase_split_kernel(shapes)
     log(json.dumps({"spatial_launches": phase_spatial()}))
+
+
+def phase_spatial_zoo_alone() -> None:
+    """7e by itself: build the kernels and run the spatial zoo phase.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_spatial_zoo_alone()"``
+    from the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(json.dumps({"spatial_zoo_launches": phase_spatial_zoo()}))
 
 
 def main() -> int:
@@ -4629,6 +4908,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     spatial_launches = phase_spatial()
+    spatial_zoo = phase_spatial_zoo()
     d_fwd, d_bwd, d_aug = phase_driver()
     b_fwd, b_bwd, b_aug = phase_driver_bf16()
     t_fwd = phase_tools()
@@ -4665,13 +4945,16 @@ def main() -> int:
         {"name": "fast_augment", "route": "cuda",
          "source": "multi_task_breast_cancer_tpu_torch/csrc/fast_augment.cu",
          "replaces": "multi_task_breast_cancer_tpu/ops/fast_augment.py:307",
-         "launches": aug + h_aug + d_aug + b_aug + z_aug + s_aug + p_aug, **augment,
+         "launches": (aug + h_aug + d_aug + b_aug + z_aug + s_aug + p_aug
+                      + spatial_launches["#3"] + sum(spatial_zoo.values())), **augment,
          "bf16": {"launches": h_aug + b_aug, **bf16_rows(augment_bf16, "P1_B")},
          "seg_zoo": {"launches": s_aug, **{a: {"launches_in_4_steps": r["step_launches"][2],
                                               "forward_ms_64": r["forward_ms_64"],
                                               "step_ms_2": r["step_ms_2"]}
                                           for a, r in seg_zoo_rows.items()}},
-         "parallel": per_rank(2)},
+         "parallel": per_rank(2),
+         "spatial": {"launches": spatial_launches["#3"]},
+         "spatial_zoo": {"launches": sum(spatial_zoo.values()), **spatial_zoo}},
         *({"name": name, "route": "cuda", "source": norm_src,
            "replaces": ("multi_task_breast_cancer_tpu/ops/pallas_kernels.py:45" if "backward" in name
                         else "multi_task_breast_cancer_tpu/ops/pallas_kernels.py:34"),

@@ -21,8 +21,8 @@ GPU, each a rank of one process group (:mod:`.parallel.multihost`), started
   and ``--process-id`` on every process.
 
 With ``training.spatial_partitions: n`` the same ranks form the ``(W/n
-data × n space)`` mesh of spatial partitioning (``train/driver.py``); n must
-divide the W ranks.
+data × n space)`` mesh of spatial partitioning (``train/driver.py``), for
+every architecture and criterion; n must divide the W ranks.
 
 Rank 0 writes the run directory under ``--run-root``; every other rank runs
 the whole experiment too but writes to a scratch directory of its own (with

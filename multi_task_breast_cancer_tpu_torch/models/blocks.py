@@ -20,13 +20,28 @@ and the ``padding="SAME"`` convolutions :class:`SameConv2d` and
 approximate="tanh")``.
 
 Spatial partitioning (:mod:`..parallel.spatial`): under a ``space`` group a
-tensor holds this rank's rows. :class:`Conv3x3` takes a halo row from each
-neighbour, :class:`ConvInNormLeReLU` runs the norm kernel's split-statistics
-entry points, :class:`MLPHead` flattens the gathered rows; the 1×1 and
-kernel-equals-stride convolutions, :class:`DeconvHead`, the 2×2 max pool and
-the nearest upsample are row-local as they are. A layer with no row rule
-(the plain norms, the flax ``SAME`` convolutions, the average pool, the
-batch statistics, dropout) raises ``NotImplementedError`` there.
+tensor holds this rank's rows, and each layer keeps its one-process answer
+by a row rule:
+
+- :class:`Conv3x3` (stride 1 or 2, padding 1) and :class:`SameConv2d` (the
+  ``SAME`` pads of the *global* height) take their halo rows through
+  :func:`~..parallel.spatial.halo_conv`; :class:`SameConvTranspose2d`
+  takes one row from above and crops;
+- :class:`ConvInNormLeReLU` runs the norm kernel's split-statistics entry
+  points; the plain :class:`InstanceNorm` sums Σx, then Σ(x − mean)², over
+  the group; :class:`GroupNorm` sums Σx and Σx² over it (flax's fast
+  variance); :class:`BatchNorm` sums them over every rank of the mesh and
+  divides by n_global · H_global · W;
+- :class:`Dropout` draws the global batch's mask at the global height and
+  keeps this rank's data shard and rows;
+- :class:`MLPHead` flattens the gathered rows, :func:`global_avg_pool` sums
+  its planes over the group;
+- :class:`LayerNorm` (over the channels of a token), :class:`PReLU`, the
+  1×1 and kernel-equals-stride convolutions, :class:`DeconvHead`, the 2×2
+  max pool and the nearest upsample are row-local as they are;
+- :func:`avg_pool` is row-local where its window divides the shard's rows
+  and raises ``NotImplementedError`` where a window would cross a shard's
+  edge (Adityan pools its gathered map instead).
 """
 
 from __future__ import annotations
@@ -44,19 +59,22 @@ from multi_task_breast_cancer_tpu_torch.parallel import spatial
 
 
 class Conv3x3(nn.Conv2d):
-    """3×3 conv, padding 1 (the spatial size kept). Under a ``space`` group
-    it exchanges one halo row with each neighbour and pads the width only,
-    so this rank's output rows are those of the whole image's convolution."""
+    """3×3 conv, symmetric padding 1 (stride 1 keeps the spatial size,
+    stride 2 halves an even one). Under a ``space`` group it exchanges one
+    halo row with each neighbour and pads the width only
+    (:func:`~..parallel.spatial.halo_conv`), so this rank's output rows are
+    those of the whole image's convolution."""
 
-    def __init__(self, in_features: int, features: int, bias: bool = False):
-        super().__init__(in_features, features, 3, padding=1, bias=bias)
+    def __init__(self, in_features: int, features: int, bias: bool = False,
+                 stride: int = 1):
+        super().__init__(in_features, features, 3, stride=stride, padding=1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         space = spatial.current()
         if space is None:
             return super().forward(x)
-        return F.conv2d(spatial.halo_exchange(x, space, 1), self.weight, self.bias,
-                        padding=(0, 1))
+        return spatial.halo_conv(x, space, self.weight, self.bias, (1, 1), self.stride[0],
+                                 (1, 1))
 
 
 def conv3x3(in_features: int, features: int, *, use_bias: bool = False) -> Conv3x3:
@@ -79,7 +97,14 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    spatial.refuse("an average pool")
+    """k×k average pool at stride k. Under a ``space`` group a window must
+    not cross a shard's edge: the shard's rows a multiple of k."""
+    space = spatial.current()
+    if space is not None and x.shape[2] % k:
+        raise NotImplementedError(
+            f"a {k}×{k} average pool over a shard of {x.shape[2]} rows crosses the "
+            f"edge between ranks of the space group ({space.size} ranks): pool the "
+            "gathered rows (parallel.spatial.whole_rows)")
     return F.avg_pool2d(x, k, stride=k)
 
 
@@ -103,10 +128,11 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
 
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over H, W (eps=1e-5).
-    Statistics in f32 even for bf16 input; the result is cast back to the
-    input's dtype before the affine and any activation, as the JAX module
-    does. ``affine=True`` (the UNet++ family's MONAI norm) adds the
-    per-channel ``scale`` and ``bias`` of ``features`` channels."""
+    Statistics in f32 even for bf16 input (f64 stays f64,
+    :func:`_stats_dtype`); the result is cast back to the input's dtype
+    before the affine and any activation, as the JAX module does.
+    ``affine=True`` (the UNet++ family's MONAI norm) adds the per-channel
+    ``scale`` and ``bias`` of ``features`` channels."""
 
     def __init__(self, features: int = 0, affine: bool = False, eps: float = 1e-5):
         super().__init__()
@@ -120,14 +146,27 @@ class InstanceNorm(nn.Module):
             self.scale = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("the plain InstanceNorm")
-        xf = x.float()
-        centered = xf - xf.mean(dim=(2, 3), keepdim=True)
-        var = (centered * centered).mean(dim=(2, 3), keepdim=True)
+        xf = x.to(_stats_dtype(x))
+        space = spatial.current()
+        if space is None:
+            centered = xf - xf.mean(dim=(2, 3), keepdim=True)
+            var = (centered * centered).mean(dim=(2, 3), keepdim=True)
+        else:  # two passes over the group: Σx → mean, then Σ(x − mean)² → var
+            count = x.shape[2] * space.size * x.shape[3]
+            centered = xf - _space_sums(xf, space) / count
+            var = _space_sums(centered * centered, space) / count
         y = (centered * torch.rsqrt(var + self.eps)).to(x.dtype)
         if self.scale is None:
             return y
         return y * self.scale[:, None, None] + self.bias[:, None, None]
+
+
+def _space_sums(xf: torch.Tensor, space) -> torch.Tensor:
+    """Σ over each (n, c) plane's rows on every rank of ``space``, kept
+    dims; differentiable (no collective for an empty batch, whose group has
+    none on any rank)."""
+    sums = xf.sum(dim=(2, 3), keepdim=True)
+    return spatial.sum_over_space(sums, space) if xf.shape[0] else sums
 
 
 class ConvInNormLeReLU(nn.Module):
@@ -299,10 +338,14 @@ class SameConv2d(nn.Conv2d):
         super().__init__(in_features, features, kernel, stride=stride, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("a flax SAME convolution")
         (k, _), (s, _) = self.kernel_size, self.stride
-        top, bottom = _same_pads(x.shape[2], k, s)
+        space = spatial.current()
         left, right = _same_pads(x.shape[3], k, s)
+        if space is not None:  # the pads of the whole image's height
+            return spatial.halo_conv(x, space, self.weight, self.bias,
+                                     _same_pads(x.shape[2] * space.size, k, s), s,
+                                     (left, right))
+        top, bottom = _same_pads(x.shape[2], k, s)
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
@@ -310,15 +353,29 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose(padding="SAME")``: the output side is
     ``stride`` × the input's, the transposed conv without padding cropped at
     its high end. Weights as :func:`deconv`'s (taps flipped against the JAX
-    kernel, :mod:`.jax_weights`)."""
+    kernel, :mod:`.jax_weights`).
+
+    Under a ``space`` group (kernel ``stride + 1``, the 3×3 stride 2 of the
+    MONAI UNet): this rank's input rows start at global row i₀ and their
+    outputs at s·i₀, which the row i₀ − 1 reaches too. So one halo row
+    comes from above; the unpadded transposed conv of the h + 1 rows gives
+    s·h + k − 1 output rows from global row s·(i₀ − 1), of which rows
+    [s, s·(h + 1)) are this rank's of the cropped whole."""
 
     def __init__(self, in_features: int, features: int, kernel: int, stride: int):
         super().__init__(in_features, features, kernel, stride=stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("a flax SAME transposed convolution")
-        s = self.stride[0]
-        return super().forward(x)[:, :, :s * x.shape[2], :s * x.shape[3]]
+        s, h, w = self.stride[0], x.shape[2], x.shape[3]
+        space = spatial.current()
+        if space is None:
+            return super().forward(x)[:, :, :s * h, :s * w]
+        if self.kernel_size[0] != s + 1:
+            raise NotImplementedError(
+                f"a SAME transposed convolution of kernel {self.kernel_size[0]} at stride "
+                f"{s} under a space group: the row rule takes kernel stride + 1")
+        x = spatial.halo_exchange(x, space, 1)[:, :, :h + 1]
+        return super().forward(x)[:, :, s:s * (h + 1), :s * w]
 
 
 def _f32_normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
@@ -358,7 +415,8 @@ class BatchNorm(nn.Module):
     the global batch, as GSPMD computes them on the JAX mesh: every rank
     sums Σx and Σx² over its rows, the sums are all-reduced (in the
     backward too) and divided by the global count; a rank with no rows
-    still joins."""
+    still joins. Under a ``space`` group too, over every rank of the mesh
+    (data and space), each rank holding H/n_space rows."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -369,21 +427,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.shard = None  # (mesh, global rows), set by global_batch
 
-    def _global_stats(self, xf: torch.Tensor) -> tuple:
-        mesh, n_global = self.shard
+    def _global_stats(self, xf: torch.Tensor, space) -> tuple:
+        """Σx and Σx² over every rank (of the mesh, or of the ``space``
+        group alone without one), divided by the global count n_global ·
+        H_global · W."""
         n, c, h, w = xf.shape
-        sums = mesh.all_reduce_sum_differentiable(
-            torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
-        moments = (sums / (n_global * h * w)).reshape(2, 1, c, 1, 1)
+        sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        if self.shard is not None:
+            mesh, n_global = self.shard
+            sums = mesh.all_reduce_sum_differentiable(sums)
+        else:
+            n_global = n
+            sums = spatial.sum_over_space(sums, space) if n else sums
+        rows = h * (space.size if space is not None else 1)
+        moments = (sums / (n_global * rows * w)).reshape(2, 1, c, 1, 1)
         mean = moments[0]
         return mean, (moments[1] - mean * mean).clamp(min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("BatchNorm")
         if self.training:
             xf = x.to(_stats_dtype(x))
-            mean, var = (_fast_stats(xf, (0, 2, 3)) if self.shard is None
-                         else self._global_stats(xf))
+            space = spatial.current()
+            mean, var = (_fast_stats(xf, (0, 2, 3)) if self.shard is None and space is None
+                         else self._global_stats(xf, space))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean.flatten().to(self.mean.dtype))
@@ -406,9 +472,18 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("GroupNorm")
         n, c, h, w = x.shape
-        mean, var = _fast_stats(x.to(_stats_dtype(x)).reshape(n, self.groups, -1), (2,))
+        xg = x.to(_stats_dtype(x)).reshape(n, self.groups, -1)
+        space = spatial.current()
+        if space is None:
+            mean, var = _fast_stats(xg, (2,))
+        else:  # flax's fast variance from Σx and Σx² summed over the group
+            sums = torch.stack([xg.sum(dim=2), (xg * xg).sum(dim=2)])
+            if n:
+                sums = spatial.sum_over_space(sums, space)
+            moments = (sums / (xg.shape[2] * space.size))[..., None]
+            mean = moments[0]
+            var = (moments[1] - mean * mean).clamp(min=0.0)
         per = c // self.groups
         mean = mean.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
         var = var.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
@@ -426,7 +501,6 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        spatial.refuse("LayerNorm")
         mean, var = _fast_stats(x.to(_stats_dtype(x)), (-1,))
         return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps, channels_last=True)
 
@@ -450,7 +524,8 @@ class Dropout(nn.Module):
     the input's device), never from the global RNG; identity in eval and at
     rate 0. Under a data mesh (:func:`global_batch`) every rank draws the
     mask of the whole global batch and keeps its own rows, so the masks are
-    the single-device run's."""
+    the single-device run's. Under a ``space`` group the mask is drawn at
+    the global height and each rank keeps its rows too."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -461,17 +536,20 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        spatial.refuse("Dropout")
         if self.generator is None:
             raise RuntimeError("Dropout in training draws from an explicit generator: "
                                "run the step inside blocks.dropout_draws(model, generator)")
         keep = 1.0 - self.rate
-        if self.shard is None:
-            draw = torch.rand(x.shape, generator=self.generator, device=x.device)
-        else:
-            mesh, n_global = self.shard
-            draw = torch.rand((n_global,) + tuple(x.shape[1:]), generator=self.generator,
-                              device=x.device)[mesh.shard(n_global)]
+        space = spatial.current()
+        mesh, n_global = self.shard if self.shard is not None else (None, x.shape[0])
+        shape = [n_global, *x.shape[1:]]
+        if space is not None:  # NCHW rows
+            shape[2] *= space.size
+        draw = torch.rand(shape, generator=self.generator, device=x.device)
+        if mesh is not None:
+            draw = draw[mesh.shard(n_global)]
+        if space is not None:
+            draw = draw[:, :, space.rows(shape[2])]
         return torch.where(draw < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

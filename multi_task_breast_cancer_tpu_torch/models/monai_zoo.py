@@ -9,6 +9,9 @@ padding conventions are kept: a stride-2 ``padding="SAME"`` conv pads
 (0, 1) (:class:`~.blocks.SameConv2d`), and the 3×3 stride-2 ``SAME``
 transposed conv is the unpadded one cropped at its high end
 (:class:`~.blocks.SameConvTranspose2d`). Concatenations keep the JAX order.
+Under a ``space`` group each of these layers takes its row rule
+(:mod:`.blocks`): halo rows for the convolutions at the global height's
+``SAME`` pads, the norms' sums over the group.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ class UNet(nn.Module):
     transposed convs up, concatenated skips; channels (w, 2w, 4w, 8w)."""
 
     name_str = "UNet"
+    space_row_multiple = 8  # three stride-2 convolutions
 
     def __init__(self, sequences: int = 1, regions: int = 1,
                  channels: Sequence[int] = (48, 96, 192, 384)):
@@ -114,6 +118,7 @@ class AttentionUNet(nn.Module):
     channels (w, 2w, 4w, 8w)."""
 
     name_str = "Attention U-Net"
+    space_row_multiple = 8  # three pools
 
     def __init__(self, sequences: int = 1, regions: int = 1,
                  channels: Sequence[int] = (48, 96, 192, 384)):
@@ -179,6 +184,7 @@ class SegResNet(nn.Module):
     strided-conv downsampling, 1×1 conv + nearest-upsample decoder."""
 
     name_str = "SegResNet"
+    space_row_multiple = 8  # three stride-2 convolutions
 
     def __init__(self, sequences: int = 1, regions: int = 1, init_filters: int = 8):
         super().__init__()

@@ -40,6 +40,7 @@ from multi_task_breast_cancer_tpu_torch.models.nnunet import (
     NNUNetBackbone,
     SegHeads,
 )
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
 
 
 class MTnnUNet(nn.Module):
@@ -216,7 +217,10 @@ class _ConvReLULevel(nn.Module):
 
 class Adityan(nn.Module):
     """Three-output network: ``(cls_logits, reconstruction, seg_logits)``.
-    The classification head hard-codes 3 logits; no fused norm."""
+    The classification head hard-codes 3 logits; no fused norm. Under a
+    ``space`` group the head pools the gathered 1/8 map."""
+
+    space_row_multiple = 16  # four pools
 
     def __init__(self, in_features: int = 1, regions: int = 1, width: int = 64):
         super().__init__()
@@ -256,8 +260,10 @@ class Adityan(nn.Module):
         rec = torch.sigmoid(self.rec_out(self.recmap(d1)))
 
         # three pools → ConvReLU(32) → average pool over the map's height
-        # (JAX's NHWC ``shape[1]``) → MLP(1000 → 3)
+        # (JAX's NHWC ``shape[1]``; the whole map's, gathered under a
+        # ``space`` group) → MLP(1000 → 3)
         cmap = F.relu(self.cls_conv(max_pool_2x2(max_pool_2x2(max_pool_2x2(d1)))))
+        cmap = spatial.whole_rows(cmap)
         cmap = flatten_hwc(avg_pool(cmap, cmap.shape[2]))
         cls = self.cls_fc2(F.relu(self.cls_fc1(cmap)))
         return cls, rec, seg

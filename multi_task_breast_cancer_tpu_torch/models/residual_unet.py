@@ -8,6 +8,10 @@ The batch statistics are the :class:`~.blocks.BatchNorm` buffers ``mean`` and
 ``var`` (JAX's ``batch_stats``); dropout draws from the generator the Engine
 sets (:func:`~.blocks.dropout_draws`) and is active in training only, as in
 JAX (the reference leaves it on at eval time).
+
+Under a ``space`` group the 3×3 convolutions (stride 1 and 2) exchange
+halo rows, the batch statistics are summed over every rank of the mesh and
+the dropout masks are the global batch's rows (:mod:`.blocks`).
 """
 
 from __future__ import annotations
@@ -16,12 +20,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multi_task_breast_cancer_tpu_torch.models.blocks import BatchNorm, Dropout, conv1x1, deconv
+from multi_task_breast_cancer_tpu_torch.models.blocks import (
+    BatchNorm,
+    Conv3x3,
+    Dropout,
+    conv1x1,
+    deconv,
+)
 
 
-def _conv3(in_features: int, features: int, stride: int = 1) -> nn.Conv2d:
-    """3×3, biased, symmetric padding 1 (JAX ``padding=1``)."""
-    return nn.Conv2d(in_features, features, 3, stride=stride, padding=1)
+def _conv3(in_features: int, features: int, stride: int = 1) -> Conv3x3:
+    """3×3, biased, symmetric padding 1 (JAX ``padding=1``), halo-aware."""
+    return Conv3x3(in_features, features, bias=True, stride=stride)
 
 
 class _BN(nn.Module):
@@ -71,6 +81,7 @@ class ResBlock(nn.Module):
 
 class ResidualUNet(nn.Module):
     name_str = "Residual UNet"
+    space_row_multiple = 8  # three stride-2 convolutions
 
     def __init__(self, sequences: int = 1, regions: int = 1, width: int = 24):
         super().__init__()

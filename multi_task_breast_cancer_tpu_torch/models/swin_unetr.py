@@ -12,6 +12,17 @@ Pallas kernel): logits in f32, the softmax cast back to the input's dtype.
 A stage whose grid is smaller than the window takes the grid as its window,
 so the parameter shapes depend on the input side: the model is built for
 ``size`` and refuses other sides, as JAX refuses sides it cannot window.
+
+Under a ``space`` group (:mod:`..parallel.spatial`) the token grids hold this
+rank's rows. A stage whose window divides the local rows keeps its windows
+local: a shifted block rolls its rows through
+:func:`~..parallel.spatial.cyclic_row_shift` (its columns with
+``torch.roll``) and takes its own row of windows of the whole grid's shift
+mask. A stage whose window spans more rows than a rank holds gathers its
+rows (:func:`~..parallel.spatial.gather_rows`), runs replicated on the whole
+grid and keeps this rank's rows after its ``PatchMerging``; its grid is at
+most 1/16 of the input's side. The convolutions take their halo rows
+(:class:`~.blocks.Conv3x3`).
 """
 
 from __future__ import annotations
@@ -26,11 +37,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.models.blocks import (
+    Conv3x3,
     InstanceNorm,
     LayerNorm,
     LecunConv2d,
     deconv,
 )
+from multi_task_breast_cancer_tpu_torch.parallel import spatial
 
 WINDOW = 8
 
@@ -118,8 +131,10 @@ class WindowAttention(nn.Module):
         heads, head_dim = self.num_heads, self.dim // self.num_heads
         qkv = self.qkv(x).reshape(nw, L, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
-        # f32 logits from the input's products (JAX: preferred_element_type f32)
-        attn = torch.matmul(q.float(), k.float().transpose(-2, -1)) / math.sqrt(head_dim)
+        # f32 logits from the input's products (JAX: preferred_element_type
+        # f32); f64 stays f64
+        dt = torch.promote_types(x.dtype, torch.float32)
+        attn = torch.matmul(q.to(dt), k.to(dt).transpose(-2, -1)) / math.sqrt(head_dim)
         idx = _on(x.device, "index", _relative_position_index, self.win)
         attn = attn + self.rel_pos_bias[idx].permute(2, 0, 1)[None]
         if mask is not None:
@@ -143,18 +158,33 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x.shape
-        s = self.shift
+        s, win = self.shift, self.win
+        space = spatial.current()
         y = self.norm1(x)
         mask = None
         if s:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-            mask = _on(x.device, "mask", _shift_attention_mask, h, w, self.win, s)
-        y = _window_merge(self.attn(_window_partition(y, self.win), mask), self.win, h, w)
+            y = _roll(y, -s, space)
+            if space is None:
+                mask = _on(x.device, "mask", _shift_attention_mask, h, w, win, s)
+            else:  # this rank's rows of windows of the whole grid's mask
+                mask = _on(x.device, "mask", _shift_attention_mask, h * space.size, w, win, s)
+                per = (h // win) * (w // win)
+                mask = mask[space.index * per:(space.index + 1) * per]
+        y = _window_merge(self.attn(_window_partition(y, win), mask), win, h, w)
         if s:
-            y = torch.roll(y, (s, s), dims=(1, 2))
+            y = _roll(y, s, space)
         x = x + y
         y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="tanh"))
         return x + y
+
+
+def _roll(y: torch.Tensor, shift: int, space) -> torch.Tensor:
+    """``torch.roll(y, (shift, shift), dims=(1, 2))`` of the whole (B, H, W,
+    C) grid; under a ``space`` group the rows' part is a cyclic shift over
+    the group."""
+    if space is None:
+        return torch.roll(y, (shift, shift), dims=(1, 2))
+    return torch.roll(spatial.cyclic_row_shift(y, space, shift, dim=1), shift, dims=2)
 
 
 class PatchMerging(nn.Module):
@@ -178,9 +208,9 @@ class UnetrBasicBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, features, 3, padding=1, bias=False)
+        self.conv1 = Conv3x3(in_features, features)
         self.norm1 = InstanceNorm(features, affine=True)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = Conv3x3(features, features)
         self.norm2 = InstanceNorm(features, affine=True)
         self.conv_skip = self.norm_skip = None
         if in_features != features:
@@ -214,6 +244,7 @@ class SwinUNETR(nn.Module):
     reference's 128) or multiple of 256 (:func:`check_size`)."""
 
     name_str = "Swin UNETR"
+    space_row_multiple = 32  # the patch embedding's halving and four merges
 
     def __init__(self, sequences: int = 1, regions: int = 1, feature_size: int = 24,
                  depths: Sequence[int] = (2, 2, 2, 2),
@@ -246,18 +277,38 @@ class SwinUNETR(nn.Module):
         self.decoder1 = UnetrUpBlock(f, f, f)
         self.out = LecunConv2d(f, regions, 1)
 
+    def _stage(self, stage: int, h: torch.Tensor) -> torch.Tensor:
+        """Stage ``stage``'s blocks and its merge on the (B, H, W, C) grid
+        ``h``. Under a ``space`` group whose shard holds fewer rows than a
+        multiple of the window: on the gathered grid, replicated, then this
+        rank's rows of the merged one."""
+        blocks = [getattr(self, f"stage{stage}_block{b}") for b in range(self.depths[stage])]
+        merge = getattr(self, f"merge{stage}")
+        space = spatial.current()
+        if space is not None and h.shape[1] % blocks[0].win:
+            whole = spatial.gather_rows(h, space, dim=1)
+            with spatial.partitioned(None):
+                for block in blocks:
+                    whole = block(whole)
+                whole = merge(whole)
+            mine = space.rows(whole.shape[1])
+            return whole[:, mine]
+        for block in blocks:
+            h = block(h)
+        return merge(h)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        check_size(x.shape[2], x.shape[3])
-        if x.shape[2] != self.size:
+        space = spatial.current()
+        rows = x.shape[2] * (space.size if space is not None else 1)
+        check_size(rows, x.shape[3])
+        if rows != self.size:
             raise ValueError(f"this SwinUNETR was built for {self.size}² inputs "
-                             f"(its window sizes follow the side), not {x.shape[2]}²")
+                             f"(its window sizes follow the side), not {rows}²")
         enc0 = self.encoder0(x)
         h = self.patch_embed(x).permute(0, 2, 3, 1)
         hidden = [h]
         for stage in range(4):
-            for blk in range(self.depths[stage]):
-                h = getattr(self, f"stage{stage}_block{blk}")(h)
-            h = getattr(self, f"merge{stage}")(h)
+            h = self._stage(stage, h)
             hidden.append(h)
         enc1 = self.encoder1(_nchw(hidden[0]))
         enc2 = self.encoder2(_nchw(hidden[1]))

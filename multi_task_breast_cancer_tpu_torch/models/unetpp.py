@@ -113,6 +113,8 @@ class BasicUNetPlusPlus(nn.Module):
     """Segmentation UNet++; deep supervision → the 4-head tuple (finest
     last), else the finest head alone."""
 
+    space_row_multiple = 16  # four pools
+
     def __init__(self, in_features: int = 1, regions: int = 1,
                  features: Sequence[int] = MONAI_DEFAULT_FEATURES,
                  deep_supervision: bool = False, dropout: float = 0.0):
@@ -131,6 +133,8 @@ class BasicUNetPlusPlus(nn.Module):
 class UNetPlusPlusClassifier(nn.Module):
     """Classification-only UNet++: the encoder column, ``upcat_3_1`` and the
     classification head."""
+
+    space_row_multiple = 16  # four pools (the head's Down too: x_3_0 at 1/8)
 
     def __init__(self, in_features: int = 1, n_classes: int = 3,
                  features: Sequence[int] = MT_FEATURES, dropout: float = 0.0):
@@ -154,6 +158,8 @@ class MTUNetPlusPlus(nn.Module):
     """Multitask UNet++: the shared nest, the four seg heads and the
     classification head. Returns ``((cls,), (o01, o02, o03, o04))`` with deep
     supervision, else ``(cls, o04)``."""
+
+    space_row_multiple = 16  # four pools
 
     def __init__(self, in_features: int = 1, regions: int = 1, n_classes: int = 3,
                  features: Sequence[int] = MT_FEATURES, deep_supervision: bool = False,

@@ -41,10 +41,10 @@ the others to scratch). A batch that does not divide over the ranks of the
 Spatial partitioning, as in JAX: ``training.spatial_partitions: n`` (with
 ``data_parallel``) makes the mesh ``data_space_mesh(n)``, a ``(W/n data ×
 n space)`` grid of the W ranks, whose ``space`` groups split every image's
-rows (:mod:`..parallel.spatial`). n must divide W (``ValueError``). Only the
-nnU-Net and BTS families have row rules; another architecture raises
-``NotImplementedError`` before anything is written (``ROADMAP.md``,
-Queue 1).
+rows (:mod:`..parallel.spatial`). n must divide W (``ValueError``, before
+anything is written). Every architecture and every criterion runs on it;
+the image height must be a multiple of n_space · ``space_row_multiple``
+(the Engine's ``ValueError``).
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ from multi_task_breast_cancer_tpu_torch.ops.metrics import (
     dice_score,
     multiclass_classification_metrics,
 )
-from multi_task_breast_cancer_tpu_torch.parallel import multihost, spatial
+from multi_task_breast_cancer_tpu_torch.parallel import multihost
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import data_space_mesh, replicate_to_mesh
 from multi_task_breast_cancer_tpu_torch.train import inference as I
 from multi_task_breast_cancer_tpu_torch.train.checkpoint import (
@@ -517,9 +517,6 @@ def run_experiment(cfg: Config, task: str, mode: str = "CV",
             "semantic-mask objective (the reference has no such path either "
             "— its flag only changes the dataset, BUSI_dataset.py:51)")
     device = resolve_device(device)
-    if cfg.training.data_parallel and cfg.training.spatial_partitions > 1:
-        # an architecture without row rules raises before the mesh is made
-        spatial.row_multiple(_build_model(cfg, task), cfg.model.architecture)
     mesh = (data_space_mesh(cfg.training.spatial_partitions, device=device)
             if cfg.training.data_parallel else None)
     if cfg.training.CV < 2:

@@ -52,16 +52,20 @@ its data shard of the batch (augmented on whole planes, as JAX augments on
 the ``data`` axis), then this rank's rows of every image-shaped tensor;
 vectors (labels, class targets) are sharded by ``data`` only. The forward
 runs under :func:`~..parallel.spatial.partitioned` (halo exchanges, split
-norm statistics, the Dice and pooling sums over the ``space`` group). Every
-term that the ranks of a ``space`` group compute alike (the Dice from
-summed plane sums, the classification loss on replicated logits) is weighed
-by 1/n_space on top of the batch share, so the one flat gradient all-reduce,
-now over every rank, gives the global batch's gradient. The epoch's loss
-shares are summed over every rank, the Dice counts (already summed over
-``space``) and the confusion matrix over ``data``. Only the nnU-Net and BTS
-families have row rules (``space_row_multiple``), with DICE as the
-segmentation criterion; an image height must be a multiple of n_space ·
-2^pools.
+norm statistics, the Dice and pooling sums over the ``space`` group, every
+layer's row rule: ``models/blocks.py``). The DICE criterion sums its plane
+sums over the group; every other segmentation criterion runs on whole
+planes: each seg head's rows are gathered (differentiably) with its mask's,
+and the criterion is applied alike on every rank of the group. Every term
+that the ranks of a ``space`` group compute alike (the Dice from summed
+plane sums, a criterion on gathered planes, the classification loss on
+replicated logits) is weighed by 1/n_space on top of the batch share, so
+the one flat gradient all-reduce, now over every rank, gives the global
+batch's gradient. The epoch's loss shares are summed over every rank, the
+Dice counts (already summed over ``space``) and the confusion matrix over
+``data``. Every architecture has row rules and every criterion runs; an
+image height must be a multiple of n_space · 2^halvings
+(``space_row_multiple``).
 """
 
 from __future__ import annotations
@@ -157,6 +161,20 @@ def step_valid_mask(n: int, batch_size: int, total_steps: int) -> np.ndarray:
     return (np.arange(total_steps) < real).astype(np.float32)
 
 
+def _on_whole_planes(criterion):
+    """``criterion`` on whole planes: under a ``space`` group the logits'
+    rows are gathered (their gradient goes back to each rank's rows) and the
+    target's too, so every rank of the group computes the whole images'
+    loss, as one process does; without one, ``criterion`` itself."""
+    def on_whole_planes(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        space = spatial.current()
+        if space is not None:
+            logits, target = spatial.gather_rows(logits, space), spatial.gather_rows(target, space)
+        return criterion(logits, target)
+
+    return on_whole_planes
+
+
 class Engine:
     """Epoch training, validation and prediction for one model + task
     configuration on one device (``cuda`` unless ``device='cpu'``), or on
@@ -181,11 +199,6 @@ class Engine:
         self._space = mesh.space if mesh is not None else None
         if self._space is not None:
             self._row_multiple = spatial.row_multiple(model)
-            if cfg.task != "classification" and cfg.seg_criterion != "DICE":
-                raise NotImplementedError(
-                    f"seg_criterion {cfg.seg_criterion!r} under spatial partitioning is "
-                    "not ported (DICE is; the others need whole planes or are not held "
-                    "to JAX there): ROADMAP.md, Queue 1")
         self.device = resolve_device(device if device is not None or mesh is None
                                      else mesh.device)
         if mesh is not None and torch.device(mesh.device) != self.device:
@@ -197,7 +210,8 @@ class Engine:
         self._dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         self._aug_fmt = None  # (AugFormat, n_mask) of the packed fold, set by device_data
         self._seg_crit = (fused_dice_criterion if cfg.seg_criterion == "DICE"
-                          else L.init_criterion_segmentation(cfg.seg_criterion))
+                          else _on_whole_planes(L.init_criterion_segmentation(
+                              cfg.seg_criterion)))
         self._cls_crit = L.init_criterion_classification(
             cfg.n_classes, cfg.classes_weighted, cfg.cls_criterion, device=self.device)
 

@@ -458,9 +458,9 @@ def test_one_rank_has_no_mesh_and_spatial_partitions_raise(tmp_path):
     """As JAX returns no mesh for one device, one rank gets ``None``; a
     ``space`` axis of 2 does not divide one rank and raises ``ValueError``,
     as JAX's ``data_space_mesh`` does, in the driver too (which runs
-    ``data_parallel`` over one rank as one process), and an architecture
-    without row rules raises ``NotImplementedError`` naming the queue before
-    the mesh; neither writes anything. The mesh spans every rank."""
+    ``data_parallel`` over one rank as one process), for the flagship and
+    for SwinUNETR alike (every architecture has row rules); neither writes
+    anything. The mesh spans every rank."""
     from multi_task_breast_cancer_tpu_torch.config import Config, ModelConfig, TrainingConfig
     from multi_task_breast_cancer_tpu_torch.train import driver
 
@@ -473,7 +473,7 @@ def test_one_rank_has_no_mesh_and_spatial_partitions_raise(tmp_path):
         driver.run_experiment(cfg, "multitask", run_root=str(tmp_path), device="cpu")
     cfg = Config(model=ModelConfig(architecture="SwinUNETR"),
                  training=TrainingConfig(spatial_partitions=2))
-    with pytest.raises(NotImplementedError, match="SwinUNETR.*ROADMAP.md, Queue 1"):
+    with pytest.raises(ValueError, match="spatial_partitions=2"):
         driver.run_experiment(cfg, "segmentation", run_root=str(tmp_path), device="cpu")
     assert not any(tmp_path.iterdir())
     with pytest.raises(NotImplementedError, match="not a data mesh"):

@@ -322,8 +322,7 @@ def test_convolutions_read_halo_rows_and_norms_split(tmp_path, arch):
     model = make()
     single_rows = _hooked(model, halos=False)
     singles = [_single(runs[0] | {"model": model})]
-    assert spatial.counts == {"halo_exchanges": 0, "halo_exchanges_backward": 0,
-                              "collectives": 0}
+    assert set(spatial.counts.values()) == {0}
     _check_against_single(ranks, runs, singles)
     n_convs = sum(isinstance(m, Conv3x3) for m in model.modules())
     for res in ranks:
@@ -436,16 +435,34 @@ def _fake_mesh(n_space: int = 2) -> DataMesh:
 
 
 def test_what_spatial_partitioning_refuses():
-    """An image height that is not a multiple of n_space · 2^pools, an
-    architecture outside the nnU-Net and BTS families (at the Engine, in the
-    driver before it writes, and at a layer with no row rule), a
-    segmentation criterion other than DICE, and ``torch.export`` of the norm
-    under a ``space`` group raise; a mesh size that does not
-    divide the ranks is ``test_multi_btsunet_on_a_space_mesh_...``'s."""
-    from multi_task_breast_cancer_tpu_torch.models import classifiers, multitask, nnunet
-    from multi_task_breast_cancer_tpu_torch.models.blocks import GroupNorm, SameConv2d
+    """What still raises under a ``space`` group: an image height that is
+    not a multiple of n_space · 2^halvings, for each architecture's row
+    multiple (the Engine's ``ValueError`` names the rule); an average pool
+    whose window crosses a shard's edge; ``torch.export`` of the norm under
+    the group; and a model class without a row multiple (a model whose row
+    rules were never written). Every one of the 17 architectures has its
+    multiple, every segmentation criterion builds an Engine on the mesh,
+    and the layers that raised before (the plain norms, the ``SAME``
+    convolutions, ``LayerNorm``) run there. A mesh size that does not divide
+    the ranks is ``test_multi_btsunet_on_a_space_mesh_...``'s."""
+    from multi_task_breast_cancer_tpu_torch.models import (
+        classifiers,
+        monai_zoo,
+        multitask,
+        nnunet,
+        residual_unet,
+        swin_unetr,
+        unetpp,
+    )
+    from multi_task_breast_cancer_tpu_torch.models.blocks import (
+        GroupNorm,
+        LayerNorm,
+        SameConv2d,
+        avg_pool,
+    )
     from multi_task_breast_cancer_tpu_torch.models.bts_unet import BTSUNet
     from multi_task_breast_cancer_tpu_torch.models.fsb_bts_unet import FSBBTSUNet
+    from multi_task_breast_cancer_tpu_torch.ops.losses import SEG_CRITERIA
 
     cfg = EngineConfig(task="segmentation", n_classes=3, batch_size=2, use_transforms=False)
     bts = registry.init_segmentation_model("BTSUNet", width=4, size=SIZE)
@@ -463,24 +480,25 @@ def test_what_spatial_partitioning_refuses():
     with pytest.raises(ValueError, match="2 · 32 = 64"):
         Engine(mt, nn_cfg, device="cpu", mesh=_fake_mesh()).predict(
             None, np.zeros((1, 32, 32, 1), np.float32))
-    for arch in ("SwinUNETR", "UNet", "ResidualUNet", "UnetPlusPlus", "SegResNet"):
-        model = registry.init_segmentation_model(arch, width=4, size=32)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-            Engine(model, cfg, device="cpu", mesh=_fake_mesh())
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            spatial.row_multiple(model)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        Engine(registry.init_multitask_model("Adityan", width=4), nn_cfg, device="cpu",
+    # the rest of the zoo: a height of n_space · multiple passes, half of it raises
+    for arch, multiple in (("UNet", 8), ("AttentionUNet", 8), ("SegResNet", 8),
+                           ("ResidualUNet", 8), ("UnetPlusPlus", 16), ("SwinUNETR", 32)):
+        model = registry.init_segmentation_model(arch, width=4, size=64)
+        eng = Engine(model, cfg, device="cpu", mesh=_fake_mesh())
+        eng._check_rows(2 * multiple)
+        with pytest.raises(ValueError, match=f"2 · {multiple} = {2 * multiple}"):
+            eng._check_rows(multiple)
+    for crit in SEG_CRITERIA:
+        Engine(bts, EngineConfig(task="segmentation", seg_criterion=crit), device="cpu",
                mesh=_fake_mesh())
-    with pytest.raises(NotImplementedError, match="Hausdorff"):
-        Engine(bts, EngineConfig(task="segmentation", seg_criterion="Hausdorff"),
-               device="cpu", mesh=_fake_mesh())
     x = torch.zeros(1, 4, 8, 8)
     with spatial.partitioned(_fake_mesh().space):
-        for layer in (InstanceNorm(), GroupNorm(2, 4), SameConv2d(4, 4, 3, 2)):
-            with pytest.raises(NotImplementedError, match="Queue 1"):
-                layer(x)
-    assert InstanceNorm()(x).shape == x.shape  # outside the block, as before
+        with pytest.raises(NotImplementedError, match="crosses the edge"):
+            avg_pool(x, 3)
+        assert avg_pool(x, 4).shape == (1, 4, 2, 2)  # windows inside the shard
+        assert LayerNorm(8)(x).shape == x.shape
+    for layer in (InstanceNorm(), GroupNorm(2, 4), SameConv2d(4, 4, 3, 2)):
+        layer(x)  # outside a group, as before
 
     class Norm(torch.nn.Module):
         def forward(self, t):
@@ -488,10 +506,24 @@ def test_what_spatial_partitioning_refuses():
 
     with pytest.raises(NotImplementedError, match="exported program has no space group"):
         torch.export.export(Norm(), (x,))
-    assert [spatial.row_multiple(c) for c in (
-        nnunet.NNUNet2021, multitask.MTnnUNet, classifiers.NNUNetClassifier, BTSUNet,
-        FSBBTSUNet, classifiers.BTSUNetClassifier, multitask.MultiBTSUNet,
-        multitask.MultiFSBBTSUNet)] == [32, 32, 32, 8, 8, 16, 8, 8]
+
+    class NoRules(torch.nn.Module):
+        pass
+
+    with pytest.raises(NotImplementedError, match="NoRules has no space_row_multiple"):
+        spatial.row_multiple(NoRules)
+    with pytest.raises(NotImplementedError, match="NoRules has no space_row_multiple"):
+        Engine(NoRules(), cfg, device="cpu", mesh=_fake_mesh())
+    multiples = {
+        nnunet.NNUNet2021: 32, multitask.MTnnUNet: 32, classifiers.NNUNetClassifier: 32,
+        BTSUNet: 8, FSBBTSUNet: 8, classifiers.BTSUNetClassifier: 16,
+        multitask.MultiBTSUNet: 8, multitask.MultiFSBBTSUNet: 8,
+        monai_zoo.UNet: 8, monai_zoo.AttentionUNet: 8, monai_zoo.SegResNet: 8,
+        residual_unet.ResidualUNet: 8, swin_unetr.SwinUNETR: 32,
+        unetpp.BasicUNetPlusPlus: 16, unetpp.UNetPlusPlusClassifier: 16,
+        unetpp.MTUNetPlusPlus: 16, multitask.Adityan: 16}
+    assert len(multiples) == 17
+    assert {c: spatial.row_multiple(c) for c in multiples} == multiples
 
 
 def _parts(x: torch.Tensor, cut: int) -> list:
