@@ -139,6 +139,35 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    beside, printed); ``run_experiment`` with
    ``spatial_partitions: 2`` on both ranks (24 images, CV 2, 1 epoch):
    finite rows, the same on both ranks, the mesh's axes logged; its time;
+7f. graphs against eager (``phase_graphs``; alone: ``phase_graphs_alone``):
+   since this phase, every single-process Engine on the card replays its
+   step as a CUDA graph and every serving backend one graph per (replica,
+   bucket), so phases 4, 7, 7a, 7b, 8, 8a, 9, 9a and 9b run graphed (7c-7e
+   run eagerly under their meshes; the checks of the step's Python, the
+   augmentation path's markers and the norm's dispatch cost in 7, run on an
+   eager twin of the Engine). Here, cuDNN deterministic: MTnnUNet (the
+   config's full width), ResidualUNet (batch statistics, dropout) and
+   SwinUNETR (its constant cache, its shift masks) at 128², each from one
+   seeded state through a graphed and an eager Engine (``cuda_graphs=False``):
+   8 batch-2 steps in f32 and in bf16 (3 real and a padding step, the
+   learning rate halved, then 4 real) and 4 batch-64 f32 steps, Adam at the
+   ``Config()`` defaults, fast augmentation: the epoch metrics, parameters,
+   buffers, Adam's moments and step after every epoch and where the
+   dropout generator ends, bit for bit, the #1/#2/#3 launches equal; an
+   epoch of padding steps replaying nothing; the step after the lr change
+   differing from a graphed run without it; UNet with the exact
+   augmentation and the Hausdorff criterion the same way (4 steps); the
+   live backend at buckets 1, 8, 64 and 7b's two artifacts (f32 raw, bf16
+   compact), f32 and bf16, graphed against eager bit for bit with 25 norm
+   launches per bucket execution and a weight swap answered with the new
+   weights. Readings, each with the card's name and power limit: host ms
+   per step graphed and eager (batch 2 f32/bf16, batch 64 f32), the device
+   time and busy share of a step from one profiled epoch (MTnnUNet: the
+   union of the card's activities over the host clock of the same window;
+   #1/#2/#3 counted by name in the trace, graphed and eager, must be the
+   launches the counters added, and graphed the program's launches per
+   replay times the replays), the capture's seconds and memory, ms per
+   bucket execution graphed and eager;
 8. driver, a main path: ``run_experiment(cfg, "multitask", "CV")`` at the
    ``Config()`` defaults on a 450-image 128² synthetic BUSI tree (CV 2, 2
    epochs), the ``training_multitask`` CLI in a process of its own, a killed
@@ -244,6 +273,7 @@ cancel sums over raw 0-255 intensities.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -636,13 +666,13 @@ def phase_model(model) -> None:
 def profile_forward(model, x) -> None:
     """Device time of one forward by kernel (torch.profiler), the largest
     first: where the forward's time goes."""
-    rows = profile_rows(lambda: model(x))
+    rows = trace_window(lambda: model(x))["rows"]
     total = sum(r[0] for r in rows)
     if total <= 0:
         log("profile of one forward: the profiler saw no device time (not measured)")
         return
     log(f"profile of one forward: {total:.3f} ms device time in {sum(r[1] for r in rows)} "
-        f"launches of {len(rows)} kernels; by kernel:")
+        f"device activities of {len(rows)} kernels; by kernel:")
     for ms, count, name in rows[:8]:
         log(f"  {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<3d} {name[:100]}")
     log_classes(rows, total)
@@ -1367,15 +1397,30 @@ def phase_training(work: str) -> tuple:
     return launches, {"step_ms": step_ms, "step_ms_64": ms_64}, ckpt
 
 
+def _eager_twin(engine):
+    """An Engine on ``engine``'s model, configuration and packed data
+    format that runs its steps eagerly (``cuda_graphs=False``): what a check
+    of the step's Python (a swapped norm entry, markers launched around the
+    augmentation) runs on, since a replay runs no Python. The same state
+    trains in both; the captured step of ``engine`` reads it where it lives."""
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    twin = Engine(engine.model, engine.cfg, device=engine.device, cuda_graphs=False)
+    twin._aug_fmt = engine._aug_fmt
+    return twin
+
+
 def dispatch_cost(engine, state, data, perm, gen) -> None:
     """The eager batch-2 step with the fused norm called through its
     ``torch.autograd.Function`` (the eager path) and through its custom
     operator (the path ``torch.export`` traces), epochs in turns (Function,
     operator, operator, Function, twice) on the host clock: what the
-    operator's dispatch would cost the host-bound step."""
+    operator's dispatch would cost the host-bound step, on an eager twin of
+    ``engine`` (:func:`_eager_twin`)."""
     import torch
     from multi_task_breast_cancer_tpu_torch.models import blocks
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    engine = _eager_twin(engine)
 
     def via_op(x, eps=1e-5, slope=0.01, space=None):  # no space group in this phase
         return hk.instance_norm_leaky_relu_op(x, eps, slope)
@@ -1432,12 +1477,12 @@ def train_step_ms_64(cfg) -> float:
     log(f"  batch {BATCH}, {cfg.training.compute_dtype}: epoch of {n // BATCH} steps "
         f"{epoch_s:.3f} s = {step_ms:.3f} ms per step = {n / epoch_s:.1f} images/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    rows = profile_rows(lambda: engine.train_epoch(
-        state, data, plan_epoch_indices(n, BATCH, rng)[:BATCH], gen))
+    rows = trace_window(lambda: engine.train_epoch(
+        state, data, plan_epoch_indices(n, BATCH, rng)[:BATCH], gen))["rows"]
     total = sum(r[0] for r in rows)
     if total > 0:
         log(f"  profile of one batch-{BATCH} step: {total:.3f} ms device time in "
-            f"{sum(r[1] for r in rows)} launches")
+            f"{sum(r[1] for r in rows)} device activities")
         log_classes(rows, total, "    ")
     del engine, state, data
     torch.cuda.empty_cache()
@@ -1471,23 +1516,107 @@ def log_classes(rows, total: float, indent: str = "  ") -> dict:
     return dict(classes)
 
 
-def profile_rows(fn) -> list:
-    """(device ms, launches, kernel name) of everything ``fn`` runs on the
-    card, from ``torch.profiler``, the largest first."""
+# device activities in a torch.profiler chrome trace, by category: kernels,
+# copies and sets; host-side CUDA API calls (a launch, a graph launch)
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
+MARKER = "instance_norm_leaky_relu_empty"  # the empty kernel's name
+
+
+def trace_window(fn, lead_in=None) -> dict:
+    """One profiled window (``torch.profiler``, CUDA activity): ``fn`` run
+    with the card synchronised and the host clock read around it, inside the
+    profile. Returns ``host_ms``; ``events``, the device activities (start
+    and end in µs, category, name); ``busy_ms``, the union of their
+    intervals (what overlaps counts once); ``span_ms``, first start to last
+    end; ``runtime``, the count of host-side CUDA API calls; ``rows``, (device ms, count, name) by name over the device
+    activities, the largest first.
+
+    ``lead_in``: run first, inside the profile, and left out. The profiler
+    has lost a window's first device activities (every one of an eager
+    epoch's first step before its first convolution, in each of three
+    windows in a row); the lead-in takes that place, and only what lies
+    between two marker kernels, launched after it and after ``fn``, is
+    kept (``events`` is ``None`` where the trace lost a marker)."""
+    import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if lead_in is not None:
+            lead_in()
+            hk.empty_launch(torch.device(DEVICE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return sorted(((getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
-                   for e in prof.key_averages()), reverse=True)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if lead_in is not None:
+            hk.empty_launch(torch.device(DEVICE))
+            torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    spans = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    events = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                     str(e.get("cat", "")).lower(), e.get("name", "")) for e in spans
+                    if str(e.get("cat", "")).lower() in DEVICE_CATEGORIES)
+    runtime = [float(e["ts"]) for e in spans
+               if str(e.get("cat", "")).lower() in RUNTIME_CATEGORIES]
+    if lead_in is not None:
+        marks = [k for k, e in enumerate(events) if MARKER in e[3]]
+        if len(marks) != 2:
+            return {"host_ms": host_ms, "events": None, "marks": len(marks)}
+        # fn's host calls come after the first marker ran, before the second
+        runtime = [ts for ts in runtime if events[marks[0]][1] <= ts <= events[marks[1]][0]]
+        events = events[marks[0] + 1:marks[1]]
+    busy, start, end = 0.0, None, None
+    for a, b, _, _ in events:
+        if end is None or a > end:
+            busy += 0.0 if end is None else end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    busy += 0.0 if end is None else end - start
+    by_name = {}
+    for a, b, _, name in events:
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e3, count + 1)
+    return {"host_ms": host_ms, "events": events, "busy_ms": busy / 1e3,
+            "span_ms": (events[-1][1] - events[0][0]) / 1e3 if events else 0.0,
+            "runtime": len(runtime),
+            "rows": sorted(((ms, c, n) for n, (ms, c) in by_name.items()), reverse=True)}
+
+
+def port_kernel_launches(events) -> tuple:
+    """Launches of the port's kernels #1, #2, #3 among a trace's device
+    activities, by kernel name (one kernel per counted launch; the split
+    entry points and the empty marker kernel not included)."""
+    seen = [0, 0, 0]
+    for _, _, _, name in events:
+        if "fast_augment" in name:
+            seen[2] += 1
+        elif "instance_norm_leaky_relu_backward" in name:
+            seen[1] += 1
+        elif "instance_norm_leaky_relu" in name and MARKER not in name:
+            seen[0] += 1
+    return tuple(seen)
 
 
 def profile_step(engine, state, data, perm, gen, step_ms: float, bf16: bool = False) -> None:
     """Device time of one training step by kernel and by class
-    (torch.profiler); ``bf16``: the norm kernels that ran must be their bf16
-    builds, 25 forward and 25 backward."""
-    rows = profile_rows(lambda: engine.train_epoch(state, data, perm, gen))
+    (torch.profiler), and the device's busy share of the profiled window
+    (the union of its activities over the host clock of the same window;
+    ``step_ms`` is the unprofiled step, for reference); ``bf16``: the norm
+    kernels that ran must be their bf16 builds, 25 forward and 25
+    backward."""
+    t = trace_window(lambda: engine.train_epoch(state, data, perm, gen))
+    rows = t["rows"]
     total = sum(r[0] for r in rows)
     if total <= 0:
         check(not bf16, "bf16 step profile: the profiler saw no device time")
@@ -1495,9 +1624,11 @@ def profile_step(engine, state, data, perm, gen, step_ms: float, bf16: bool = Fa
         return
     ours = {name: (ms, count) for ms, count, name in rows
             if "instance_norm_leaky_relu" in name or "fast_augment" in name}
-    log(f"  profile of one training step: {total:.3f} ms device time (host step "
-        f"{step_ms:.3f} ms: device busy {100 * total / step_ms:.1f} %) in "
-        f"{sum(r[1] for r in rows)} launches of {len(rows)} kernels; by kernel:")
+    log(f"  profile of one training step: {total:.3f} ms device time, busy {t['busy_ms']:.3f} "
+        f"ms of the profiled window's {t['host_ms']:.3f} ms on the host clock "
+        f"({100 * t['busy_ms'] / t['host_ms']:.1f} %; unprofiled step {step_ms:.3f} ms), in "
+        f"{len(t['events'])} device activities of {len(rows)} kernels ({t['runtime']} host CUDA "
+        f"API calls); by kernel:")
     for ms, count, name in rows[:12]:
         log(f"    {ms:8.3f} ms {100 * ms / total:5.1f}%  x{count:<4d} {name[:100]}")
     for name, (ms, count) in ours.items():
@@ -1531,11 +1662,17 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
     record cannot place the path, so the step is profiled again, up to
     ``attempts`` times, each miss logged with what the record held. The
     first record that holds the three markers is checked; none in
-    ``attempts`` fails the run."""
+    ``attempts`` fails the run.
+
+    The step runs on an eager twin of ``engine`` (:func:`_eager_twin`): a
+    replay of the captured step runs no Python, so no marker can be
+    launched inside it; the twin's step is the body the capture recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+
+    engine = _eager_twin(engine)
 
     armed, launched = [], []
     inner = engine._augmented_batch
@@ -2047,9 +2184,12 @@ def _export_checks(ckpt: str, work: str, arts: dict, export_s: float, server) ->
     raw_dir = os.path.join(work, "artifact_bf16_raw")
     E.export_inference(_bf16_config(), "multitask", ckpt, raw_dir, buckets=(BATCH,),
                        size=SIZE, platforms=(DEVICE,))
-    raw16 = E.ExportedModel(raw_dir, device=DEVICE).predict(images[:BATCH])
+    built = _counts()[0]
+    raw_model = E.ExportedModel(raw_dir, device=DEVICE)  # graphed: its warm-up run launches
+    warm = _counts()[0] - built
+    raw16 = raw_model.predict(images[:BATCH])
     compact16 = m16.predict(images[:BATCH])
-    bf16_launches = _counts()[0] - before
+    bf16_launches = _counts()[0] - before - warm
     check(bf16_launches == 3 * 25, f"bf16 programs: {bf16_launches} norm launches in 3 "
                                    f"bucket executions on the card")
     host = postprocess(raw16, "multitask", 3, True, False)
@@ -2101,6 +2241,425 @@ def _export_checks(ckpt: str, work: str, arts: dict, export_s: float, server) ->
     del backends, m32, m16, cpu32, live32, direct
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 7f: graphs against eager
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ("MTnnUNet", "ResidualUNet", "SwinUNETR")
+# the batch-2 epochs of a case: 3 real steps and a padding step; then, the
+# learning rate halved (the plateau scheduler's factor, set as the driver
+# sets it), the step after the change alone; then 3 more: 8 steps, 7 real
+GRAPH_EPOCHS = ((1, 1, 0, 1), (1,), (1, 1, 1))
+GRAPH_EPOCHS_64 = ((1, 1, 1, 1),)       # batch 64: 4 real steps
+GRAPH_N = {2: 16, BATCH: 4 * BATCH}      # fold sizes; the timed epochs take every row
+GRAPH_BUCKETS = (1, 8, 64)
+
+
+def _tree_leaves(out) -> list:
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _tree_leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tree_leaves(o)]
+    return [out]
+
+
+def _graph_model(arch: str, init=None):
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    model = (init_multitask_model(arch, generator=torch.Generator().manual_seed(0))
+             if arch == "MTnnUNet" else seg_zoo_model(arch))
+    if init is not None:
+        model.load_state_dict(init)
+    return model
+
+
+def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epochs,
+               lr_change: bool = True, capture: dict = None, **overrides) -> dict:
+    """One Engine (graphed, or eager with ``cuda_graphs=False``) from
+    ``init`` through ``epochs`` (each a tuple of step-valid flags) on ``ds``,
+    the Adam of ``Config()``, the fast augmentation and dropout draws from
+    seeded generators; the state after each epoch, the metrics, the
+    launches and where the dropout generator ended. ``capture`` collects
+    the capture's seconds and memory; ``overrides`` go to the
+    ``EngineConfig``."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.train.loop import Engine
+    from multi_task_breast_cancer_tpu_torch.train.optim import set_learning_rate
+    from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    cfg.training.compute_dtype = dtype
+    task = "multitask" if arch == "MTnnUNet" else "segmentation"
+    engine = Engine(_graph_model(arch, init),
+                    _engine_config(cfg, task=task, batch_size=b, **overrides),
+                    device=DEVICE, cuda_graphs=graphed)
+    check(engine.graphed is graphed, f"{arch}: Engine.graphed is {engine.graphed}")
+    state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
+    data = engine.device_data(ds)
+    if capture is not None:
+        inner = engine._capture_step
+
+        def timed(*args):
+            del engine._capture_step  # once, and no reference cycle through the Engine
+            torch.cuda.synchronize()
+            alloc = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            capture.update(s=time.perf_counter() - t0,
+                           mib=(torch.cuda.memory_allocated() - alloc) / 2 ** 20,
+                           pool_mib=_graph_pool_mib(out.program.graph.pool()))
+            return out
+        engine._capture_step = timed
+    drop = torch.Generator(device=DEVICE).manual_seed(1)
+    rng = np.random.default_rng(5)
+    torch.cuda.synchronize()
+    _reset_counts()
+    metrics, snaps = [], []
+    for e, valid in enumerate(epochs):
+        perm = rng.permutation(len(ds))[:len(valid) * b]
+        _, tm = engine.train_epoch(state, data, perm, torch.Generator().manual_seed(e),
+                                   np.asarray(valid, np.float32), drop)
+        metrics.append(tm)
+        snaps.append(_snapshot(state))
+        if e == 0 and lr_change:
+            set_learning_rate(state.optimizer, cfg.optimizer.lr * cfg.optimizer.decrease_factor)
+    torch.cuda.synchronize()
+    return {"engine": engine, "state": state, "data": data, "metrics": metrics, "snaps": snaps,
+            "counts": _counts(), "drop": drop, "drop_state": drop.get_state()}
+
+
+def _graph_pool_mib(pool):
+    """MiB of the card's memory in the segments of the memory pool ``pool``
+    (a graph's), from the allocator's snapshot; ``None`` where it does not
+    say."""
+    import torch
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 2 ** 20
+
+
+def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple) -> None:
+    import torch
+    check(g["metrics"] == e["metrics"], f"{what}: epoch metrics graphed {g['metrics']} "
+                                        f"vs eager {e['metrics']}")
+    for k, (a, b) in enumerate(zip(g["snaps"], e["snaps"])):
+        check(_same_state(a, b), f"{what}: parameters, buffers or Adam's state after "
+                                 f"epoch {k} differ, graphed vs eager")
+    check(g["counts"] == e["counts"] == want,
+          f"{what}: launches graphed {g['counts']}, eager {e['counts']}, want {want}")
+    check(torch.equal(g["drop_state"], e["drop_state"]),
+          f"{what}: the dropout generator ended elsewhere, graphed vs eager")
+
+
+def _step_ms_in_turns(runs: dict, b: int) -> dict:
+    """Host-clock ms per step of an epoch over every row of the fold, the
+    graphed and the eager Engine in turns (graphed, eager, eager, graphed;
+    medians)."""
+    import numpy as np
+    import torch
+    times = {True: [], False: []}
+    for graphed in (True, False, False, True):
+        r = runs[graphed]
+        n = r["data"]["images"].shape[0]
+        perm = np.random.default_rng(9).permutation(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r["engine"].train_epoch(r["state"], r["data"], perm, torch.Generator().manual_seed(9),
+                                None, r["drop"])
+        times[graphed].append((time.perf_counter() - t0) * 1e3 / (n // b))
+    return {g: statistics.median(t) for g, t in times.items()}
+
+
+def _busy_share(what: str, run: dict, b: int, attempts: int = 3) -> dict:
+    """One epoch over the fold (every step real) in one profiled window
+    (:func:`trace_window`): per step, the device's busy ms (the union of its
+    activities), the summed activity ms, the host ms of the same window,
+    the busy share, device activities and host CUDA API calls. The port's
+    kernels in the trace must be the launches the counters added in the
+    window, and a graphed Engine's must be its program's launches per
+    replay times the steps. The same epoch runs once before it in the
+    window, left out (:func:`trace_window`'s ``lead_in``). A trace that
+    misses them is taken again, up to ``attempts`` times, each miss logged;
+    none holding them fails."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    engine = run["engine"]
+    n = run["data"]["images"].shape[0]
+    steps = n // b
+    want = None
+    if engine.graphed:
+        per_replay = engine._step_graph.program.launches
+        entries = (hk.instance_norm_leaky_relu, hk.instance_norm_leaky_relu_backward,
+                   FA.fast_augment)
+        check(set(per_replay) <= set(entries),
+              f"{what}: the captured step counts launches of {sorted(f.__name__ for f in per_replay)}")
+        want = tuple(steps * per_replay.get(f, 0) for f in entries)
+    def epoch(seed):
+        engine.train_epoch(run["state"], run["data"], np.arange(n),
+                           torch.Generator().manual_seed(seed), None, run["drop"])
+
+    for attempt in range(attempts):
+        counted = []
+
+        def measured():
+            before = _counts()
+            epoch(20 + attempt)
+            counted.extend(x - y for x, y in zip(_counts(), before))
+
+        t = trace_window(measured, lead_in=lambda: epoch(10 + attempt))
+        counted = tuple(counted)
+        if t["events"] is None:
+            log(f"  {what} profile, attempt {attempt + 1}: {t['marks']} of the 2 markers in "
+                f"the trace")
+            continue
+        seen = port_kernel_launches(t["events"])
+        if seen == counted and (want is None or counted == want):
+            break
+        log(f"  {what} profile, attempt {attempt + 1}: #1/#2/#3 kernels in the trace {seen}, "
+            f"the counters added {counted}, the program's launches x {steps} replays {want}; "
+            f"{len(t['events'])} device activities, the first "
+            f"{[e[3][:40] for e in t['events'][:4]]}, the last "
+            f"{[e[3][:40] for e in t['events'][-3:]]}")
+    else:
+        check(False, f"{what}: no profile of {attempts} held the launches the counters added")
+    kinds = Counter(c for _, _, c, _ in t["events"])
+    return {"device_ms": t["busy_ms"] / steps, "kernel_ms": sum(r[0] for r in t["rows"]) / steps,
+            "host_ms": t["host_ms"] / steps, "busy": t["busy_ms"] / t["host_ms"],
+            "events": len(t["events"]) / steps, "runtime": t["runtime"] / steps,
+            "kinds": {k: v / steps for k, v in kinds.items()}, "port": [x / steps for x in seen],
+            "names": Counter({name: c / steps for _, c, name in t["rows"]})}
+
+
+def graphs_training_case(arch: str, card: str) -> dict:
+    """7f training for one architecture: batch 2 f32 (graphed, eager, and
+    graphed without the lr change), batch 2 bf16 and batch 64 f32 (graphed,
+    eager); the checks of the phase and the readings."""
+    import numpy as np
+    import torch
+    init = {k: v.clone() for k, v in _graph_model(arch).state_dict().items()}
+    n_norm = 25 if arch == "MTnnUNet" else 0
+    out = {}
+    for dtype, b, epochs in (("float32", 2, GRAPH_EPOCHS), ("bfloat16", 2, GRAPH_EPOCHS),
+                             ("float32", BATCH, GRAPH_EPOCHS_64)):
+        what = f"{arch} batch {b} {dtype}"
+        ds = synthetic_fold(GRAPH_N[b], 30 + b)
+        capture = {}
+        runs = {True: _graph_run(arch, dtype, b, True, init, ds, epochs, capture=capture),
+                False: _graph_run(arch, dtype, b, False, init, ds, epochs)}
+        real = sum(sum(v) for v in epochs)
+        _graph_vs_eager(what, runs[True], runs[False], (n_norm * real, n_norm * real, real))
+        g = runs[True]
+        line = (f"  {what}: {sum(map(len, epochs))} steps ({real} real) graphed == eager: "
+                f"losses and metrics, parameters, buffers, Adam's moments and step bit for bit "
+                f"after every epoch; launches {g['counts']} both")
+        if b == 2 and dtype == "float32":
+            # padding steps: an epoch of them replays nothing and moves nothing
+            before = _snapshot(g["state"])
+            _reset_counts()
+            g["engine"].train_epoch(g["state"], g["data"], np.arange(2 * b),
+                                    torch.Generator().manual_seed(7), np.zeros(2, np.float32),
+                                    g["drop"])
+            check(_counts() == (0, 0, 0) and _same_state(before, _snapshot(g["state"])),
+                  f"{what}: graphed padding steps changed the state or launched a kernel")
+            # the lr change takes effect in the replays
+            same_lr = _graph_run(arch, dtype, b, True, init, ds, epochs[:2], lr_change=False)
+            check(_same_state(same_lr["snaps"][0], g["snaps"][0])
+                  and not _same_state(same_lr["snaps"][1], g["snaps"][1]),
+                  f"{what}: the step after the lr change equals a step without it")
+            del same_lr
+            line += ("; an epoch of padding steps replays nothing and leaves the state as it "
+                     "was; the step after the lr change differs from the same step without it")
+        if arch == "MTnnUNet" or b == 2:
+            ms = _step_ms_in_turns(runs, b)
+            busy = {g_: _busy_share(f"{what} {'graphed' if g_ else 'eager'}", runs[g_], b)
+                    for g_ in (True, False)} if arch == "MTnnUNet" else {}
+            row = {"graphed_ms": ms[True], "eager_ms": ms[False],
+                   "capture_s": capture.get("s"), "capture_mib": capture.get("mib"),
+                   "pool_mib": capture.get("pool_mib")}
+            pool = capture["pool_mib"]
+            line += (f"; host ms per step graphed {ms[True]:.3f}, eager {ms[False]:.3f} "
+                     f"({ms[False] / ms[True]:.2f}x); capture {capture['s']:.3f} s, "
+                     f"+{capture['mib']:.1f} MiB allocated, its pool "
+                     f"{'not measured' if pool is None else f'{pool:.1f} MiB'}")
+            for g_, r in busy.items():
+                name = "graphed" if g_ else "eager"
+                row.update({f"{name}_device_ms": r["device_ms"], f"{name}_busy": r["busy"],
+                            f"{name}_profiled_host_ms": r["host_ms"]})
+                line += (f"; {name} profile, per step of one window: the card busy "
+                         f"{r['device_ms']:.3f} ms (activities summed {r['kernel_ms']:.3f}) of "
+                         f"{r['host_ms']:.3f} ms on the host clock, {100 * r['busy']:.1f} %, in "
+                         f"{r['events']:.1f} device activities ("
+                         + ", ".join(f"{k} {v:.1f}" for k, v in sorted(r["kinds"].items()))
+                         + f") and {r['runtime']:.1f} host CUDA API calls; #1/#2/#3 "
+                         f"{'/'.join(f'{x:g}' for x in r['port'])} per step in the trace")
+            if busy:
+                diff = busy[False]["names"].copy()
+                diff.subtract(busy[True]["names"])
+                moved = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:6]
+                line += ("; activities per step, eager minus graphed: "
+                         + (", ".join(f"{v:+g} {k[:60]}" for k, v in moved if v) or "none"))
+            out[f"{dtype}_b{b}"] = row
+        log(line + f" [{card}]")
+        del runs, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def graphs_exact_hausdorff(card: str) -> None:
+    """The exact augmentation (its per-step cosines and sines copied into
+    the step's static buffers) and the Hausdorff criterion (distance fields
+    computed inside the step) under a capture: UNet, batch 2, 4 real steps,
+    graphed == eager."""
+    import torch
+    init = {k: v.clone() for k, v in _graph_model("UNet").state_dict().items()}
+    ds = synthetic_fold(GRAPH_N[2], 32)
+    runs = [_graph_run("UNet", "float32", 2, g, init, ds, ((1, 1, 1, 1),),
+                       fast_augmentation=False, seg_criterion="Hausdorff") for g in (True, False)]
+    _graph_vs_eager("UNet, exact augmentation, Hausdorff", *runs, (0, 0, 0))
+    log(f"  UNet batch 2, exact augmentation and the Hausdorff criterion: 4 real steps graphed "
+        f"== eager bit for bit (the capture saw no host sync) [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def graphs_serving(artifacts: dict, card: str) -> dict:
+    """7f serving: the live backend (one program per bucket 1, 8, 64) and
+    the port's artifacts (f32 raw, bf16 with device postprocessing), each
+    graphed against eager: answers bit for bit, 25 norm launches per bucket
+    execution, a weight swap taking effect in the graph; ms per bucket
+    execution (host clock, upload to download)."""
+    import copy
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models.jax_weights import flat_jax_weights
+    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.serve.export import ExportedModel
+    from multi_task_breast_cancer_tpu_torch.serve.server import _TorchBackend
+
+    images = np.random.default_rng(31).integers(0, 256, (max(GRAPH_BUCKETS), SIZE, SIZE, 1),
+                                                dtype=np.uint8)
+    other = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(9))
+    swap_npz = os.path.join(os.path.dirname(artifacts["f32"]), "graphs_swap_weights.npz")
+    np.savez(swap_npz, **flat_jax_weights(other.state_dict(), other))
+    model = init_multitask_model("MTnnUNet", generator=torch.Generator().manual_seed(0))
+    rows = {}
+
+    def compare(what, pair, swap):
+        times = {}
+        for b in GRAPH_BUCKETS:
+            x = images[:b]
+            torch.cuda.synchronize()
+            before = hk.instance_norm_leaky_relu.launches
+            got = pair[True].predict(x)
+            torch.cuda.synchronize()
+            launched = hk.instance_norm_leaky_relu.launches - before
+            want = pair[False].predict(x)
+            check(launched == 25, f"{what}, bucket {b}: {launched} norm launches, want 25")
+            check(all(np.array_equal(a, c) for a, c in zip(_tree_leaves(got), _tree_leaves(want))),
+                  f"{what}, bucket {b}: graphed answer differs from eager")
+            times[b] = {g: _median_ms(lambda: pair[g].predict(x), 10) for g in (True, False)}
+        first = [a.copy() for a in _tree_leaves(pair[True].predict(images))]
+        for be in pair.values():
+            swap(be)
+        got, want = pair[True].predict(images), pair[False].predict(images)
+        check(all(np.array_equal(a, c) for a, c in zip(_tree_leaves(got), _tree_leaves(want)))
+              and not all(np.array_equal(a, c) for a, c in zip(_tree_leaves(got), first)),
+              f"{what}: after a weight swap the graphed answer is not the new weights'")
+        log(f"  {what}: buckets {GRAPH_BUCKETS} graphed == eager bit for bit, 25 norm launches "
+            f"per bucket execution, a weight swap answered with the new weights without a "
+            f"capture; ms per bucket execution (host clock, upload to download) "
+            + ", ".join(f"B={b} graphed {t[True]:.3f} eager {t[False]:.3f}"
+                        for b, t in times.items()) + f" [{card}]")
+        return {str(b): {"graphed_ms": t[True], "eager_ms": t[False]} for b, t in times.items()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in ("float32", "bfloat16"):
+            live = {g: _TorchBackend(copy.deepcopy(model), [torch.device(DEVICE)], dtype,
+                                     GRAPH_BUCKETS, (1, SIZE, SIZE), cuda_graphs=g)
+                    for g in (True, False)}
+            check(live[True].graphed and not live[False].graphed, "live backend: graph rule")
+            rows[f"live_{dtype}"] = compare(f"live backend, {dtype}", live,
+                                            lambda be: be.load_weights(other.state_dict()))
+            del live
+        for name, art in artifacts.items():
+            exported = {g: ExportedModel(art, device=DEVICE, cuda_graphs=g) for g in (True, False)}
+            check(exported[True].graphed and len(exported[True]._graphs) == len(GRAPH_BUCKETS),
+                  f"{name} artifact: not one graph per bucket")
+            rows[f"artifact_{name}"] = compare(f"{name} artifact", exported,
+                                               lambda be: be.load_weights(swap_npz))
+            del exported
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_graphs(artifacts: dict = None) -> dict:
+    """7f: the single-process training step graphed against eager for
+    MTnnUNet, ResidualUNet and SwinUNETR at full width, and the serving
+    backends' bucket graphs against eager (``artifacts``: 7b's f32 and bf16
+    artifacts, else exported here); cuDNN deterministic, so that two eager
+    runs agree bit for bit too. Returns the readings."""
+    import tempfile
+    import torch
+    card = _card()
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        rows = {arch: graphs_training_case(arch, card) for arch in GRAPH_ARCHS}
+        graphs_exact_hausdorff(card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tmp = None
+    try:
+        if artifacts is None:
+            tmp = tempfile.mkdtemp(prefix="mtbc_graphs_")
+            artifacts = _graph_artifacts(tmp)
+        rows["serving"] = graphs_serving(artifacts, card)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log(f"graphs: phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
+def _graph_artifacts(tmp: str) -> dict:
+    """An f32 raw and a bf16 device-postprocessed artifact of the seeded
+    MTnnUNet weights, cuda programs at ``GRAPH_BUCKETS`` (7f alone)."""
+    from multi_task_breast_cancer_tpu_torch.config import Config
+    from multi_task_breast_cancer_tpu_torch.serve import export as E
+    arts = {"f32": os.path.join(tmp, "artifact_f32"), "bf16": os.path.join(tmp, "artifact_bf16")}
+    for (name, out), cfg, post in zip(arts.items(), (Config(), _bf16_config()), (False, True)):
+        E.export_inference(cfg, "multitask", None, out, buckets=GRAPH_BUCKETS, size=SIZE,
+                           platforms=(DEVICE,), device_postprocess=post)
+    return arts
+
+
+def phase_graphs_alone() -> None:
+    """7f by itself: build the kernels and run the graphs phase.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_graphs_alone()"`` from
+    the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(json.dumps({"graphs": phase_graphs()}))
 
 
 DRIVER_COUNTS = {"benign": 222, "malignant": 164, "normal": 64}  # Curated BUSI
@@ -3658,9 +4217,11 @@ def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_ST
     cfg = Config()
     cfg.data.batch_size = b
     task = "multitask" if arch == "MTnnUNet" else "segmentation"
+    # one process runs eagerly, as the ranks do under their mesh: its hooks
+    # record every step's rows, masks and gradient, which a replay would not run
     engine = Engine(_parallel_model(arch, mesh),
                     _engine_config(cfg, task=task, fast_augmentation=fast),
-                    device=device, mesh=mesh)
+                    device=device, mesh=mesh, cuda_graphs=False)
     state = replicate_to_mesh(mesh, create_train_state(engine.model, cfg.optimizer.opt,
                                                        cfg.optimizer.lr))
     n = b * steps
@@ -4904,6 +5465,8 @@ def main() -> int:
         (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
         h_fwd, h_bwd, h_aug = phase_training_bf16(f32_times)
         e_fwd, e16_fwd = phase_export(ckpt, work)
+        log(json.dumps({"graphs": phase_graphs({"f32": os.path.join(work, "artifact_f32"),
+                                                 "bf16": os.path.join(work, "artifact_bf16")})}))
         (p_fwd, p_bwd, p_aug), parallel_rows = phase_parallel(os.path.join(work, "artifact_f32"))
     finally:
         shutil.rmtree(work, ignore_errors=True)

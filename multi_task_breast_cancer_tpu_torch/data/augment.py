@@ -22,14 +22,23 @@ from typing import Tuple
 import torch
 
 
+def rotation_cos_sin(angle_deg: torch.Tensor) -> torch.Tensor:
+    """(..., 2): the f32 cosine and sine of each angle (degrees), on the
+    angles' device; all the coordinates need of an angle. The Engine takes
+    them on the host once an epoch, so that a step captured in a CUDA graph
+    reads them from the device, with the bits the CPU gives."""
+    theta = angle_deg.to(torch.float32) * (math.pi / 180.0)
+    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
 def _inverse_rotation_coords(angle_deg: torch.Tensor, h: int, w: int,
                              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float source coordinates of the inverse rotation about the image
-    centre (torchvision convention), (B, H, W) each for (B,) angles."""
+    centre (torchvision convention), (B, H, W) each for (B,) angles, or for
+    their (B, 2) :func:`rotation_cos_sin`."""
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    theta = angle_deg.to(torch.float32) * (math.pi / 180.0)
-    cos = torch.cos(theta).to(device)[:, None, None]
-    sin = torch.sin(theta).to(device)[:, None, None]
+    cs = (angle_deg if angle_deg.dim() == 2 else rotation_cos_sin(angle_deg)).to(device)
+    cos, sin = cs[:, 0, None, None], cs[:, 1, None, None]
     yy = (torch.arange(h, dtype=torch.float32, device=device) - cy)[:, None]
     xx = (torch.arange(w, dtype=torch.float32, device=device) - cx)[None, :]
     return cos * yy + sin * xx + cy, -sin * yy + cos * xx + cx
@@ -57,7 +66,8 @@ def rotate_nearest(img: torch.Tensor, angle_deg) -> torch.Tensor:
 def joint_coords(fh: torch.Tensor, fv: torch.Tensor, angle: torch.Tensor, h: int,
                  w: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample inverse map of hflip → vflip → rotate: (flat index (B, H·W)
-    int64, valid (B, H, W)) on ``device``."""
+    int64, valid (B, H, W)) on ``device``; ``angle`` (B,) degrees or their
+    (B, 2) :func:`rotation_cos_sin`."""
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     ys, xs = _inverse_rotation_coords(angle, h, w, device)
     # flip about the centre in source space: q' = s·q + (1-s)·(S-1)/2
@@ -72,7 +82,8 @@ def joint_coords(fh: torch.Tensor, fv: torch.Tensor, angle: torch.Tensor, h: int
 def joint_transform_stack_batch(stack: torch.Tensor, fh: torch.Tensor,
                                 fv: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Joint transform of a (B, C, H, W) stack (NCHW; channel 0 the mask), each
-    sample with its own ``(fh, fv, angle)``, as one gather over the batch."""
+    sample with its own ``(fh, fv, angle)`` (``angle`` as :func:`joint_coords`
+    takes it), as one gather over the batch."""
     b, c, h, w = stack.shape
     idx, valid = joint_coords(fh, fv, angle, h, w, stack.device)
     out = stack.reshape(b, c, h * w).gather(2, idx[:, None, :].expand(b, c, h * w))

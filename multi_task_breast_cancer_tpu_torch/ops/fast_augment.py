@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from multi_task_breast_cancer_tpu_torch.ops import _build
 from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import H100_SMS, _sm_count
+from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
 _LANE = 128  # the JAX kernel's lane width: kept so both packages plan one canvas
 
@@ -409,6 +410,7 @@ def _check_factors(factors, b: int, s: int) -> PipelineFactors:
     return factors
 
 
+@counted
 def fast_augment(packed: torch.Tensor, batch_idx: torch.Tensor, factors: PipelineFactors,
                  plan: Optional[AugPlan] = None) -> torch.Tensor:
     """Batch selection + the joint flip/rotate pipeline on packed planes:
@@ -453,9 +455,6 @@ def fast_augment(packed: torch.Tensor, batch_idx: torch.Tensor, factors: Pipelin
                            f"at packed {tuple(packed.shape)}, batch {b}, plan {plan}")
     fast_augment.launches += 1
     return out.transpose(0, 1)
-
-
-fast_augment.launches = 0
 
 
 def fast_joint_transform(packed: torch.Tensor, batch_idx: torch.Tensor,

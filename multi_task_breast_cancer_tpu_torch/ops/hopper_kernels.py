@@ -57,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from multi_task_breast_cancer_tpu_torch.ops import _build
+from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SOURCE = "instance_norm_leaky_relu"
@@ -274,6 +275,7 @@ def _backward(x: torch.Tensor, g: torch.Tensor, eps: float, slope: float,
     return dx
 
 
+@counted
 def instance_norm_leaky_relu_backward(x: torch.Tensor, g: torch.Tensor,
                                       eps: float = 1e-5,
                                       slope: float = 0.01) -> torch.Tensor:
@@ -340,6 +342,7 @@ def _op_backward(ctx, g: torch.Tensor):
 instance_norm_leaky_relu_op.register_autograd(_op_backward, setup_context=_op_setup_context)
 
 
+@counted
 def instance_norm_leaky_relu(x: torch.Tensor, eps: float = 1e-5,
                              slope: float = 0.01, space=None) -> torch.Tensor:
     """Fused InstanceNorm(affine=False) + LeakyReLU over NCHW input.
@@ -470,6 +473,7 @@ def _check_split_inputs(what: str, x: torch.Tensor, *stats: torch.Tensor,
                              f"{x.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
+@counted
 def instance_norm_split_sums(x: torch.Tensor, total: int,
                              sums: torch.Tensor | None = None) -> torch.Tensor:
     """A plane part's Σx (``sums`` None) or Σ(x − mean)² (``sums``: the
@@ -485,6 +489,7 @@ def instance_norm_split_sums(x: torch.Tensor, total: int,
     return part
 
 
+@counted
 def instance_norm_leaky_relu_split_apply(x: torch.Tensor, sums: torch.Tensor,
                                          sq: torch.Tensor, total: int, eps: float = 1e-5,
                                          slope: float = 0.01) -> torch.Tensor:
@@ -500,6 +505,7 @@ def instance_norm_leaky_relu_split_apply(x: torch.Tensor, sums: torch.Tensor,
     return y
 
 
+@counted
 def instance_norm_leaky_relu_split_backward_sums(
         x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
         total: int, eps: float = 1e-5, slope: float = 0.01) -> torch.Tensor:
@@ -516,6 +522,7 @@ def instance_norm_leaky_relu_split_backward_sums(
     return part
 
 
+@counted
 def instance_norm_leaky_relu_split_backward_apply(
         x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: torch.Tensor,
         gsums: torch.Tensor, total: int, eps: float = 1e-5,
@@ -559,11 +566,3 @@ def split_backward(x: torch.Tensor, g: torch.Tensor, sums: torch.Tensor, sq: tor
         instance_norm_leaky_relu_split_backward_sums(x, g, sums, sq, total, eps, slope))
     return instance_norm_leaky_relu_split_backward_apply(x, g, sums, sq, gsums, total,
                                                          eps, slope)
-
-
-instance_norm_leaky_relu.launches = 0
-instance_norm_leaky_relu_backward.launches = 0
-instance_norm_split_sums.launches = 0
-instance_norm_leaky_relu_split_apply.launches = 0
-instance_norm_leaky_relu_split_backward_sums.launches = 0
-instance_norm_leaky_relu_split_backward_apply.launches = 0

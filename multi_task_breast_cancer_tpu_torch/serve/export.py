@@ -41,6 +41,11 @@ Design points, as in the JAX package:
   the mask as uint8 and the pixel counts the prediction-refinement rule
   needs. :class:`ExportedModel` bit-packs a binary mask on the device before
   the download (``np.unpackbits`` order).
+- **A CUDA graph per (replica, bucket)** on the card (:mod:`..graphs`; eager
+  on the CPU or with ``cuda_graphs=False``): :class:`ExportedModel` captures
+  each program's execution with the device padding and the mask packing
+  around it, on static inputs, the weights read in place; loading new
+  weights (:meth:`ExportedModel.load_weights`) needs no capture.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multi_task_breast_cancer_tpu_torch import graphs
 from multi_task_breast_cancer_tpu_torch.device import (
     COMPUTE_DTYPES,
     replica_devices,
@@ -214,8 +220,8 @@ def _pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
     (big bit order): 8× fewer bytes for the mask's download."""
     b, h, w = mask.shape
     bits = mask.reshape(b, h, w // 8, 8).to(torch.int32)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                           device=mask.device)
+    # 128, 64, ..., 1 made on the device: a graph capture allows no upload
+    weights = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=mask.device)
     return (bits * weights).sum(-1, dtype=torch.int32).to(torch.uint8)
 
 
@@ -239,9 +245,21 @@ class ExportedModel:
     devices instead; one may repeat): each device holds one copy of the
     weights, and a batch is sharded over the replicas only when that wins
     (:meth:`dp_shard`, JAX's rule); the shards' executions are started back
-    to back, each replica on a stream of its own, and fetched together."""
+    to back, each replica on a stream of its own, and fetched together.
 
-    def __init__(self, path, data_parallel: bool = True, device=None, devices=None):
+    Graphed (:func:`..graphs.enabled`, ``cuda_graphs``): one program per
+    (replica, bucket), each captured when the model is built, after one
+    eager run of it (as JAX compiles at startup). The host's rows are
+    uploaded as they are and cast into the static (bucket, H, W, C) f32
+    input, and their count written to a device scalar, outside the graph;
+    the graph gathers the padding rows (the last row repeated, as the eager
+    ``torch.cat``), runs the program on the weights where they live and
+    packs the mask. Each execution's rows to download are copied off the
+    static outputs, so a bucket may run again before the first answer is
+    fetched."""
+
+    def __init__(self, path, data_parallel: bool = True, device=None, devices=None,
+                 cuda_graphs: bool = True):
         self.path = Path(path)
         self.manifest = json.loads((self.path / MANIFEST).read_text())
         if self.manifest.get("format") != FORMAT:
@@ -256,13 +274,32 @@ class ExportedModel:
                              f"{self.manifest['platforms']})")
         for d in self.devices:
             set_float32_policy(d, self.manifest["compute_dtype"])
-        with np.load(self.path / WEIGHTS) as z:
-            flat = {k: z[k] for k in z.files}
-        host = params_from_jax(flat, self.manifest["transposed_convs"])
-        self._weights = {d: {k: v.to(d) for k, v in host.items()} for d in set(self.devices)}
+        self._weights: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self.load_weights(self.path / WEIGHTS)
         self._streams = replica_streams(self.devices)
         self.buckets = sorted(self.manifest["buckets"])
         self._fns: Dict[int, Any] = {}
+        self.graphed = cuda_graphs and graphs.enabled(self.device)
+        self._graphs: Dict[tuple, graphs.Program] = {}
+        self._pools = [graphs.new_pool() for _ in self.devices] if self.graphed else []
+        if self.graphed:
+            self.preload()
+
+    def load_weights(self, path) -> None:
+        """The weights of a ``weights.npz`` (the artifact's layout) on each
+        replica's device; once they are there, copied into the same tensors
+        in place, so captured programs answer with the new weights."""
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+        host = params_from_jax(flat, self.manifest["transposed_convs"])
+        for d in set(self.devices):
+            if d not in self._weights:
+                self._weights[d] = {k: v.to(d) for k, v in host.items()}
+                continue
+            if set(host) != set(self._weights[d]):
+                raise ValueError(f"{path}: other weights than the artifact's")
+            for k, v in host.items():
+                self._weights[d][k].copy_(v)
 
     def _fn(self, bucket: int):
         if bucket not in self._fns:
@@ -271,10 +308,45 @@ class ExportedModel:
         return self._fns[bucket]
 
     def preload(self) -> None:
-        """Load every bucket's program now instead of at its first use: a
-        server pays the deserialization at startup, not on a request."""
+        """Load every bucket's program now instead of at its first use (and
+        graphed, capture each (replica, bucket)): a server pays the
+        deserialization at startup, not on a request."""
         for bucket in self.buckets:
             self._fn(bucket)
+        for replica in range(len(self.devices) if self.graphed else 0):
+            for bucket in self.buckets:
+                self._graph(bucket, replica)
+
+    def _run(self, bucket: int, device, x: torch.Tensor):
+        """The program on ``x`` (rows already padded to ``bucket``), the
+        binary mask of a compact answer bit-packed."""
+        out = self._fn(bucket)(self._weights[device], x.to(torch.float32))
+        if isinstance(out, dict) and "tumor_pixels" in out and out["mask"].shape[-1] % 8 == 0:
+            out = dict(out)
+            out["mask_packed"] = _pack_mask_bits(out.pop("mask"))
+        return out
+
+    def _graph(self, bucket: int, replica: int) -> graphs.Program:
+        """The captured execution of ``bucket`` on ``replica``: static inputs
+        (bucket, H, W, C) f32 and the real rows' count."""
+        key = (replica, bucket)
+        if key not in self._graphs:
+            m, device = self.manifest, self.devices[replica]
+            x = torch.zeros((bucket, m["size"], m["size"], m["channels"]), device=device)
+            rows = torch.full((), bucket, dtype=torch.int64, device=device)
+
+            def padded(x, rows):  # rows past the real ones repeat the last real one
+                keep = torch.clamp(torch.arange(bucket, device=device), max=rows - 1)
+                return self._run(bucket, device, x.index_select(0, keep))
+
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side), torch.inference_mode():
+                padded(x, rows)  # the eager warm-up
+            with stream_context(self._streams[replica]), torch.inference_mode():
+                self._graphs[key] = graphs.Program(padded, [x, rows], device, stream=side,
+                                                   pool=self._pools[replica])
+        return self._graphs[key]
 
     def _dispatch(self, images: np.ndarray, bucket: int, replica: int = 0):
         """Start one bucket execution on ``replica`` (asynchronous on the
@@ -288,12 +360,14 @@ class ExportedModel:
         device, stream = self.devices[replica], self._streams[replica]
         with stream_context(stream), torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+            if self.graphed:
+                program = self._graph(bucket, replica)
+                program.inputs[0][:p].copy_(x)
+                program.inputs[1].fill_(p)
+                return tree_map(lambda a: a[:p].clone(), program.replay()), n, stream
             if p < bucket:
                 x = torch.cat([x, x[-1:].expand(bucket - p, *x.shape[1:])])
-            out = self._fn(bucket)(self._weights[device], x.to(torch.float32))
-            if isinstance(out, dict) and "tumor_pixels" in out and out["mask"].shape[-1] % 8 == 0:
-                out = dict(out)
-                out["mask_packed"] = _pack_mask_bits(out.pop("mask"))
+            out = self._run(bucket, device, x)
         return out, n, stream
 
     @staticmethod

@@ -15,7 +15,10 @@ faults and timeouts. See that module for the endpoints.
 
 Backends take NHWC images and answer NHWC float32 numpy, so :mod:`.post` is
 the JAX package's postprocessing; each computes in ``compute_dtype``
-(float32, or bfloat16 with f32 outputs):
+(float32, or bfloat16 with f32 outputs). On the card every backend replays
+one CUDA graph per (replica, bucket), captured when the backend is built,
+as JAX compiles its programs at startup (:mod:`..graphs`; eager on the CPU;
+``CheckpointBackend(cuda_graphs=False)`` serves the card eagerly, to compare):
 
 - :class:`CheckpointBackend`: a live model (NCHW inside) from a config, with
   seeded weights, a training checkpoint of the port's driver or the JAX
@@ -45,6 +48,7 @@ from urllib.parse import urlparse, parse_qs
 import numpy as np
 import torch
 
+from multi_task_breast_cancer_tpu_torch import graphs
 from multi_task_breast_cancer_tpu_torch.device import (
     COMPUTE_DTYPES,
     replica_devices,
@@ -139,10 +143,21 @@ class _TorchBackend:
     With several replicas each bucket's batch is split into contiguous
     shards, one per replica (JAX shards the serving batch over its data
     mesh); every replica runs on a stream of its own, all are started before
-    any answer is fetched, and the answers are put back in order."""
+    any answer is fetched, and the answers are put back in order.
+
+    Graphed (:func:`..graphs.enabled`, ``cuda_graphs``): each replica holds
+    one program per bucket, captured here after one eager forward of the
+    bucket (cuDNN's choice, the kernel libraries, Swin's constant cache),
+    its buckets sharing one memory pool. A request's NHWC batch is uploaded
+    and copied, cast and made NCHW into the program's static input, outside
+    the graph, on the replica's stream; the answers are downloaded before
+    that replica's next replay (one batcher thread calls :meth:`predict`).
+    ``input_shape`` is the model's (C, H, W). :meth:`load_weights` swaps
+    the weights in place: the graphs read the new ones without a capture."""
 
     def __init__(self, model: torch.nn.Module, devices: Sequence[torch.device],
-                 compute_dtype: str, buckets: Sequence[int]) -> None:
+                 compute_dtype: str, buckets: Sequence[int], input_shape: Sequence[int],
+                 cuda_graphs: bool = True) -> None:
         for d in devices:
             set_float32_policy(d, compute_dtype)
         self.devices = list(devices)
@@ -156,6 +171,36 @@ class _TorchBackend:
         self.replicas = [self.model, *copies]
         self.streams = replica_streams(self.devices)
         self.buckets = sorted(int(b) for b in buckets)
+        self.graphed = cuda_graphs and graphs.enabled(self.device)
+        self._graphs: Dict[tuple, graphs.Program] = {}
+        if self.graphed:
+            self._capture(tuple(input_shape))
+
+    def _capture(self, input_shape: tuple) -> None:
+        """One program per (replica, bucket): the replica's rows of the
+        bucket's batch, NCHW in the compute dtype, through its model."""
+        for i, (model, device, stream) in enumerate(zip(self.replicas, self.devices,
+                                                        self.streams)):
+            pool, side = graphs.new_pool(), torch.cuda.Stream(device)
+            for bucket in self.buckets:
+                rows = shard_slice(bucket, len(self.replicas), i)
+                if rows.stop == rows.start:
+                    continue
+                x = torch.zeros((rows.stop - rows.start, *input_shape), dtype=self.dtype,
+                                device=device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side), torch.inference_mode():
+                    model(x)  # the eager warm-up
+                with stream_context(stream), torch.inference_mode():
+                    self._graphs[i, bucket] = graphs.Program(model, [x], device, stream=side,
+                                                             pool=pool)
+
+    def load_weights(self, state_dict) -> None:
+        """``state_dict`` copied into every replica's parameters and buffers
+        in place (cast to the compute dtype): the next answer is the new
+        weights', graphed or not."""
+        for model in self.replicas:
+            model.load_state_dict(state_dict, strict=True)
 
     def _forward(self, images: np.ndarray):
         n = images.shape[0]
@@ -171,6 +216,9 @@ class _TorchBackend:
                 # view already passes for contiguous, but its strides are
                 # channels-last ones, and the convolutions would carry them
                 # into their outputs
+                if self.graphed:  # copied and cast into the static input
+                    started.append((self._graphs[i, n].replay(x.permute(0, 3, 1, 2)), stream))
+                    continue
                 x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.contiguous_format)
                 started.append((model(x), stream))
         answers = []
@@ -218,11 +266,11 @@ class CheckpointBackend(_TorchBackend):
     (``fold_<n>/model_<ts>_fold_<n>``, ``.tar`` for segmentation; torch.save
     or flax-msgpack) loads through ``train/checkpoint.load_pretrained_model``;
     a ``weights.npz`` in the JAX serving-artifact layout loads those
-    weights."""
+    weights. ``cuda_graphs=False`` serves the card eagerly (to compare)."""
 
     def __init__(self, cfg, task: str, checkpoint: Optional[str] = None,
                  size: int = 128, max_batch: int = 64, device=None,
-                 data_parallel: bool = True, devices=None):
+                 data_parallel: bool = True, devices=None, cuda_graphs: bool = True):
         devices = replica_devices(device, data_parallel, devices)
         # the padded batch splits evenly over the replicas
         max_batch = -(-max_batch // len(devices)) * len(devices)
@@ -239,7 +287,8 @@ class CheckpointBackend(_TorchBackend):
                                       strict=True)
             else:
                 load_pretrained_model(TrainState(model=model, optimizer=None), checkpoint)
-        super().__init__(model, devices, cfg.training.compute_dtype, [max_batch])
+        super().__init__(model, devices, cfg.training.compute_dtype, [max_batch],
+                         (channels, size, size), cuda_graphs)
         self.info = {
             "task": task, "architecture": cfg.model.architecture,
             "n_classes": n_classes, "classes": list(cfg.data.classes),
@@ -266,7 +315,8 @@ class ArtifactBackend:
     ``weights.npz``, :func:`~..models.jax_weights.size_knobs_from_params`) and its
     raw outputs are postprocessed on the host: that equals its
     device-postprocessed answer, which the JAX tests prove equal to the raw
-    one; its ``.jaxexport`` programs are not used."""
+    one; its ``.jaxexport`` programs are not used. Either kind is graphed
+    on the card (:func:`..graphs.enabled`)."""
 
     def __init__(self, path: str, device=None, data_parallel: bool = True, devices=None):
         first = resolve_device(device if devices is None else devices[0])
@@ -287,7 +337,7 @@ class ArtifactBackend:
             model.load_state_dict(params_from_jax(params, model), strict=True)
             self._runner = _TorchBackend(model, [first],
                                          m.get("compute_dtype", "float32"),
-                                         m["buckets"])
+                                         m["buckets"], (m["channels"], m["size"], m["size"]))
             device_postprocess = False  # raw outputs, host postprocessing
         self.info = {k: m[k] for k in ("task", "architecture", "n_classes",
                                        "classes", "size", "channels", "buckets",

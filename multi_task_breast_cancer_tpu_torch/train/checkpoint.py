@@ -7,7 +7,12 @@ statistics), ``optimizer_state_dict``, ``val_loss``
 (``training_multitask.py:243-249`` of the reference), with two more keys, as
 the JAX package writes them: ``step`` and ``resume_state``, the host-side
 scheduler and early-stopping counters (:data:`EMPTY_RESUME_STATE`; ``valid``
-is 1.0 when they were saved). Tensors are stored on the CPU. A file is
+is 1.0 when they were saved). Tensors are stored on the CPU, and the
+optimizer's state as the plain optimizer holds it
+(``optim.host_state_dict``: the learning rate a float, ``capturable`` off),
+so the card's graph-safe optimizers write the bytes a plain one writes; a
+resume on the card makes it graph-safe again (``optim.device_hyperparameters``:
+the rate a device tensor, Adam's step on the device). A file is
 written to ``<path>.tmp`` and moved over ``<path>`` with ``os.replace``, so a
 kill mid-write never destroys the previous good file.
 
@@ -41,6 +46,7 @@ import torch
 
 from multi_task_breast_cancer_tpu_torch.models.jax_weights import params_from_jax
 from multi_task_breast_cancer_tpu_torch.train.flax_msgpack import msgpack_restore
+from multi_task_breast_cancer_tpu_torch.train.optim import device_hyperparameters, host_state_dict
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
 
 EMPTY_RESUME_STATE: Dict[str, float] = {
@@ -61,7 +67,7 @@ def snapshot(state: TrainState) -> StateSnapshot:
     """Device-to-device copies of the weights and the optimizer state: no
     host fetch."""
     return StateSnapshot({k: v.detach().clone() for k, v in state.model.state_dict().items()},
-                         copy.deepcopy(state.optimizer.state_dict()), int(state.step))
+                         copy.deepcopy(host_state_dict(state.optimizer)), int(state.step))
 
 
 def _to_cpu(obj):
@@ -82,7 +88,7 @@ def _to_cpu(obj):
 def save_checkpoint(path: str, state: Union[TrainState, StateSnapshot], epoch: int,
                     val_loss: float, resume_state: Optional[Dict[str, float]] = None) -> None:
     if isinstance(state, TrainState):
-        state = StateSnapshot(state.model.state_dict(), state.optimizer.state_dict(),
+        state = StateSnapshot(state.model.state_dict(), host_state_dict(state.optimizer),
                               int(state.step))
     rs = dict(EMPTY_RESUME_STATE)
     if resume_state is not None:
@@ -220,6 +226,7 @@ def restore_checkpoint(state: TrainState, ckpt_path: str
             payload["jax_optimizer_state"], state.model, state.optimizer))
     else:
         state.optimizer.load_state_dict(payload["optimizer_state_dict"])
+    device_hyperparameters(state.optimizer)
     state.step = int(payload["step"])
     resume = dict(EMPTY_RESUME_STATE)
     resume.update({k: float(v) for k, v in payload.get("resume_state", {}).items()})

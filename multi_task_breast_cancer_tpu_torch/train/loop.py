@@ -7,6 +7,26 @@ device (``device_data``), each step gathers its rows there, augments them
 the optimizer, and adds its loss, Dice and confusion matrix to sums that stay
 on the device. The sums are fetched once per epoch, as one transfer.
 
+On the card without a mesh (:func:`..graphs.enabled`, the one rule) the step
+is graphed, the counterpart of JAX's compiled scan body: the first real step
+runs eagerly on a side stream (it creates the optimizer's state, loads the
+kernel libraries, lets cuDNN choose its algorithms, fills Swin's constant
+cache), and from the next real step on the step body (:meth:`Engine._train_step`)
+is captured once as a CUDA graph on static buffers and replayed. Before each
+replay the step's rows and augmentation draws are copied into the static
+buffers (the same shapes at every step, so one capture serves a fold
+whatever its padding); the fold's data, the parameters, buffers and
+optimizer state are read where they live. The loss shares and Dice counts a
+replay writes are copied out after it, and the confusion matrix is a static
+buffer the step adds to in place. Dropout draws from a generator registered
+with the graph that takes the epoch generator's state for each replay, so a
+graphed run is the eager run bit for bit: the same losses, parameters,
+moments, buffers, masks and launch counts. The capture is kept while the
+model, the optimizer and its state tensors, and the fold's data tensors stay
+the same; a new fold (new optimizer) or new data captures anew, freeing the
+old program first. An Engine built with ``cuda_graphs=False`` runs eagerly
+on the card (to compare); validation and ``predict`` run eagerly.
+
 Cross-fold padding steps (``step_valid == 0``) are skipped on the host, so
 they leave the parameters, the buffers (batch statistics), the optimizer's
 moments and the step count untouched (the JAX scan selects the old state for
@@ -77,7 +97,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from multi_task_breast_cancer_tpu_torch.data.augment import joint_transform_stack_batch
+from multi_task_breast_cancer_tpu_torch import graphs
+from multi_task_breast_cancer_tpu_torch.data.augment import (
+    joint_transform_stack_batch,
+    rotation_cos_sin,
+)
 from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
 from multi_task_breast_cancer_tpu_torch.device import (
     COMPUTE_DTYPES,
@@ -178,11 +202,14 @@ def _on_whole_planes(criterion):
 class Engine:
     """Epoch training, validation and prediction for one model + task
     configuration on one device (``cuda`` unless ``device='cpu'``), or on
-    this rank's device of a data or ``(data × space)`` ``mesh``."""
+    this rank's device of a data or ``(data × space)`` ``mesh``.
+    :attr:`graphed` says whether its training steps replay a CUDA graph
+    (:func:`..graphs.enabled`; ``cuda_graphs=False`` runs the card eagerly,
+    to hold the two against each other)."""
 
     def __init__(self, model: nn.Module, cfg: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 mesh: Optional[DataMesh] = None):
+                 mesh: Optional[DataMesh] = None, cuda_graphs: bool = True):
         if mesh is not None and not isinstance(mesh, DataMesh):
             raise NotImplementedError(
                 f"Engine: {type(mesh).__name__} is not a data mesh or a (data × space) "
@@ -214,6 +241,10 @@ class Engine:
                               cfg.seg_criterion)))
         self._cls_crit = L.init_criterion_classification(
             cfg.n_classes, cfg.classes_weighted, cfg.cls_criterion, device=self.device)
+        self.graphed = cuda_graphs and graphs.enabled(self.device, mesh)
+        self._step_graph: Optional[_StepGraph] = None
+        self._warm_key = None  # the step graph's key after its eager warm-up step
+        self._side_stream = None  # the warm-up's and the capture's stream
 
     # ------------------------------------------------------------------
     # forward + loss
@@ -434,9 +465,11 @@ class Engine:
 
     def _epoch_draws(self, steps: int, generator: Optional[torch.Generator]):
         """Every step's augmentation draws for one epoch, drawn at once from
-        ``generator`` (on the CPU) and, for the fast path, folded into the
-        kernel's gather factors (``PipelineFactors`` with leading dims
-        (steps, B), 3·(S+2)+1 integers per sample) on the device."""
+        ``generator`` (on the CPU) and put on the device: for the exact path
+        the flips and each angle's (cos, sin) (``flips_angles``, leading dims
+        (steps, B)); for the fast path folded into the kernel's gather
+        factors (``PipelineFactors`` with leading dims (steps, B),
+        3·(S+2)+1 integers per sample)."""
         cfg = self.cfg
         if not cfg.use_transforms:
             return None
@@ -448,7 +481,10 @@ class Engine:
             generator, (steps, b), p_hflip=cfg.p_hflip, p_vflip=cfg.p_vflip,
             max_angle=cfg.max_angle)
         if not cfg.fast_augmentation:
-            return {"flips_angles": (fh, fv, angle)}
+            # the angles' cosines and sines taken here on the host (the CPU's
+            # bits on every device), all of it moved to the device at once
+            return {"flips_angles": tuple(t.to(self.device) for t in
+                                          (fh, fv, rotation_cos_sin(angle)))}
         fmt, _ = self._aug_fmt
         factors = FA.pipeline_factors_from_draws(
             fh.reshape(-1), fv.reshape(-1), angle.reshape(-1), fmt.canvas, self.device)
@@ -502,9 +538,9 @@ class Engine:
         draws = self._epoch_draws(steps, generator)
 
         n_cm = max(cfg.n_classes, 2)
-        zero = torch.zeros((), device=self.device)
-        sums = {"loss": zero, "seg_loss": zero, "cls_loss": zero, "dice": zero,
-                "cm": torch.zeros((n_cm, n_cm), device=self.device)}
+        graph = self._kept_step_graph(state, data) if self.graphed else None
+        cm = (graph.cm.zero_() if graph is not None
+              else torch.zeros((n_cm, n_cm), device=self.device))
         mesh = self.mesh
         shard = mesh.shard(b) if mesh is not None else slice(0, b)
         n_local = shard.stop - shard.start
@@ -517,26 +553,148 @@ class Engine:
                 if valid[k] <= 0:
                     continue  # cross-fold padding: a no-op, not a zero-gradient step
                 rows = rows_all[k, shard]
-                ctgt = data["cls_targets"].index_select(0, rows)
-                lint = data["labels_int"].index_select(0, rows)
-                imgs, msks = self._space_rows(
-                    *self._augmented_batch(data, rows, draws, k, shard))
-                opt.zero_grad(set_to_none=True)
-                out = self._apply(model, imgs)
-                loss, aux = self._loss_shares(out, msks, ctgt, n_local, b)
-                loss.backward()
-                if mesh is not None:
-                    self._all_reduce_gradients(model)
-                opt.step()
+                if self.graphed:
+                    share, count = self._graphed_step(state, data, rows, draws, k, cm,
+                                                      dropout_generator)
+                else:
+                    opt.zero_grad(set_to_none=True)
+                    share, count = self._train_step(model, opt, data, rows, draws, k, shard,
+                                                    cm, n_local)
                 state.step += 1
-                sm = self._step_metrics(aux, msks, lint, sums["cm"])
-                sums["cm"] = sm.get("cm", sums["cm"])
-                shares.append(torch.stack([loss.detach(), aux.get("seg_loss", zero).detach(),
-                                           aux.get("cls_loss", zero).detach()]))
-                if "dice_counts" in sm:
-                    counts.append(sm["dice_counts"])
+                shares.append(share)
+                if count is not None:
+                    counts.append(count)
+        zero = torch.zeros((), device=self.device)
+        sums = {"loss": zero, "seg_loss": zero, "cls_loss": zero, "dice": zero, "cm": cm}
         return self._epoch_metrics(self._epoch_sums(sums, shares, counts),
                                    max(float(valid.sum()), 1.0))
+
+    def _train_step(self, model: nn.Module, opt: torch.optim.Optimizer,
+                    data: Dict[str, Any], rows: torch.Tensor, draws, k: int, shard: slice,
+                    cm: torch.Tensor, n_local: int):
+        """One training step on this rank's ``rows`` of the fold with step
+        ``k``'s ``shard`` of ``draws``, its gradients cleared before: the
+        forward, the backward (the gradient all-reduce under a mesh), the
+        optimizer's step, and the batch added to the confusion matrix ``cm``
+        in place. Returns the (loss, seg, cls) shares, (3,), and the Dice
+        counts (``None`` without a segmentation head). The eager loop runs
+        it, and the capture of the step graph runs it on static buffers."""
+        ctgt = data["cls_targets"].index_select(0, rows)
+        lint = data["labels_int"].index_select(0, rows)
+        imgs, msks = self._space_rows(*self._augmented_batch(data, rows, draws, k, shard))
+        out = self._apply(model, imgs)
+        loss, aux = self._loss_shares(out, msks, ctgt, n_local, self.cfg.batch_size)
+        loss.backward()
+        if self.mesh is not None:
+            self._all_reduce_gradients(model)
+        opt.step()
+        sm = self._step_metrics(aux, msks, lint, cm)
+        if "cm" in sm:
+            cm.copy_(sm["cm"])
+        zero = torch.zeros((), device=self.device)
+        share = torch.stack([loss.detach(), aux.get("seg_loss", zero).detach(),
+                             aux.get("cls_loss", zero).detach()])
+        return share, sm.get("dice_counts")
+
+    # ------------------------------------------------------------------
+    # the captured step (graphs.enabled: the card without a mesh)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _step_draw_tensors(draws, k: int) -> list:
+        """Step ``k``'s draws, each (1, B, ...): the static buffers' sources."""
+        if draws is None:
+            return []
+        (parts,) = draws.values()
+        return [t[k:k + 1] for t in parts]
+
+    @staticmethod
+    def _draws_of(draws, tensors: list):
+        """``draws``' structure over ``tensors`` (one step's static buffers)."""
+        if draws is None:
+            return None
+        ((name, parts),) = draws.items()
+        return {name: parts._make(tensors) if hasattr(parts, "_make") else tuple(tensors)}
+
+    def _graph_key(self, state: TrainState, data: Dict[str, Any]):
+        """What a captured step reads where it lives: the model's parameters
+        and buffers, the optimizer, its state tensors and rates, and the
+        fold's data tensors, by identity and address; and the Engine's
+        configuration. Returns (key, the tensors, which the key's holder
+        keeps alive so that no identity is reused)."""
+        model, opt = state.model, state.optimizer
+        held = [*model.parameters(), *model.buffers()]
+        for group in opt.param_groups:
+            held += [group["lr"]] if torch.is_tensor(group["lr"]) else []
+            for p in group["params"]:
+                held += [v for _, v in sorted(opt.state.get(p, {}).items()) if torch.is_tensor(v)]
+        held += [v for _, v in sorted(data.items()) if torch.is_tensor(v)]
+        key = (id(opt), dataclasses.astuple(self.cfg),
+               tuple((id(t), t.data_ptr()) for t in held))
+        return key, [opt, *held]
+
+    def _kept_step_graph(self, state: TrainState, data: Dict[str, Any]):
+        """The captured step, if it still reads this state and data; else
+        the old one is released (its memory pool with it) and ``None``."""
+        graph = self._step_graph
+        if graph is not None and graph.key != self._graph_key(state, data)[0]:
+            graph.program.close()
+            self._step_graph = graph = self._warm_key = None
+        return graph
+
+    def _capture_stream(self) -> torch.cuda.Stream:
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
+
+    def _graphed_step(self, state: TrainState, data: Dict[str, Any], rows: torch.Tensor,
+                      draws, k: int, cm: torch.Tensor,
+                      dropout_generator: Optional[torch.Generator]):
+        """One real step on the card without a mesh: the replay of the
+        captured step, its outputs copied out. With no capture yet, the step
+        runs eagerly on the capture's side stream (the warm-up: a real step,
+        never an extra one) and the next real step with the same key
+        captures and replays."""
+        model, opt = state.model, state.optimizer
+        b = self.cfg.batch_size
+        if self._step_graph is None:
+            key, held = self._graph_key(state, data)
+            if self._warm_key is None or key != self._warm_key[0]:
+                side, main = self._capture_stream(), torch.cuda.current_stream(self.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    opt.zero_grad(set_to_none=True)
+                    out = self._train_step(model, opt, data, rows, draws, k, slice(0, b), cm, b)
+                main.wait_stream(side)
+                self._warm_key = self._graph_key(state, data)
+                return out
+            self._step_graph = self._capture_step(state, data, rows, draws, k, cm, key, held)
+            self._warm_key = None
+        graph = self._step_graph
+        share, count = graph.program.replay(
+            rows, *self._step_draw_tensors(draws, k),
+            generator=dropout_generator if graph.program.generator is not None else None)
+        return share.clone(), (count.clone() if count is not None else None)
+
+    def _capture_step(self, state: TrainState, data: Dict[str, Any], rows: torch.Tensor,
+                      draws, k: int, cm: torch.Tensor, key, held) -> "_StepGraph":
+        """Capture :meth:`_train_step` on static copies of step ``k``'s rows
+        and draws, the confusion matrix ``cm`` and, for a model with dropout,
+        a generator of its own (:class:`..graphs.Program`)."""
+        model, opt = state.model, state.optimizer
+        b = self.cfg.batch_size
+        drop = torch.Generator(device=self.device) if has_dropout(model) else None
+
+        def step(rows, *draw_tensors):
+            with dropout_draws(model, drop):
+                return self._train_step(model, opt, data, rows, self._draws_of(draws, draw_tensors),
+                                        0, slice(0, b), cm, b)
+
+        opt.zero_grad(set_to_none=True)  # the backward in the capture makes the .grad tensors
+        inputs = [rows.clone(), *(t.clone() for t in self._step_draw_tensors(draws, k))]
+        program = graphs.Program(step, inputs, self.device, stream=self._capture_stream(),
+                                 generator=drop)
+        return _StepGraph(program, key, held, cm)
 
     def _reduced(self, t: torch.Tensor, over_space: bool = True) -> torch.Tensor:
         """``t`` summed over every rank of the mesh, or (``over_space``
@@ -721,3 +879,13 @@ class Engine:
             data["aug_packed"] = planes.to(self.device)
         return data
 
+
+@dataclasses.dataclass
+class _StepGraph:
+    """The Engine's captured step: the program, the key it was captured
+    under (with the tensors the key names, kept alive) and its static
+    confusion matrix, zeroed at each epoch's start."""
+    program: graphs.Program
+    key: tuple
+    held: list
+    cm: torch.Tensor

@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
              "data.ssim", "models.torch_import", "train.flax_msgpack", "serve.export",
              "models.bts_unet", "models.fsb_bts_unet", "models.unetpp",
              "models.residual_unet", "models.monai_zoo", "models.swin_unetr",
-             "parallel", "parallel.mesh", "parallel.multihost", "parallel.spatial"}
+             "parallel", "parallel.mesh", "parallel.multihost", "parallel.spatial",
+             "graphs", "ops.launches"}
     assert {f"multi_task_breast_cancer_tpu_torch.{m}" for m in tools} <= names
 
 
