@@ -110,9 +110,20 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    equal to one process's sum of the shards' shares and their f64 sum equal
    to the global batch's f64 gradient; ResidualUNet the same way (running
    statistics after the first step within 1e-5 of their scale, dropout
-   masks the single-process rows bit for bit); batch 2 over three ranks with
-   one empty shard (no launch on it); NCCL over two cards when two are
-   visible (else a line says why not); ``CheckpointBackend`` with two
+   masks the single-process rows bit for bit; eager by the rule: its
+   ``BatchNorm`` all-reduces in the forward); MTnnUNet graphed
+   on each rank (two programs around the eager gradient all-reduce) against
+   the eager ranks from one seeded state, in f32 and bf16, bit for bit:
+   losses, each step's all-reduced gradient and Adam's state, parameters
+   and buffers, launches, augmented rows (the f32 graphed ranks also held
+   to one process as above); rank 0's graphed epoch in profiled windows
+   (#1/#2/#3 25/25/1 per replayed step); each rank's step without its
+   all-reduce, graphed against eager in turns, and the all-reduce alone;
+   batch 2 over three ranks with one empty shard, 3 steps, eager and
+   graphed (no launch on it; graphed == eager bit for bit); NCCL over two
+   cards when two are visible (else a line says why not); a one-rank NCCL
+   ``DataMesh`` in this process: MTnnUNet batch 2, graphed == eager ==
+   the graphed Engine without a mesh, bit for bit; ``CheckpointBackend`` with two
    replicas on the card (``max_batch`` rounded up, exactly one replica's
    answer, 25 launches per replica) and ``ExportedModel`` over 7b's f32
    artifact with two replicas (one replica's answer to 1e-4 of scale, its
@@ -2276,14 +2287,14 @@ def _graph_model(arch: str, init=None):
 
 
 def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epochs,
-               lr_change: bool = True, capture: dict = None, **overrides) -> dict:
+               lr_change: bool = True, capture: dict = None, mesh=None, **overrides) -> dict:
     """One Engine (graphed, or eager with ``cuda_graphs=False``) from
     ``init`` through ``epochs`` (each a tuple of step-valid flags) on ``ds``,
     the Adam of ``Config()``, the fast augmentation and dropout draws from
     seeded generators; the state after each epoch, the metrics, the
     launches and where the dropout generator ended. ``capture`` collects
-    the capture's seconds and memory; ``overrides`` go to the
-    ``EngineConfig``."""
+    the capture's seconds and memory; ``mesh`` goes to the Engine,
+    ``overrides`` to the ``EngineConfig``."""
     import numpy as np
     import torch
     from multi_task_breast_cancer_tpu_torch.config import Config
@@ -2296,7 +2307,7 @@ def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epo
     task = "multitask" if arch == "MTnnUNet" else "segmentation"
     engine = Engine(_graph_model(arch, init),
                     _engine_config(cfg, task=task, batch_size=b, **overrides),
-                    device=DEVICE, cuda_graphs=graphed)
+                    device=DEVICE, mesh=mesh, cuda_graphs=graphed)
     check(engine.graphed is graphed, f"{arch}: Engine.graphed is {engine.graphed}")
     state = create_train_state(engine.model, cfg.optimizer.opt, cfg.optimizer.lr)
     data = engine.device_data(ds)
@@ -2312,7 +2323,7 @@ def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epo
             torch.cuda.synchronize()
             capture.update(s=time.perf_counter() - t0,
                            mib=(torch.cuda.memory_allocated() - alloc) / 2 ** 20,
-                           pool_mib=_graph_pool_mib(out.program.graph.pool()))
+                           pool_mib=_graph_pool_mib(out.programs[0].graph.pool()))
             return out
         engine._capture_step = timed
     drop = torch.Generator(device=DEVICE).manual_seed(1)
@@ -2397,7 +2408,8 @@ def _busy_share(what: str, run: dict, b: int, attempts: int = 3) -> dict:
     steps = n // b
     want = None
     if engine.graphed:
-        per_replay = engine._step_graph.program.launches
+        (program,) = engine._step_graph.programs
+        per_replay = program.launches
         entries = (hk.instance_norm_leaky_relu, hk.instance_norm_leaky_relu_backward,
                    FA.fast_augment)
         check(set(per_replay) <= set(entries),
@@ -2419,7 +2431,9 @@ def _busy_share(what: str, run: dict, b: int, attempts: int = 3) -> dict:
         counted = tuple(counted)
         if t["events"] is None:
             log(f"  {what} profile, attempt {attempt + 1}: {t['marks']} of the 2 markers in "
-                f"the trace")
+                f"the trace of {t['n_events']} device activities, #1/#2/#3 before each "
+                f"{t['before_marks']} (the lead-in's and the window's epoch each launch "
+                f"{counted or 'what the counters add'})")
             continue
         seen = port_kernel_launches(t["events"])
         if seen == counted and (want is None or counted == want):
@@ -2752,9 +2766,11 @@ def phase_driver() -> tuple:
             f"augmentation {cfg.training.fast_augmentation}, {cfg.optimizer.scheduler}); "
             f"cuts: CV 4 -> {DRIVER_CV}, epochs 200 -> {DRIVER_EPOCHS}")
 
-        # the test phase's forward, and the run's bookkeeping, timed apart
+        # the test phase's forward, the eager validation inside the Engine's
+        # epochs, and the run's bookkeeping, timed apart (the card
+        # synchronised around each forward, so its device time counts there)
         spans = Counter()
-        predict, bookkeeping = LP.Engine.predict, {}
+        predict, evaluate, bookkeeping = LP.Engine.predict, LP.Engine._eval_metrics, {}
 
         def timed_predict(self, state, images, *args, **kwargs):
             torch.cuda.synchronize()
@@ -2763,6 +2779,15 @@ def phase_driver() -> tuple:
             torch.cuda.synchronize()
             spans["forward_s"] += time.perf_counter() - t
             spans["forward_images"] += len(images)
+            return out
+
+        def timed_validation(self, state, data):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = evaluate(self, state, data)
+            torch.cuda.synchronize()
+            spans["validation_s"] += time.perf_counter() - t
+            spans["validations"] += 1
             return out
 
         def timed(name):
@@ -2778,7 +2803,7 @@ def phase_driver() -> tuple:
             setattr(D, name, wrapper)
 
         timer = StepTimer()
-        LP.Engine.predict = timed_predict
+        LP.Engine.predict, LP.Engine._eval_metrics = timed_predict, timed_validation
         for name in ("write_metrics_file", "_log_epoch", "save_segmentation_results",
                      "save_classification_results", "_fold_plots"):
             timed(name)
@@ -2792,7 +2817,7 @@ def phase_driver() -> tuple:
             run_s = time.perf_counter() - t0
             launches = fwd, bwd, aug = _counts()
         finally:
-            LP.Engine.predict = predict
+            LP.Engine.predict, LP.Engine._eval_metrics = predict, evaluate
             for name, fn in bookkeeping.items():
                 setattr(D, name, fn)
 
@@ -2821,6 +2846,18 @@ def phase_driver() -> tuple:
             f"{test_s * 1e3 / test_images:.3f} ms per image: forward "
             f"{spans['forward_s'] * 1e3 / test_images:.3f} ms, host metrics, PNGs and CSVs "
             f"{host_s * 1e3 / test_images:.3f} ms per image")
+        epochs = DRIVER_CV * DRIVER_EPOCHS
+        check(spans["validations"] == epochs, f"{spans['validations']} validation passes in "
+                                              f"{epochs} epochs")
+        val_s = spans["validation_s"] / epochs
+        log(f"  eager forwards beside the graphed step ({_card()}): validation (one forward "
+            f"of a fold's {min(v for _, v, _ in sizes)}-{max(v for _, v, _ in sizes)} "
+            f"validation images) {val_s:.3f} s an epoch = "
+            f"{100 * val_s / t['engine']:.1f} % of the Engine's {t['engine']:.3f} s and "
+            f"{100 * val_s / t['epoch']:.1f} % of the epoch's {t['epoch']:.3f} s; the test "
+            f"phase's forward {spans['forward_s'] / DRIVER_CV:.3f} s a fold = "
+            f"{100 * spans['forward_s'] / timer.totals['fold']:.1f} % of a fold's "
+            f"{t['fold']:.2f} s (the test phase {100 * test_s / timer.totals['fold']:.1f} %)")
         log(f"  execution.log, metrics.csv, plots and result sheets: "
             f"{spans['bookkeeping_s']:.3f} s in all")
         rows = {n: _metric_rows(run, n)[1:] for n in range(DRIVER_CV)}
@@ -4142,6 +4179,7 @@ def phase_seg_zoo() -> tuple:
 # --------------------------------------------------------------------------
 
 PARALLEL_B, PARALLEL_STEPS = 4, 4           # batch 4 (2 rows a rank), 4 real steps
+EMPTY_STEPS = 3                             # batch 2 over 3 ranks: a warm-up, 2 replays
 PARALLEL_TREE_PER_CLASS = 8                 # the 1-rank NCCL CLI run: 24 images, CV 2, 1 epoch
 MTNNUNET_PARAMETERS = 15_819_799            # a step's gradient all-reduce: 63.3 MB of f32
 STATS_REL_TOL = 1e-5                        # running statistics, of their scale (as tests/test_torch_seg_zoo.py)
@@ -4197,13 +4235,19 @@ def _parallel_model(arch: str, mesh):
 
 
 def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_STEPS,
-                  fast: bool = True) -> dict:
+                  fast: bool = True, graphed: bool = False, dtype: str = "float32",
+                  live: dict = None) -> dict:
     """``steps`` real steps of batch ``b`` and a padding step through the
-    Engine at the ``Config()`` defaults, one process (``mesh=None``, on
-    ``DEVICE``) or this rank of ``mesh``: per step the loss, the kernels'
-    launches and the host-clock ms; the augmented rows; the first step's
-    gradient (after the all-reduce); dropout masks (bit-packed rows); the
-    state's digest and running statistics."""
+    Engine at the ``Config()`` defaults in ``dtype``, one process
+    (``mesh=None``, on ``DEVICE``) or this rank of ``mesh``, eager
+    (``cuda_graphs=False``) or, with ``graphed``, as the rule decides: per
+    step the loss, the kernels' launches, the host-clock ms, and digests of
+    the all-reduced gradient and of Adam's state; the augmented rows (copied
+    by the step into buffers of their own, a copy a capture records too);
+    the first step's gradient (after the all-reduce); dropout masks
+    (bit-packed rows, eager only: a forward hook); the state's digest and
+    running statistics; whether the Engine was graphed. ``live`` receives
+    the Engine, its state, data and dropout generator."""
     import numpy as np
     import torch
     from multi_task_breast_cancer_tpu_torch.config import Config
@@ -4216,23 +4260,25 @@ def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_ST
     torch.backends.cudnn.deterministic = True  # as phase 7 compares runs; reset at the end
     cfg = Config()
     cfg.data.batch_size = b
+    cfg.training.compute_dtype = dtype
     task = "multitask" if arch == "MTnnUNet" else "segmentation"
-    # one process runs eagerly, as the ranks do under their mesh: its hooks
-    # record every step's rows, masks and gradient, which a replay would not run
     engine = Engine(_parallel_model(arch, mesh),
                     _engine_config(cfg, task=task, fast_augmentation=fast),
-                    device=device, mesh=mesh, cuda_graphs=False)
+                    device=device, mesh=mesh, cuda_graphs=graphed)
     state = replicate_to_mesh(mesh, create_train_state(engine.model, cfg.optimizer.opt,
                                                        cfg.optimizer.lr))
     n = b * steps
     fold = synthetic_fold(n, 40)
     train = engine.device_data(fold)
-    rows, masks, grads = [], [], {}
+    rows, masks, grads, buffers = [], [], {}, []
     augmented = engine._augmented_batch
 
     def record_rows(*args, **kwargs):
         imgs, msks = augmented(*args, **kwargs)
-        rows.append((imgs.cpu(), msks.cpu()))
+        if not buffers:  # the first real step runs eagerly, graphed or not
+            buffers.extend([torch.empty_like(imgs), torch.empty_like(msks)])
+        buffers[0].copy_(imgs)
+        buffers[1].copy_(msks)
         return imgs, msks
 
     engine._augmented_batch = record_rows
@@ -4252,7 +4298,8 @@ def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_ST
     perm = plan_epoch_indices(n, b, np.random.default_rng(0))
     gen = torch.Generator().manual_seed(0)
     drop = torch.Generator(device=device).manual_seed(1)
-    losses, launches, step_ms, stats = [], [], [], []
+    losses, launches, step_ms, stats, grad_digests, moment_digests = [], [], [], [], [], []
+    params = dict(engine.model.named_parameters())
     for k in range(steps):
         _sync(device)
         _reset_counts()
@@ -4264,12 +4311,19 @@ def _parallel_run(arch: str, mesh, b: int = PARALLEL_B, steps: int = PARALLEL_ST
         launches.append(_counts())
         losses.append(tm["loss"])
         stats.append({k: v.detach().cpu().clone() for k, v in engine.model.named_buffers()})
+        rows.append(tuple(t.cpu().clone() for t in buffers))
+        grad_digests.append(_digest({k: p.grad for k, p in params.items() if p.grad is not None}))
+        moment_digests.append(_digest({f"{k}.{name}": v for k, p in params.items()
+                                       for name, v in state.optimizer.state[p].items()}))
     before = _snapshot(state)
     _reset_counts()
     engine.train_epoch(state, train, perm[:b], gen, np.zeros(1, np.float32), drop)
     _sync(device)
     torch.backends.cudnn.deterministic = False
-    return {"losses": losses, "launches": launches, "step_ms": step_ms,
+    if live is not None:
+        live.update(engine=engine, state=state, data=train, drop=drop)
+    return {"losses": losses, "launches": launches, "step_ms": step_ms, "graphed": engine.graphed,
+            "grad_digests": grad_digests, "moment_digests": moment_digests,
             "pad": _counts(), "pad_noop": _same_state(before, _snapshot(state)),
             "rows": rows, "grads": grads if mesh is None or mesh.rank == 0 else None,
             "masks": [np.packbits(m.numpy()) for m in masks],
@@ -4294,6 +4348,101 @@ def _allreduce_ms(mesh, reps: int = 5) -> float:
     check(bool((flat == float(mesh.world_size) ** (reps + 2)).all()),
           f"the all-reduce over {mesh.world_size} ranks summed wrong")
     return statistics.median(times[2:])
+
+
+def _mesh_step_ms(mesh, runs: dict, b: int) -> dict:
+    """Host-clock ms per step of the graphed and the eager Engine (``runs``:
+    ``_parallel_run``'s ``live`` of each, by ``graphed``) on this rank, in
+    turns (graphed, eager, eager, graphed; medians), each an epoch over every
+    row of the fold, cuDNN deterministic (the algorithms the capture
+    recorded); every gradient all-reduce timed alone between
+    synchronisations and taken out: each rank's step without its all-reduce
+    (``graphed``, ``eager``: the replays of the two parts against the eager
+    forward, backward and step, the card's time included) and the median
+    all-reduce (``allreduce``). All ranks run it in step."""
+    import numpy as np
+    import torch
+    spans, all_reduce = [], mesh.all_reduce_sum
+
+    def timed(t):
+        if t.numel() < MTNNUNET_PARAMETERS:  # the epoch's sums
+            return all_reduce(t)
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        all_reduce(t)
+        _sync(mesh.device)
+        spans.append((time.perf_counter() - t0) * 1e3)
+        return t
+
+    object.__setattr__(mesh, "all_reduce_sum", timed)  # a frozen dataclass
+    torch.backends.cudnn.deterministic = True
+    times = {True: [], False: [], "allreduce": []}
+    try:
+        for graphed in (True, False, False, True):
+            r = runs[graphed]
+            n = r["data"]["images"].shape[0]
+            spans.clear()
+            _sync(mesh.device)
+            t0 = time.perf_counter()
+            r["engine"].train_epoch(r["state"], r["data"], np.random.default_rng(9).permutation(n),
+                                    torch.Generator().manual_seed(9), None, r["drop"])
+            _sync(mesh.device)
+            total = (time.perf_counter() - t0) * 1e3
+            check(len(spans) == n // b, f"{len(spans)} gradient all-reduces in {n // b} steps")
+            times[graphed].append((total - sum(spans)) / (n // b))
+            times["allreduce"].extend(spans)
+    finally:
+        object.__delattr__(mesh, "all_reduce_sum")
+        torch.backends.cudnn.deterministic = False
+    return {"graphed": statistics.median(times[True]), "eager": statistics.median(times[False]),
+            "allreduce": statistics.median(times["allreduce"])}
+
+
+def _mesh_trace(mesh, run: dict, b: int, attempts: int = 2) -> dict:
+    """The graphed Engine's epoch over the fold in profiled windows
+    (:func:`trace_window`, an epoch's lead-in) on rank 0, the same epochs
+    unprofiled on the others (every rank runs ``attempts`` windows, so the
+    collectives stay in step): per window #1/#2/#3 in the trace, the
+    launches the counters added and the programs' launches times the steps,
+    the busy share and per-step ms. Rank 0's windows only."""
+    import numpy as np
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
+    from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    engine = run["engine"]
+    n = run["data"]["images"].shape[0]
+    steps = n // b
+    per_replay = Counter()
+    for program in engine._step_graph.programs:
+        per_replay.update(program.launches)
+    want = tuple(steps * per_replay[f] for f in (hk.instance_norm_leaky_relu,
+                                                 hk.instance_norm_leaky_relu_backward,
+                                                 FA.fast_augment))
+
+    def epoch(seed):
+        engine.train_epoch(run["state"], run["data"], np.arange(n),
+                           torch.Generator().manual_seed(seed), None, run["drop"])
+
+    windows = []
+    for attempt in range(attempts):
+        counted = []
+
+        def measured():
+            before = _counts()
+            epoch(20 + attempt)
+            counted.extend(x - y for x, y in zip(_counts(), before))
+
+        if mesh.rank:
+            epoch(10 + attempt)
+            measured()
+            continue
+        t = trace_window(measured, lead_in=lambda: epoch(10 + attempt))
+        seen = None if t["events"] is None else port_kernel_launches(t["events"])
+        windows.append({"seen": seen, "counted": tuple(counted), "want": want, "steps": steps,
+                        "busy": None if seen is None else t["busy_ms"] / t["host_ms"],
+                        "device_ms": None if seen is None else t["busy_ms"] / steps,
+                        "host_ms": t["host_ms"] / steps})
+    return {"windows": windows}
 
 
 def parallel_rank() -> None:
@@ -4322,13 +4471,25 @@ def parallel_rank() -> None:
     elif case.startswith("spatial_peak"):  # one process, no mesh
         result = _spatial_peak(None, cap=case.endswith("capped"))
     elif case == "steps":
-        result = {arch: _parallel_run(arch, mesh) for arch in ("MTnnUNet", "ResidualUNet")}
+        # MTnnUNet eager and graphed (f32 and bf16) from one seeded state;
+        # ResidualUNet asks to be graphed and runs eagerly by the rule
+        live = {True: {}, False: {}}
+        result = {"MTnnUNet": _parallel_run("MTnnUNet", mesh, live=live[False]),
+                  "MTnnUNet graphed": _parallel_run("MTnnUNet", mesh, graphed=True,
+                                                    live=live[True]),
+                  "MTnnUNet bf16": _parallel_run("MTnnUNet", mesh, dtype="bfloat16"),
+                  "MTnnUNet bf16 graphed": _parallel_run("MTnnUNet", mesh, graphed=True,
+                                                         dtype="bfloat16"),
+                  "ResidualUNet": _parallel_run("ResidualUNet", mesh, graphed=True)}
         result["allreduce_ms"] = _allreduce_ms(mesh)
+        result["step_ms"] = _mesh_step_ms(mesh, live, PARALLEL_B)
+        result["trace"] = _mesh_trace(mesh, live[True], PARALLEL_B)
     elif case == "steps_mtnnunet":
         result = {"MTnnUNet": _parallel_run("MTnnUNet", mesh),
                   "allreduce_ms": _allreduce_ms(mesh)}
-    else:  # "empty": batch 2 over 3 ranks, one step
-        result = {"MTnnUNet": _parallel_run("MTnnUNet", mesh, b=2, steps=1, fast=False)}
+    else:  # "empty": batch 2 over 3 ranks, eager and graphed
+        result = {f"MTnnUNet{' graphed' * g}": _parallel_run(
+            "MTnnUNet", mesh, b=2, steps=EMPTY_STEPS, fast=False, graphed=g) for g in (False, True)}
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -4705,12 +4866,20 @@ def parallel_serving(artifact: str) -> int:
     return served
 
 
-def _nccl_one_rank_allreduce() -> tuple:
+def _nccl_one_rank(card: str) -> tuple:
     """A process group of one rank over NCCL in this process: the all-reduce
     of a step's gradient is the identity; its device ms (CUDA events) and
-    host ms, medians of 10."""
+    host ms, medians of 10. Then the graphed step around a real NCCL
+    all-reduce: a one-rank ``DataMesh`` (built directly: ``data_mesh(1)``
+    is ``None``), MTnnUNet at full width, 8 batch-2 f32 steps (7 real, an lr
+    change), graphed == eager on that mesh == the graphed Engine without a
+    mesh, bit for bit (cuDNN deterministic); the graphed step's host ms
+    with and without the mesh in turns. Returns the two all-reduce times
+    and the Engines' launches (#1, #2, #3)."""
     import torch
     import torch.distributed as dist
+    from multi_task_breast_cancer_tpu_torch.device import resolve_device
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import DataMesh
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
     try:
@@ -4730,9 +4899,40 @@ def _nccl_one_rank_allreduce() -> tuple:
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
             dev.append(s.elapsed_time(e))
-        return statistics.median(dev[2:]), statistics.median(host[2:])
+        del x, y
+
+        mesh = DataMesh(1, 0, resolve_device(DEVICE))
+        init = {k: v.clone() for k, v in _graph_model("MTnnUNet").state_dict().items()}
+        ds = synthetic_fold(GRAPH_N[2], 32)
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {what: _graph_run("MTnnUNet", "float32", 2, g, init, ds, GRAPH_EPOCHS, mesh=m)
+                    for what, g, m in (("graphed", True, mesh), ("eager", False, mesh),
+                                       ("no mesh", True, None))}
+            check(len(runs["graphed"]["engine"]._step_graph.programs) == 2
+                  and len(runs["no mesh"]["engine"]._step_graph.programs) == 1,
+                  "one-rank NCCL mesh: not two programs under the mesh and one without")
+            real = sum(sum(v) for v in GRAPH_EPOCHS)
+            want = (25 * real, 25 * real, real)
+            _graph_vs_eager("one-rank NCCL mesh, graphed vs eager", runs["graphed"],
+                            runs["eager"], want)
+            _graph_vs_eager("one-rank NCCL mesh graphed vs graphed without a mesh",
+                            runs["graphed"], runs["no mesh"], want)
+            ms = _step_ms_in_turns({True: runs["graphed"], False: runs["no mesh"]}, 2)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        log(f"  one-rank NCCL DataMesh, MTnnUNet batch 2 f32, {real} real steps of "
+            f"{sum(map(len, GRAPH_EPOCHS))} (a padding step, an lr change): the graphed Engine "
+            f"replays its two parts around NCCL's all-reduce; == the eager Engine on the mesh "
+            f"== the graphed Engine without a mesh, bit for bit (metrics, parameters, buffers, "
+            f"Adam's state, launches {want}); host ms per step graphed on the mesh "
+            f"{ms[True]:.3f}, without it {ms[False]:.3f} (in turns) [{card}]")
+        launches = tuple(sum(r["counts"][i] for r in runs.values()) for i in range(3))
+        del runs
+        return statistics.median(dev[2:]), statistics.median(host[2:]), launches
     finally:
         dist.destroy_process_group()
+        torch.cuda.empty_cache()
 
 
 def _card() -> str:
@@ -4745,18 +4945,88 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
+def _graphed_ranks_are_eager(what: str, ranks: list, key: str) -> None:
+    """Every rank's graphed run (``key`` + " graphed") against its eager run
+    ``key`` from the same seeded state: the Engine graphed by the rule, and
+    bit for bit the losses, each step's all-reduced gradient and Adam's
+    state, the parameters and buffers, the launches (per step and of the
+    padding step) and the augmented rows."""
+    import torch
+    for r, res in enumerate(ranks):
+        g, e = res[f"{key} graphed"], res[key]
+        check(g["graphed"] and not e["graphed"],
+              f"{what}: rank {r}'s Engines graphed {g['graphed']} and {e['graphed']}")
+        same = {"losses": g["losses"] == e["losses"],
+                "all-reduced gradients": g["grad_digests"] == e["grad_digests"],
+                "Adam's state": g["moment_digests"] == e["moment_digests"],
+                "parameters and buffers": g["digest"] == e["digest"],
+                "launches": g["launches"] == e["launches"] and g["pad"] == e["pad"],
+                "augmented rows": len(g["rows"]) == len(e["rows"]) and all(
+                    torch.equal(a, b) for x, y in zip(g["rows"], e["rows"]) for a, b in zip(x, y))}
+        check(all(same.values()), f"{what}: rank {r} graphed differs from eager in "
+                                  f"{[k for k, ok in same.items() if not ok]}")
+
+
+def _bf16_ranks(what: str, ranks: list, key: str, b: int, world: int, per_step: tuple) -> list:
+    """bf16 ranks (no one-process rule for bf16 under a mesh): launches as
+    the shards predict, none and no move on the padding step, finite
+    losses, parameters and buffers bit-identical across the ranks. Returns
+    each rank's launches over the real steps."""
+    from multi_task_breast_cancer_tpu_torch.parallel.mesh import shard_slice
+    per_rank = []
+    for r, res in enumerate(ranks):
+        res = res[key]
+        sl = shard_slice(b, world, r)
+        want = per_step if sl.stop > sl.start else (0, 0, 0)
+        check(all(tuple(c) == want for c in res["launches"]) and res["pad"] == (0, 0, 0)
+              and res["pad_noop"] and all(math.isfinite(v) for v in res["losses"]),
+              f"{what}: rank {r} launched {res['launches']} (padding {res['pad']}), padding "
+              f"no-op {res['pad_noop']}, losses {res['losses']}")
+        per_rank.append(tuple(sum(c[i] for c in res["launches"]) for i in range(3)))
+    check(len({res[key]["digest"] for res in ranks}) == 1,
+          f"{what}: the ranks' parameters and buffers are not bit-identical")
+    return per_rank
+
+
+def _mesh_readings(ranks: list, card: str) -> dict:
+    """The two-rank timings and rank 0's profiled windows of the graphed
+    MTnnUNet step: #1/#2/#3 in one window's trace must be the launches the
+    counters added and the programs' launches per replay times the steps
+    (25/25/1 a step); logged with the busy share."""
+    windows = ranks[0]["trace"]["windows"]
+    held = [w for w in windows if w["seen"] is not None and w["seen"] == w["counted"] == w["want"]]
+    for k, w in enumerate(windows):
+        log(f"  graphed MTnnUNet rank 0, profiled window {k + 1}: #1/#2/#3 in the trace "
+            f"{w['seen']}, the counters added {w['counted']}, the programs' launches x "
+            f"{w['steps']} replays {w['want']}" + ("" if w["busy"] is None else
+            f"; per step the card busy {w['device_ms']:.3f} ms of {w['host_ms']:.3f} ms on the "
+            f"host clock ({100 * w['busy']:.1f} %, the all-reduce's host staging included)"))
+    check(bool(held), f"graphed ranks: no profiled window of {len(windows)} held the launches")
+    steps = [r["step_ms"] for r in ranks]
+    log(f"parallel graphs ({card}): MTnnUNet batch 4 over 2 Gloo ranks on one card, f32, host "
+        f"ms per step without its gradient all-reduce (medians, in turns; the card's time "
+        f"included): " + "; ".join(f"rank {r} graphed {t['graphed']:.3f}, eager {t['eager']:.3f} "
+                                   f"({t['eager'] / t['graphed']:.2f}x), the all-reduce alone "
+                                   f"{t['allreduce']:.3f}" for r, t in enumerate(steps)))
+    return {"step_ms": steps, "busy": held[0]["busy"], "trace_per_step": [
+        x / held[0]["steps"] for x in held[0]["seen"]]}
+
+
 def phase_parallel(artifact: str) -> tuple:
     """Data parallelism (9c): the NCCL one-rank CLI run against the run
     without a process group; two ranks on the card over Gloo (MTnnUNet at
-    full width, then ResidualUNet) against one process; batch 2 over three
-    ranks with one empty shard; NCCL over two cards when two are visible;
-    serving replicas; the gradient all-reduce's time. Returns the launches
-    of its main paths (the ranks' and this process's serving) and each
-    kernel's launches per rank."""
+    full width, eager and graphed in f32 and bf16, then ResidualUNet, eager
+    by the rule) against one process and graphed against eager; batch 2
+    over three ranks with one empty shard, eager and graphed; NCCL over two
+    cards when two are visible; serving replicas; the gradient all-reduce's
+    time; a one-rank NCCL mesh's graphed step. Returns the launches of its
+    main paths (the ranks', the NCCL mesh's and this process's serving),
+    each kernel's launches per rank and the graphed readings."""
     import tempfile
     import torch
 
     t0 = time.perf_counter()
+    card = _card()
     log("parallel: data parallelism over torch.distributed, ranks as processes of their own")
     work = tempfile.mkdtemp(prefix="mtbc_parallel_")
     try:
@@ -4769,16 +5039,37 @@ def phase_parallel(artifact: str) -> tuple:
             [r["MTnnUNet"] for r in ranks], single["MTnnUNet"], b, 2, (25, 25, 1))}
         _parallel_grad_check("MTnnUNet, 2 ranks", "MTnnUNet", single["MTnnUNet"],
                              ranks[0]["MTnnUNet"]["grads"], b, 2)
+        per_rank["MTnnUNet graphed, 2 ranks"] = _check_ranks(
+            "MTnnUNet graphed, batch 4 over 2 ranks (Gloo, one card)", "MTnnUNet",
+            [r["MTnnUNet graphed"] for r in ranks], single["MTnnUNet"], b, 2, (25, 25, 1))
+        _graphed_ranks_are_eager("MTnnUNet f32, 2 ranks", ranks, "MTnnUNet")
+        for key in ("MTnnUNet bf16", "MTnnUNet bf16 graphed"):
+            per_rank[f"{key}, 2 ranks"] = _bf16_ranks(key, ranks, key, b, 2, (25, 25, 1))
+        _graphed_ranks_are_eager("MTnnUNet bf16, 2 ranks", ranks, "MTnnUNet bf16")
+        log(f"  MTnnUNet graphed on each of 2 ranks (two programs around the eager all-reduce) "
+            f"== eager from one seeded state, f32 and bf16, bit for bit: losses, each step's "
+            f"all-reduced gradient and Adam's state, parameters and buffers, launches 25/25/1 "
+            f"a real step and none on the padding step, augmented rows; the graphed f32 ranks "
+            f"against one process by the rules above [{card}]")
+        check(not any(r["ResidualUNet"]["graphed"] for r in ranks),
+              "ResidualUNet under a data mesh: graphed, but its BatchNorm all-reduces in the "
+              "forward (the rule runs it eagerly)")
         per_rank["ResidualUNet, 2 ranks (Gloo, one card)"] = _check_ranks(
-            "ResidualUNet at width 24, batch 4 over 2 ranks (Gloo, one card)", "ResidualUNet",
+            "ResidualUNet at width 24, batch 4 over 2 ranks (Gloo, one card; eager by the "
+            "rule: BatchNorm)", "ResidualUNet",
             [r["ResidualUNet"] for r in ranks], single["ResidualUNet"], b, 2, (0, 0, 1))
         _check_stats_and_masks([r["ResidualUNet"] for r in ranks], single["ResidualUNet"], b, 2)
+        readings = _mesh_readings(ranks, card)
 
-        single_2 = _parallel_run("MTnnUNet", None, b=2, steps=1, fast=False)
+        single_2 = _parallel_run("MTnnUNet", None, b=2, steps=EMPTY_STEPS, fast=False)
         empty = _run_ranks("empty", 3, "gloo", [DEVICE] * 3, work)
-        per_rank["MTnnUNet, batch 2 over 3 ranks"] = _check_ranks(
-            "MTnnUNet, batch 2 over 3 ranks (rows 1, 1, 0; exact augmentation)", "MTnnUNet",
-            [r["MTnnUNet"] for r in empty], single_2, 2, 3, (25, 25, 0))
+        for g in ("", " graphed"):
+            per_rank[f"MTnnUNet{g}, batch 2 over 3 ranks"] = _check_ranks(
+                f"MTnnUNet{g}, batch 2 over 3 ranks (rows 1, 1, 0; exact augmentation)",
+                "MTnnUNet", [r[f"MTnnUNet{g}"] for r in empty], single_2, 2, 3, (25, 25, 0))
+        _graphed_ranks_are_eager("MTnnUNet, batch 2 over 3 ranks", empty, "MTnnUNet")
+        log(f"  batch 2 over 3 ranks: graphed == eager bit for bit on every rank, the empty "
+            f"rank replaying its two programs on zero rows with no launch [{card}]")
         _parallel_grad_check("batch 2 over 3 ranks", "MTnnUNet", single_2,
                              empty[0]["MTnnUNet"]["grads"], 2, 3)
 
@@ -4796,13 +5087,14 @@ def phase_parallel(artifact: str) -> tuple:
                 f"ranks over NCCL need two cards (NCCL refuses two ranks on one GPU)")
 
         served = parallel_serving(artifact)
-        nccl_dev_ms, nccl_host_ms = _nccl_one_rank_allreduce()
+        nccl_dev_ms, nccl_host_ms, nccl_launches = _nccl_one_rank(card)
+        per_rank["MTnnUNet on a one-rank NCCL mesh (graphed, eager, no mesh)"] = [nccl_launches]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     step_2 = statistics.median(ranks[0]["MTnnUNet"]["step_ms"])
     step_1 = statistics.median(single["MTnnUNet"]["step_ms"])
-    log(f"parallel ({_card()}): the gradient all-reduce of {MTNNUNET_PARAMETERS:,d} f32 (63.3 "
+    log(f"parallel ({card}): the gradient all-reduce of {MTNNUNET_PARAMETERS:,d} f32 (63.3 "
         f"MB): Gloo, 2 ranks on one card {ranks[0]['allreduce_ms']:.3f} ms (host clock); NCCL, "
         f"one rank {nccl_dev_ms:.4f} ms of device time, {nccl_host_ms:.3f} ms host clock. "
         f"MTnnUNet batch-4 step on the host clock, medians of {PARALLEL_STEPS}: 2 ranks "
@@ -4811,7 +5103,7 @@ def phase_parallel(artifact: str) -> tuple:
     totals = [sum(sum(r[i] for r in rows) for rows in per_rank.values()) for i in range(3)]
     totals[0] += served
     rows = {what: [list(r) for r in rows] for what, rows in per_rank.items()}
-    return tuple(totals), rows
+    return tuple(totals), rows, readings
 
 
 def phase_parallel_alone() -> None:
@@ -4834,7 +5126,8 @@ def phase_parallel_alone() -> None:
     try:
         artifact = export_inference(Config(), "multitask", None, os.path.join(work, "art"),
                                     buckets=(1, 8, 64), size=SIZE, platforms=("cuda",))
-        log(json.dumps({"launches": phase_parallel(str(artifact))}))
+        launches, rows, readings = phase_parallel(str(artifact))
+        log(json.dumps({"launches": launches, "per_rank": rows, "parallel_graphs": readings}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5467,7 +5760,9 @@ def main() -> int:
         e_fwd, e16_fwd = phase_export(ckpt, work)
         log(json.dumps({"graphs": phase_graphs({"f32": os.path.join(work, "artifact_f32"),
                                                  "bf16": os.path.join(work, "artifact_bf16")})}))
-        (p_fwd, p_bwd, p_aug), parallel_rows = phase_parallel(os.path.join(work, "artifact_f32"))
+        (p_fwd, p_bwd, p_aug), parallel_rows, parallel_graphs = phase_parallel(
+            os.path.join(work, "artifact_f32"))
+        log(json.dumps({"parallel_graphs": parallel_graphs}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     spatial_launches = phase_spatial()

@@ -10,9 +10,14 @@ tensors, then replayed. The training Engine captures its step
 (``serve/server.py``, ``serve/export.py``); no other module captures.
 
 - **One rule** (:func:`enabled`): a run is graphed on a CUDA device without
-  a mesh, and eager on the CPU and under a data or ``(data × space)`` mesh,
-  whose collectives run inside the step over process groups that a graph
-  does not hold.
+  a mesh, and under a data mesh whose step holds one collective, the
+  gradient all-reduce between the backward and the optimizer's step (the
+  Engine captures the two parts around it and runs the all-reduce eagerly
+  between their replays). It is eager on the CPU, under a ``(data ×
+  space)`` mesh (halo exchanges inside every convolution) and under a data
+  mesh for a model whose forward calls a collective
+  (:data:`..models.blocks.FORWARD_COLLECTIVES`): a graph does not hold the
+  process group's collectives.
 - **No fallback**: a capture that fails raises; nothing catches it and runs
   the eager path instead.
 - **Static tensors**: the inputs are tensors allocated before the capture;
@@ -21,7 +26,8 @@ tensors, then replayed. The training Engine captures its step
   caller copies out before the next replay.
 - **Memory**: the capture runs on a side stream into a private memory pool,
   or into a pool that several programs share (:func:`new_pool`; a serving
-  replica's buckets, which run one at a time on its stream).
+  replica's buckets, which run one at a time on its stream; the two parts
+  of a data-mesh training step, the second reading what the first wrote).
 - **Launch counts**: a capture calls every kernel wrapper once but launches
   nothing. The counters of :mod:`.ops.launches` are snapshot before the
   capture, their growth is kept as the program's launches per replay, the
@@ -43,10 +49,18 @@ import torch
 from multi_task_breast_cancer_tpu_torch.ops import launches
 
 
-def enabled(device, mesh=None) -> bool:
-    """Whether a run on ``device`` under ``mesh`` is graphed: a CUDA device
-    and no mesh. The one rule; the Engine and the backends ask it."""
-    return torch.device(device).type == "cuda" and mesh is None
+def enabled(device, mesh=None, model=None) -> bool:
+    """Whether a run of ``model`` on ``device`` under ``mesh`` is graphed: a
+    CUDA device, and either no mesh or a data mesh without a ``space`` group
+    for a model (required then) whose forward calls no collective. The one
+    rule; the Engine and the backends ask it."""
+    if torch.device(device).type != "cuda":
+        return False
+    if mesh is None:
+        return True
+    # imported here: an artifact's loader asks the rule and imports no model code
+    from multi_task_breast_cancer_tpu_torch.models.blocks import has_forward_collective
+    return mesh.space is None and not has_forward_collective(model)
 
 
 def new_pool():

@@ -572,6 +572,18 @@ def dropout_draws(model: nn.Module, generator: Optional[torch.Generator]) -> Ite
             m.generator = None
 
 
+# the layers whose training forward calls a collective under a data mesh
+# (global_batch): a step of a model holding one is not split at its gradient
+# all-reduce alone, so it runs eagerly there (graphs.enabled)
+FORWARD_COLLECTIVES = (BatchNorm,)
+
+
+def has_forward_collective(model: nn.Module) -> bool:
+    """Whether ``model``'s training forward under a data mesh calls a
+    collective (a layer of :data:`FORWARD_COLLECTIVES`)."""
+    return any(isinstance(m, FORWARD_COLLECTIVES) for m in model.modules())
+
+
 @contextlib.contextmanager
 def global_batch(model: nn.Module, mesh, n_global: int) -> Iterator[None]:
     """Inside the block, this rank's rows of an ``n_global``-row batch

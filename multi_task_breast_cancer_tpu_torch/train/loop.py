@@ -7,9 +7,9 @@ device (``device_data``), each step gathers its rows there, augments them
 the optimizer, and adds its loss, Dice and confusion matrix to sums that stay
 on the device. The sums are fetched once per epoch, as one transfer.
 
-On the card without a mesh (:func:`..graphs.enabled`, the one rule) the step
-is graphed, the counterpart of JAX's compiled scan body: the first real step
-runs eagerly on a side stream (it creates the optimizer's state, loads the
+On the card (:func:`..graphs.enabled`, the one rule) the step is graphed,
+the counterpart of JAX's compiled scan body: the first real step runs
+eagerly on a side stream (it creates the optimizer's state, loads the
 kernel libraries, lets cuDNN choose its algorithms, fills Swin's constant
 cache), and from the next real step on the step body (:meth:`Engine._train_step`)
 is captured once as a CUDA graph on static buffers and replayed. Before each
@@ -22,10 +22,21 @@ buffer the step adds to in place. Dropout draws from a generator registered
 with the graph that takes the epoch generator's state for each replay, so a
 graphed run is the eager run bit for bit: the same losses, parameters,
 moments, buffers, masks and launch counts. The capture is kept while the
-model, the optimizer and its state tensors, and the fold's data tensors stay
-the same; a new fold (new optimizer) or new data captures anew, freeing the
-old program first. An Engine built with ``cuda_graphs=False`` runs eagerly
-on the card (to compare); validation and ``predict`` run eagerly.
+model, the optimizer and its state tensors, the fold's data tensors and the
+mesh's shape, rank and shard stay the same; a new fold (new optimizer) or
+new data captures anew, freeing the old programs first. An Engine built
+with ``cuda_graphs=False`` runs eagerly on the card (to compare);
+validation and ``predict`` run eagerly.
+
+Under a data mesh the step's one collective is the flat gradient
+all-reduce between the backward and the optimizer's step, so the step is
+two halves (:meth:`Engine._step_before_reduce`, :meth:`Engine._step_after_reduce`)
+that the eager loop runs around the all-reduce, and a graphed Engine
+captures as two programs in one memory pool: it replays the first, runs the
+all-reduce eagerly on the current stream, and replays the second. A rank
+with an empty shard replays its two programs on zero rows and joins the
+same all-reduce. A model whose forward calls a collective (``BatchNorm``'s
+global statistics) and a ``(data × space)`` mesh run eagerly, by the rule.
 
 Cross-fold padding steps (``step_valid == 0``) are skipped on the host, so
 they leave the parameters, the buffers (batch statistics), the optimizer's
@@ -241,7 +252,7 @@ class Engine:
                               cfg.seg_criterion)))
         self._cls_crit = L.init_criterion_classification(
             cfg.n_classes, cfg.classes_weighted, cfg.cls_criterion, device=self.device)
-        self.graphed = cuda_graphs and graphs.enabled(self.device, mesh)
+        self.graphed = cuda_graphs and graphs.enabled(self.device, mesh, model)
         self._step_graph: Optional[_StepGraph] = None
         self._warm_key = None  # the step graph's key after its eager warm-up step
         self._side_stream = None  # the warm-up's and the capture's stream
@@ -321,18 +332,6 @@ class Engine:
         seg, cls = f_seg * aux["seg_loss"], mean * aux["cls_loss"]
         return (self.cfg.alpha * seg + (1 - self.cfg.alpha) * cls,
                 {**aux, "seg_loss": seg, "cls_loss": cls})
-
-    def _all_reduce_gradients(self, model: nn.Module) -> None:
-        """One flat all-reduce of every parameter's gradient over the mesh
-        (zeros stand in for a gradient this rank has not got, so every rank
-        sends the same sizes); a parameter without a gradient keeps none."""
-        params = [p for p in model.parameters() if p.requires_grad]
-        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                          for p in params])
-        self.mesh.all_reduce_sum(flat)
-        for p, g in zip(params, flat.split([p.numel() for p in params])):
-            if p.grad is not None:
-                p.grad.copy_(g.view_as(p))
 
     def _check_cls_head(self, cls_out) -> None:
         """A head whose logit count disagrees with ``n_classes`` would train
@@ -554,8 +553,8 @@ class Engine:
                     continue  # cross-fold padding: a no-op, not a zero-gradient step
                 rows = rows_all[k, shard]
                 if self.graphed:
-                    share, count = self._graphed_step(state, data, rows, draws, k, cm,
-                                                      dropout_generator)
+                    share, count = self._graphed_step(state, data, rows, draws, k, shard,
+                                                      n_local, cm, dropout_generator)
                 else:
                     opt.zero_grad(set_to_none=True)
                     share, count = self._train_step(model, opt, data, rows, draws, k, shard,
@@ -573,31 +572,71 @@ class Engine:
                     data: Dict[str, Any], rows: torch.Tensor, draws, k: int, shard: slice,
                     cm: torch.Tensor, n_local: int):
         """One training step on this rank's ``rows`` of the fold with step
-        ``k``'s ``shard`` of ``draws``, its gradients cleared before: the
-        forward, the backward (the gradient all-reduce under a mesh), the
-        optimizer's step, and the batch added to the confusion matrix ``cm``
-        in place. Returns the (loss, seg, cls) shares, (3,), and the Dice
-        counts (``None`` without a segmentation head). The eager loop runs
-        it, and the capture of the step graph runs it on static buffers."""
+        ``k``'s ``shard`` of ``draws``, its gradients cleared before:
+        :meth:`_step_before_reduce`, under a mesh the one flat all-reduce of
+        the gradients, :meth:`_step_after_reduce`. Returns the (loss, seg,
+        cls) shares, (3,), and the Dice counts (``None`` without a
+        segmentation head). The eager loop runs it; a graphed Engine captures
+        it whole without a mesh, and its two halves around the all-reduce
+        under one."""
+        carry = self._step_before_reduce(model, data, rows, draws, k, shard, n_local)
+        if self.mesh is not None:
+            self.mesh.all_reduce_sum(carry["flat"])
+        return self._step_after_reduce(model, opt, carry, cm)
+
+    def _step_before_reduce(self, model: nn.Module, data: Dict[str, Any], rows: torch.Tensor,
+                            draws, k: int, shard: slice, n_local: int) -> Dict[str, Any]:
+        """The step up to its gradient all-reduce: the rows gathered and
+        augmented, the forward, this rank's loss share and its backward.
+        Returns what the rest of the step reads: the (loss, seg, cls) shares,
+        the outputs and targets of the step's metrics (detached) and, under a
+        mesh, ``flat``: every parameter's gradient in one buffer (zeros stand
+        in for a gradient this rank has not got, so every rank sends the same
+        sizes)."""
         ctgt = data["cls_targets"].index_select(0, rows)
         lint = data["labels_int"].index_select(0, rows)
         imgs, msks = self._space_rows(*self._augmented_batch(data, rows, draws, k, shard))
         out = self._apply(model, imgs)
         loss, aux = self._loss_shares(out, msks, ctgt, n_local, self.cfg.batch_size)
         loss.backward()
+        zero = torch.zeros((), device=self.device)
+        carry = {"share": torch.stack([loss.detach(), aux.get("seg_loss", zero).detach(),
+                                       aux.get("cls_loss", zero).detach()]),
+                 "masks": msks, "labels": lint, "heads": {}}
+        if "seg_out" in aux:
+            carry["heads"]["seg_out"] = self._final_seg_head(aux["seg_out"]).detach()
+        if "cls_out" in aux:
+            carry["heads"]["cls_out"] = self._mean_cls_head(aux["cls_out"]).detach()
         if self.mesh is not None:
-            self._all_reduce_gradients(model)
+            carry["flat"] = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                       .reshape(-1) for p in self._trained(model)])
+        return carry
+
+    def _step_after_reduce(self, model: nn.Module, opt: torch.optim.Optimizer,
+                           carry: Dict[str, Any], cm: torch.Tensor):
+        """The step after its gradient all-reduce: under a mesh the summed
+        ``flat`` copied back into the ``.grad`` tensors (a parameter without
+        a gradient keeps none), the optimizer's step, the batch's Dice counts
+        and the batch added to the confusion matrix ``cm`` in place. Returns
+        the shares and the Dice counts, as :meth:`_train_step`."""
+        if "flat" in carry:
+            params = self._trained(model)
+            for p, g in zip(params, carry["flat"].split([p.numel() for p in params])):
+                if p.grad is not None:
+                    p.grad.copy_(g.view_as(p))
         opt.step()
-        sm = self._step_metrics(aux, msks, lint, cm)
+        sm = self._step_metrics(carry["heads"], carry["masks"], carry["labels"], cm)
         if "cm" in sm:
             cm.copy_(sm["cm"])
-        zero = torch.zeros((), device=self.device)
-        share = torch.stack([loss.detach(), aux.get("seg_loss", zero).detach(),
-                             aux.get("cls_loss", zero).detach()])
-        return share, sm.get("dice_counts")
+        return carry["share"], sm.get("dice_counts")
+
+    @staticmethod
+    def _trained(model: nn.Module) -> list:
+        """The parameters the optimizer moves, in the flat buffer's order."""
+        return [p for p in model.parameters() if p.requires_grad]
 
     # ------------------------------------------------------------------
-    # the captured step (graphs.enabled: the card without a mesh)
+    # the captured step (graphs.enabled: the card, no mesh or a data mesh)
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -619,9 +658,10 @@ class Engine:
     def _graph_key(self, state: TrainState, data: Dict[str, Any]):
         """What a captured step reads where it lives: the model's parameters
         and buffers, the optimizer, its state tensors and rates, and the
-        fold's data tensors, by identity and address; and the Engine's
-        configuration. Returns (key, the tensors, which the key's holder
-        keeps alive so that no identity is reused)."""
+        fold's data tensors, by identity and address; the Engine's
+        configuration; and the mesh's shape, this rank and its shard of the
+        batch. Returns (key, the tensors, which the key's holder keeps alive
+        so that no identity is reused)."""
         model, opt = state.model, state.optimizer
         held = [*model.parameters(), *model.buffers()]
         for group in opt.param_groups:
@@ -629,7 +669,10 @@ class Engine:
             for p in group["params"]:
                 held += [v for _, v in sorted(opt.state.get(p, {}).items()) if torch.is_tensor(v)]
         held += [v for _, v in sorted(data.items()) if torch.is_tensor(v)]
-        key = (id(opt), dataclasses.astuple(self.cfg),
+        mesh = self.mesh
+        where = (None if mesh is None else
+                 (mesh.shape, mesh.rank, mesh.shard(self.cfg.batch_size)))
+        key = (id(opt), dataclasses.astuple(self.cfg), where,
                tuple((id(t), t.data_ptr()) for t in held))
         return key, [opt, *held]
 
@@ -638,7 +681,8 @@ class Engine:
         the old one is released (its memory pool with it) and ``None``."""
         graph = self._step_graph
         if graph is not None and graph.key != self._graph_key(state, data)[0]:
-            graph.program.close()
+            for program in graph.programs:
+                program.close()
             self._step_graph = graph = self._warm_key = None
         return graph
 
@@ -648,15 +692,17 @@ class Engine:
         return self._side_stream
 
     def _graphed_step(self, state: TrainState, data: Dict[str, Any], rows: torch.Tensor,
-                      draws, k: int, cm: torch.Tensor,
+                      draws, k: int, shard: slice, n_local: int, cm: torch.Tensor,
                       dropout_generator: Optional[torch.Generator]):
-        """One real step on the card without a mesh: the replay of the
-        captured step, its outputs copied out. With no capture yet, the step
-        runs eagerly on the capture's side stream (the warm-up: a real step,
-        never an extra one) and the next real step with the same key
-        captures and replays."""
+        """One real step on the card: the replay of the captured step, its
+        outputs copied out; under a mesh the replay of the part before the
+        gradient all-reduce, the all-reduce run eagerly on the current
+        stream (the process group orders it after the first replay and the
+        second after it), the replay of the part after. With no capture yet,
+        the step runs eagerly on the capture's side stream (the warm-up: a
+        real step, never an extra one, all-reduce included) and the next
+        real step with the same key captures and replays."""
         model, opt = state.model, state.optimizer
-        b = self.cfg.batch_size
         if self._step_graph is None:
             key, held = self._graph_key(state, data)
             if self._warm_key is None or key != self._warm_key[0]:
@@ -664,37 +710,59 @@ class Engine:
                 side.wait_stream(main)
                 with torch.cuda.stream(side):
                     opt.zero_grad(set_to_none=True)
-                    out = self._train_step(model, opt, data, rows, draws, k, slice(0, b), cm, b)
+                    out = self._train_step(model, opt, data, rows, draws, k, shard, cm, n_local)
                 main.wait_stream(side)
                 self._warm_key = self._graph_key(state, data)
                 return out
-            self._step_graph = self._capture_step(state, data, rows, draws, k, cm, key, held)
+            self._step_graph = self._capture_step(state, data, rows, draws, k, shard, n_local,
+                                                  cm, key, held)
             self._warm_key = None
-        graph = self._step_graph
-        share, count = graph.program.replay(
-            rows, *self._step_draw_tensors(draws, k),
-            generator=dropout_generator if graph.program.generator is not None else None)
+        first, *after = self._step_graph.programs
+        out = first.replay(rows, *self._step_draw_tensors(draws, k),
+                           generator=dropout_generator if first.generator is not None else None)
+        if after:
+            self.mesh.all_reduce_sum(out["flat"])
+            out = after[0].replay()
+        share, count = out
         return share.clone(), (count.clone() if count is not None else None)
 
     def _capture_step(self, state: TrainState, data: Dict[str, Any], rows: torch.Tensor,
-                      draws, k: int, cm: torch.Tensor, key, held) -> "_StepGraph":
-        """Capture :meth:`_train_step` on static copies of step ``k``'s rows
-        and draws, the confusion matrix ``cm`` and, for a model with dropout,
-        a generator of its own (:class:`..graphs.Program`)."""
+                      draws, k: int, shard: slice, n_local: int, cm: torch.Tensor,
+                      key, held) -> "_StepGraph":
+        """Capture the step on static copies of step ``k``'s rows and draws,
+        the confusion matrix ``cm`` and, for a model with dropout, a
+        generator of its own (:class:`..graphs.Program`): without a mesh
+        :meth:`_train_step` as one program; under a mesh
+        :meth:`_step_before_reduce` and then :meth:`_step_after_reduce`, which
+        reads the first's outputs, as two programs in one memory pool, always
+        replayed in that order."""
         model, opt = state.model, state.optimizer
-        b = self.cfg.batch_size
         drop = torch.Generator(device=self.device) if has_dropout(model) else None
+        side = self._capture_stream()
 
-        def step(rows, *draw_tensors):
+        def whole(rows, *draw_tensors):
             with dropout_draws(model, drop):
                 return self._train_step(model, opt, data, rows, self._draws_of(draws, draw_tensors),
-                                        0, slice(0, b), cm, b)
+                                        0, shard, cm, n_local)
+
+        def before(rows, *draw_tensors):
+            with dropout_draws(model, drop):
+                return self._step_before_reduce(model, data, rows,
+                                                self._draws_of(draws, draw_tensors), 0, shard,
+                                                n_local)
 
         opt.zero_grad(set_to_none=True)  # the backward in the capture makes the .grad tensors
         inputs = [rows.clone(), *(t.clone() for t in self._step_draw_tensors(draws, k))]
-        program = graphs.Program(step, inputs, self.device, stream=self._capture_stream(),
-                                 generator=drop)
-        return _StepGraph(program, key, held, cm)
+        if self.mesh is None:
+            programs = (graphs.Program(whole, inputs, self.device, stream=side, generator=drop),)
+        else:
+            pool = graphs.new_pool()
+            first = graphs.Program(before, inputs, self.device, stream=side, pool=pool,
+                                   generator=drop)
+            programs = (first, graphs.Program(
+                lambda: self._step_after_reduce(model, opt, first.outputs, cm), [],
+                self.device, stream=side, pool=pool))
+        return _StepGraph(programs, key, held, cm)
 
     def _reduced(self, t: torch.Tensor, over_space: bool = True) -> torch.Tensor:
         """``t`` summed over every rank of the mesh, or (``over_space``
@@ -882,10 +950,11 @@ class Engine:
 
 @dataclasses.dataclass
 class _StepGraph:
-    """The Engine's captured step: the program, the key it was captured
-    under (with the tensors the key names, kept alive) and its static
-    confusion matrix, zeroed at each epoch's start."""
-    program: graphs.Program
+    """The Engine's captured step: its programs (the whole step without a
+    mesh; under a mesh the parts before and after the gradient all-reduce),
+    the key it was captured under (with the tensors the key names, kept
+    alive) and its static confusion matrix, zeroed at each epoch's start."""
+    programs: Tuple[graphs.Program, ...]
     key: tuple
     held: list
     cm: torch.Tensor

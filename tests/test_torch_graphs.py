@@ -18,8 +18,8 @@ capture, the captured growth added per replay) and the registry holding
 every counted entry point of ``ops/``; a tensor learning rate changed
 between steps against optax (Adam, AdamW, the port's SGD; 1e-6 absolute,
 as ``tests/test_torch_optim.py``); the checkpoint of the card's optimizer
-form writing today's bytes; and the one rule, graphed only on CUDA without
-a mesh. The ``cuda`` tests hold a graphed step and a graphed serving
+form writing today's bytes; and the one rule (graphed on CUDA without a
+mesh or under a data mesh whose forward calls no collective). The ``cuda`` tests hold a graphed step and a graphed serving
 bucket against eager ones on the card (skipped here; on the card run
 ``-m cuda --noconftest``: this module imports nothing of the JAX package at
 its top).
@@ -103,14 +103,22 @@ class _StandIn:
     """``graphs.Program`` on the CPU with a capture's data flow (module
     docstring). The backward of a step captured with no ``.grad`` writes
     the gradients afresh at every replay, where a Python rerun would add to
-    them: the stand-in drops the ``.grad`` of ``params`` before each rerun."""
+    them: the stand-in drops the ``.grad`` of ``params`` before each rerun of
+    a program that runs the backward. That is the first program captured
+    into a memory pool, or one with a pool of its own: the Engine's whole
+    step, or its part before the gradient all-reduce; the part after it,
+    captured second into the same pool, reads those gradients."""
 
     made: list = []
     params: list = []
+    pools: list = []
 
     def __init__(self, fn, inputs, device, *, stream=None, pool=None, generator=None):
         self.fn, self.inputs, self.generator = fn, list(inputs), generator
         self.outputs, self.replays, self.closed = None, 0, False
+        self.backward = pool is None or not any(p is pool for p in _StandIn.pools)
+        if pool is not None:
+            _StandIn.pools.append(pool)
         _StandIn.made.append(self)
 
     def replay(self, *sources, generator=None):
@@ -119,8 +127,9 @@ class _StandIn:
                 static.copy_(source)
         if generator is not None:
             self.generator.set_state(generator.get_state())
-        for p in _StandIn.params:
-            p.grad = None
+        if self.backward:
+            for p in _StandIn.params:
+                p.grad = None
         out = self.fn(*self.inputs)
         if generator is not None:
             generator.set_state(self.generator.get_state())
@@ -139,6 +148,7 @@ class _StandIn:
 @pytest.fixture
 def stand_in(monkeypatch):
     monkeypatch.setattr(graphs, "Program", _StandIn)
+    monkeypatch.setattr(graphs, "new_pool", object)
     monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _NoStream())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _NoStream())
@@ -402,18 +412,26 @@ def test_checkpoint_of_the_card_form_writes_todays_bytes(tmp_path):
 
 
 def test_graphed_only_on_cuda_without_a_mesh(monkeypatch):
+    """The one rule: graphed on CUDA without a mesh, and under a data mesh
+    without ``space`` for a model whose forward calls no collective; eager on
+    the CPU, under a ``space`` group, and for a model with ``BatchNorm``
+    under a data mesh (the name predates the data-mesh case)."""
     cuda = torch.device("cuda", 0)
     assert graphs.enabled("cuda") and graphs.enabled(cuda)
     assert not graphs.enabled("cpu")
     data_mesh = DataMesh(world_size=2, rank=0, device=cuda)
     space_mesh = DataMesh(world_size=2, rank=0, device=cuda, space=object(),
                           data_axis=DataMesh(world_size=1, rank=0, device=cuda))
-    assert not graphs.enabled(cuda, data_mesh) and not graphs.enabled(cuda, space_mesh)
+    nnunet = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
+    residual = registry.init_segmentation_model("ResidualUNet", width=4, size=32)
+    assert graphs.enabled(cuda, data_mesh, nnunet)
+    assert not graphs.enabled(cuda, data_mesh, residual)
+    assert not graphs.enabled(cuda, space_mesh, nnunet)
+    assert not graphs.enabled("cpu", data_mesh, nnunet)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         graphs.Program(lambda: None, [], "cpu")
 
-    model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS)
-    assert Engine(model, EngineConfig(task="multitask"), device="cpu").graphed is False
+    assert Engine(nnunet, EngineConfig(task="multitask"), device="cpu").graphed is False
 
     class _Stub(torch.nn.Linear):
         def to(self, *args, **kwargs):  # stays on the CPU
@@ -423,8 +441,9 @@ def test_graphed_only_on_cuda_without_a_mesh(monkeypatch):
     cfg = EngineConfig(task="segmentation")
     assert Engine(_Stub(1, 1), cfg).graphed is True
     assert Engine(_Stub(1, 1), cfg, cuda_graphs=False).graphed is False
-    assert Engine(_Stub(1, 1), cfg, mesh=DataMesh(world_size=1, rank=0, device=cuda)
-                  ).graphed is False
+    one_rank = DataMesh(world_size=1, rank=0, device=cuda)
+    assert Engine(_Stub(1, 1), cfg, mesh=one_rank).graphed is True
+    assert Engine(_Stub(1, 1), cfg, mesh=one_rank, cuda_graphs=False).graphed is False
 
 
 # ---------------------------------------------------------------------------
