@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from multi_task_breast_cancer_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -56,29 +58,33 @@ def _target(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> float:
     """Compile the given kernels (default: all) that are not built yet, one
     ``nvcc`` per source, all started together, keeping each compiler's output
-    beside its library. Returns the seconds taken; raises ``RuntimeError``
+    beside its library (a ``kernels.build`` span, counted in
+    ``kernels.builds``). Returns the seconds taken; raises ``RuntimeError``
     with the compiler's output if one fails."""
     t0 = time.perf_counter()
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    missing = [name for name in names if not _target(name).exists()]
+    if not missing:
+        return time.perf_counter() - t0
     failures = []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            out.with_suffix(".log").write_text(log)
-            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with profiling.span("kernels.build"):
+        jobs = []
+        for name in missing:
+            out = _target(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                out.with_suffix(".log").write_text(log)
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    profiling.count("kernels.builds", len(jobs))
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
@@ -92,10 +98,13 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (a
+    ``kernels.load`` span, counted in ``kernels.loads``)."""
     with _lock:
         lib = _libraries.get(name)
         if lib is None:
-            build([name])
-            lib = _libraries[name] = ctypes.CDLL(str(_target(name)))
+            with profiling.span("kernels.load"):
+                build([name])
+                lib = _libraries[name] = ctypes.CDLL(str(_target(name)))
+            profiling.count("kernels.loads")
         return lib

@@ -38,6 +38,16 @@ with an empty shard replays its two programs on zero rows and joins the
 same all-reduce. A model whose forward calls a collective (``BatchNorm``'s
 global statistics) and a ``(data × space)`` mesh run eagerly, by the rule.
 
+Each epoch is a span (``utils/profiling.py``; kept only inside
+``profiling.recording()`` or the operator's ``MTBC_PROFILE`` trace):
+``engine.epoch`` holds ``engine.plan`` (the checks, the rows put on the
+device, ``engine.draws``, ``engine.graph_key``), ``engine.steps`` with one
+``engine.step`` per real step (``graph.replay``; ``engine.warmup_step``,
+``graph.capture`` or ``engine.eager_step``), ``engine.sums``,
+``engine.validation`` and ``engine.fetch``; ``engine.init`` and
+``engine.device_data`` span set-up. The counters ``graph.captures``,
+``graph.replays`` and ``engine.eager_steps`` always count.
+
 Cross-fold padding steps (``step_valid == 0``) are skipped on the host, so
 they leave the parameters, the buffers (batch statistics), the optimizer's
 moments and the step count untouched (the JAX scan selects the old state for
@@ -131,6 +141,7 @@ from multi_task_breast_cancer_tpu_torch.ops.fused_loss import fused_dice_criteri
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import DataMesh
 from multi_task_breast_cancer_tpu_torch.train.state import TrainState
+from multi_task_breast_cancer_tpu_torch.utils import profiling
 from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
 
 @dataclasses.dataclass
@@ -218,6 +229,7 @@ class Engine:
     (:func:`..graphs.enabled`; ``cuda_graphs=False`` runs the card eagerly,
     to hold the two against each other)."""
 
+    @profiling.spanned("engine.init")
     def __init__(self, model: nn.Module, cfg: EngineConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh: Optional[DataMesh] = None, cuda_graphs: bool = True):
@@ -393,9 +405,10 @@ class Engine:
     @staticmethod
     def _fetch(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
         """All scalar metrics to the host in one transfer."""
-        names = sorted(metrics)
-        vec = torch.stack([metrics[k].reshape(()).float() for k in names]).cpu()
-        return dict(zip(names, vec.double().tolist()))
+        with profiling.span("engine.fetch"):
+            names = sorted(metrics)
+            vec = torch.stack([metrics[k].reshape(()).float() for k in names]).cpu()
+            return dict(zip(names, vec.double().tolist()))
 
     # ------------------------------------------------------------------
     # batches
@@ -515,58 +528,65 @@ class Engine:
                           step_valid: Optional[np.ndarray],
                           dropout_generator: Optional[torch.Generator] = None):
         cfg = self.cfg
-        self._check_state(state)
-        self._check_dropout_generator(state.model, dropout_generator)
-        if cfg.use_transforms and cfg.fast_augmentation and "aug_packed" not in data:
-            raise ValueError("fast_augmentation needs data built by this Engine's "
-                             "device_data(..., for_training=True)")
-        b = cfg.batch_size
-        perm = np.asarray(perm)
-        if perm.size % b:
-            raise ValueError(f"perm holds {perm.size} indices, not a multiple of "
-                             f"batch_size {b}")
-        n = data["images"].shape[0]
-        if perm.size and (perm.min() < 0 or perm.max() >= n):
-            raise ValueError(f"perm indexes outside the {n} rows of the fold")
-        steps = perm.size // b
-        valid = (np.ones(steps, np.float32) if step_valid is None
-                 else np.asarray(step_valid, np.float32))
-        if valid.shape != (steps,):
-            raise ValueError(f"step_valid has shape {valid.shape}, want ({steps},)")
-        rows_all = torch.as_tensor(perm, dtype=torch.int32).to(self.device).reshape(steps, b)
-        draws = self._epoch_draws(steps, generator)
+        with profiling.span("engine.plan"):
+            self._check_state(state)
+            self._check_dropout_generator(state.model, dropout_generator)
+            if cfg.use_transforms and cfg.fast_augmentation and "aug_packed" not in data:
+                raise ValueError("fast_augmentation needs data built by this Engine's "
+                                 "device_data(..., for_training=True)")
+            b = cfg.batch_size
+            perm = np.asarray(perm)
+            if perm.size % b:
+                raise ValueError(f"perm holds {perm.size} indices, not a multiple of "
+                                 f"batch_size {b}")
+            n = data["images"].shape[0]
+            if perm.size and (perm.min() < 0 or perm.max() >= n):
+                raise ValueError(f"perm indexes outside the {n} rows of the fold")
+            steps = perm.size // b
+            valid = (np.ones(steps, np.float32) if step_valid is None
+                     else np.asarray(step_valid, np.float32))
+            if valid.shape != (steps,):
+                raise ValueError(f"step_valid has shape {valid.shape}, want ({steps},)")
+            rows_all = torch.as_tensor(perm, dtype=torch.int32).to(self.device).reshape(steps, b)
+            with profiling.span("engine.draws"):
+                draws = self._epoch_draws(steps, generator)
 
-        n_cm = max(cfg.n_classes, 2)
-        graph = self._kept_step_graph(state, data) if self.graphed else None
-        cm = (graph.cm.zero_() if graph is not None
-              else torch.zeros((n_cm, n_cm), device=self.device))
+            n_cm = max(cfg.n_classes, 2)
+            with profiling.span("engine.graph_key"):
+                graph = self._kept_step_graph(state, data) if self.graphed else None
+            cm = (graph.cm.zero_() if graph is not None
+                  else torch.zeros((n_cm, n_cm), device=self.device))
         mesh = self.mesh
         shard = mesh.shard(b) if mesh is not None else slice(0, b)
         n_local = shard.stop - shard.start
         shares, counts = [], []  # per real step: (loss, seg, cls) shares, Dice counts
         model, opt = state.model, state.optimizer
         model.train()
-        with dropout_draws(model, dropout_generator), global_batch(model, mesh, b), \
-                spatial.partitioned(self._space):
+        with profiling.span("engine.steps"), dropout_draws(model, dropout_generator), \
+                global_batch(model, mesh, b), spatial.partitioned(self._space):
             for k in range(steps):
                 if valid[k] <= 0:
                     continue  # cross-fold padding: a no-op, not a zero-gradient step
-                rows = rows_all[k, shard]
-                if self.graphed:
-                    share, count = self._graphed_step(state, data, rows, draws, k, shard,
-                                                      n_local, cm, dropout_generator)
-                else:
-                    opt.zero_grad(set_to_none=True)
-                    share, count = self._train_step(model, opt, data, rows, draws, k, shard,
-                                                    cm, n_local)
-                state.step += 1
-                shares.append(share)
-                if count is not None:
-                    counts.append(count)
-        zero = torch.zeros((), device=self.device)
-        sums = {"loss": zero, "seg_loss": zero, "cls_loss": zero, "dice": zero, "cm": cm}
-        return self._epoch_metrics(self._epoch_sums(sums, shares, counts),
-                                   max(float(valid.sum()), 1.0))
+                with profiling.span("engine.step"):
+                    rows = rows_all[k, shard]
+                    if self.graphed:
+                        share, count = self._graphed_step(state, data, rows, draws, k, shard,
+                                                          n_local, cm, dropout_generator)
+                    else:
+                        with profiling.span("engine.eager_step"):
+                            opt.zero_grad(set_to_none=True)
+                            share, count = self._train_step(model, opt, data, rows, draws, k,
+                                                            shard, cm, n_local)
+                        profiling.count("engine.eager_steps")
+                    state.step += 1
+                    shares.append(share)
+                    if count is not None:
+                        counts.append(count)
+        with profiling.span("engine.sums"):
+            zero = torch.zeros((), device=self.device)
+            sums = {"loss": zero, "seg_loss": zero, "cls_loss": zero, "dice": zero, "cm": cm}
+            return self._epoch_metrics(self._epoch_sums(sums, shares, counts),
+                                       max(float(valid.sum()), 1.0))
 
     def _train_step(self, model: nn.Module, opt: torch.optim.Optimizer,
                     data: Dict[str, Any], rows: torch.Tensor, draws, k: int, shard: slice,
@@ -706,23 +726,33 @@ class Engine:
         if self._step_graph is None:
             key, held = self._graph_key(state, data)
             if self._warm_key is None or key != self._warm_key[0]:
-                side, main = self._capture_stream(), torch.cuda.current_stream(self.device)
-                side.wait_stream(main)
-                with torch.cuda.stream(side):
-                    opt.zero_grad(set_to_none=True)
-                    out = self._train_step(model, opt, data, rows, draws, k, shard, cm, n_local)
-                main.wait_stream(side)
-                self._warm_key = self._graph_key(state, data)
+                with profiling.span("engine.warmup_step"):
+                    side, main = self._capture_stream(), torch.cuda.current_stream(self.device)
+                    side.wait_stream(main)
+                    with torch.cuda.stream(side):
+                        opt.zero_grad(set_to_none=True)
+                        out = self._train_step(model, opt, data, rows, draws, k, shard, cm,
+                                               n_local)
+                    main.wait_stream(side)
+                    self._warm_key = self._graph_key(state, data)
+                profiling.count("engine.eager_steps")
                 return out
-            self._step_graph = self._capture_step(state, data, rows, draws, k, shard, n_local,
-                                                  cm, key, held)
+            with profiling.span("graph.capture"):
+                self._step_graph = self._capture_step(state, data, rows, draws, k, shard,
+                                                      n_local, cm, key, held)
+            profiling.count("graph.captures", len(self._step_graph.programs))
             self._warm_key = None
         first, *after = self._step_graph.programs
-        out = first.replay(rows, *self._step_draw_tensors(draws, k),
-                           generator=dropout_generator if first.generator is not None else None)
+        with profiling.span("graph.replay"):
+            out = first.replay(rows, *self._step_draw_tensors(draws, k),
+                               generator=dropout_generator if first.generator is not None
+                               else None)
+        profiling.count("graph.replays")
         if after:
             self.mesh.all_reduce_sum(out["flat"])
-            out = after[0].replay()
+            with profiling.span("graph.replay"):
+                out = after[0].replay()
+            profiling.count("graph.replays")
         share, count = out
         return share.clone(), (count.clone() if count is not None else None)
 
@@ -833,11 +863,15 @@ class Engine:
         masks from ``dropout_generator`` (on the Engine's device; needed by a
         model with dropout). Returns the state (updated in place) and the
         epoch metrics (means over the real steps)."""
-        return state, self._fetch(self._train_epoch_sums(state, data, perm, generator,
-                                                         step_valid, dropout_generator))
+        with profiling.span("engine.epoch"):
+            return state, self._fetch(self._train_epoch_sums(state, data, perm, generator,
+                                                             step_valid, dropout_generator))
 
     def eval_epoch(self, state: TrainState, data: Dict[str, Any]) -> Dict[str, float]:
-        return self._fetch(self._eval_metrics(state, data))
+        with profiling.span("engine.epoch"):
+            with profiling.span("engine.validation"):
+                metrics = self._eval_metrics(state, data)
+            return self._fetch(metrics)
 
     def train_and_eval_epoch(self, state: TrainState, train_data: Dict[str, Any],
                              val_data: Dict[str, Any], perm: np.ndarray,
@@ -846,12 +880,14 @@ class Engine:
                              dropout_generator: Optional[torch.Generator] = None
                              ) -> Tuple[TrainState, Dict[str, float], Dict[str, float]]:
         """A training epoch and the validation pass, with one metric fetch."""
-        tm = self._train_epoch_sums(state, train_data, perm, generator, step_valid,
-                                    dropout_generator)
-        vm = self._eval_metrics(state, val_data)
-        both = {f"t_{k}": v for k, v in tm.items()}
-        both.update({f"v_{k}": v for k, v in vm.items()})
-        fetched = self._fetch(both)
+        with profiling.span("engine.epoch"):
+            tm = self._train_epoch_sums(state, train_data, perm, generator, step_valid,
+                                        dropout_generator)
+            with profiling.span("engine.validation"):
+                vm = self._eval_metrics(state, val_data)
+            both = {f"t_{k}": v for k, v in tm.items()}
+            both.update({f"v_{k}": v for k, v in vm.items()})
+            fetched = self._fetch(both)
         return (state, {k[2:]: v for k, v in fetched.items() if k.startswith("t_")},
                 {k[2:]: v for k, v in fetched.items() if k.startswith("v_")})
 
@@ -905,6 +941,7 @@ class Engine:
             return torch.uint8
         return torch.float32
 
+    @profiling.spanned("engine.device_data")
     def device_data(self, ds: ArrayDataset, pad_to: Optional[int] = None,
                     *, for_training: bool = True) -> Dict[str, Any]:
         """One split on the device, once per fold: images and masks NCHW

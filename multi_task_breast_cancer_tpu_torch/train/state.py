@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.train.optim import init_optimizer
+from multi_task_breast_cancer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -22,6 +23,7 @@ class TrainState:
     step: int = 0
 
 
+@profiling.spanned("train.create_state")
 def create_train_state(model: nn.Module, opt: str, learning_rate: float) -> TrainState:
     """A fresh state over ``model``'s parameters, on the device the model is
     on (move the model first: ``Engine`` does)."""
