@@ -10,6 +10,10 @@ import torch
 # the compute dtypes of ``training.compute_dtype``, by name
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# how many of cuDNN's candidate engines are timed for each convolution
+# problem (0: every one); see set_float32_policy
+CUDNN_BENCHMARK_LIMIT = 3
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """``None`` → ``cuda:0``, or ``cuda:{LOCAL_RANK}`` under a process group
@@ -64,16 +68,36 @@ def replica_streams(devices: Sequence[torch.device]) -> list:
 
 
 def set_float32_policy(device: torch.device, compute_dtype: str) -> None:
-    """Every float32 op on a CUDA device computes in float32: TF32 off in
-    cuDNN convolutions and in matmuls, which would otherwise keep about 3
-    decimal digits and drift from the JAX reference for that reason alone.
-    Under ``compute_dtype == "bfloat16"`` the model runs in bf16, and the f32
-    ops that remain (losses, metrics, Adam's update) stay float32 all the
-    same. The switches are process-wide; every entry point that builds a
-    model on the card (the Engine, the serving backends, the export) calls
+    """The port's process-wide cuDNN and matmul policy on a CUDA device.
+
+    Every float32 op computes in float32: TF32 off in cuDNN convolutions
+    and in matmuls, which would otherwise keep about 3 decimal digits and
+    drift from the JAX reference for that reason alone. Under
+    ``compute_dtype == "bfloat16"`` the model runs in bf16, and the f32 ops
+    that remain (losses, metrics, Adam's update) stay float32 all the same.
+
+    cuDNN times its candidate engines for each convolution problem (shape,
+    dtype, stride, layout) the first time it runs, and keeps the fastest
+    (``cudnn.benchmark``, the first :data:`CUDNN_BENCHMARK_LIMIT` engines of
+    its list). Left to its heuristic guess, it runs several of MTnnUNet's
+    f32 problems (128² and 32² at batch 2, 32² at batch 64) with FFT and
+    Winograd engines that take about twice as long on an H100 as the
+    implicit GEMMs the timing picks; the first three candidates hold them,
+    and a wider search costs set-up time and finds nothing faster. The
+    timing runs in eager calls only: the Engine's warm-up step and its
+    validation, a serving bucket's warm-up; a capture runs after them and
+    finds every choice made (``conv.problems_measured`` in
+    :mod:`.models.blocks` counts the problems). Only the engine changes,
+    never the precision. ``cudnn.deterministic`` is left as the caller has
+    it.
+
+    The switches are process-wide; every entry point that builds a model on
+    the card (the Engine, the serving backends, the export, SSIM) calls
     this."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {compute_dtype!r} is not one of {sorted(COMPUTE_DTYPES)}")
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.benchmark_limit = CUDNN_BENCHMARK_LIMIT

@@ -42,13 +42,19 @@ by a row rule:
 - :func:`avg_pool` is row-local where its window divides the shard's rows
   and raises ``NotImplementedError`` where a window would cross a shard's
   edge (Adityan pools its gathered map instead).
+
+Every convolution module of the zoo derives from :class:`CountedConv2d` or
+:class:`CountedConvTranspose2d` (:class:`DeconvHead` calls the same
+:func:`note_conv_problem`), which counts ``conv.problems_measured``: the
+problems cuDNN times its engines for.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,9 +62,59 @@ from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import instance_norm_leaky_relu
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
+from multi_task_breast_cancer_tpu_torch.utils import profiling
 
 
-class Conv3x3(nn.Conv2d):
+def _cudnn_times(x: torch.Tensor) -> bool:
+    """Whether cuDNN times its engines for a convolution of ``x`` run now:
+    the switch on, a CUDA input, and no trace (``torch.export``) running."""
+    return (torch.backends.cudnn.benchmark and x.is_cuda
+            and not torch.compiler.is_compiling())
+
+
+def note_conv_problem(op: str, x: torch.Tensor, weight: torch.Tensor,
+                      stride: Tuple[int, ...], padding: Tuple[int, ...]) -> None:
+    """Count ``conv.problems_measured`` the first time this thread runs a
+    convolution problem while cuDNN times its engines
+    (``cudnn.benchmark``, set by :func:`~..device.set_float32_policy`): a
+    CUDA input, and the switch on. The problem is what cuDNN keys its
+    choice by: the op (``conv``, ``transposed``, ``halo``), the input's and
+    the weight's shapes, the dtype, stride, padding, the input's layout, the
+    device, ``cudnn.deterministic`` and the thread (PyTorch keeps the
+    choices per thread). Two modules with the same problem share one search
+    and count once; each count is a forward search, and the backward's
+    searches of the same problem follow it. The port's convolution modules
+    all call this from their forward, so a replay, which runs no Python,
+    never counts, nor does a trace (``torch.export``) or what it exported."""
+    if not _cudnn_times(x):
+        return
+    profiling.count_once("conv.problems_measured", (
+        op, tuple(x.shape), tuple(weight.shape), x.dtype, tuple(stride), tuple(padding),
+        x.is_contiguous(), x.device, torch.backends.cudnn.deterministic,
+        threading.get_ident()))
+
+
+class CountedConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that notes its problem (:func:`note_conv_problem`);
+    the base of the port's convolutions."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        note_conv_problem("conv", x, weight, self.stride, self.padding)
+        return super()._conv_forward(x, weight, bias)
+
+
+class CountedConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that notes its problem
+    (:func:`note_conv_problem`); the base of the port's transposed
+    convolutions."""
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        note_conv_problem("transposed", x, self.weight, self.stride, self.padding)
+        return super().forward(x, output_size)
+
+
+class Conv3x3(CountedConv2d):
     """3×3 conv, symmetric padding 1 (stride 1 keeps the spatial size,
     stride 2 halves an even one). Under a ``space`` group it exchanges one
     halo row with each neighbour and pads the width only
@@ -73,6 +129,7 @@ class Conv3x3(nn.Conv2d):
         space = spatial.current()
         if space is None:
             return super().forward(x)
+        note_conv_problem("halo", x, self.weight, self.stride, self.padding)
         return spatial.halo_conv(x, space, self.weight, self.bias, (1, 1), self.stride[0],
                                  (1, 1))
 
@@ -82,14 +139,14 @@ def conv3x3(in_features: int, features: int, *, use_bias: bool = False) -> Conv3
     return Conv3x3(in_features, features, bias=use_bias)
 
 
-def conv1x1(in_features: int, features: int, *, use_bias: bool = True) -> nn.Conv2d:
+def conv1x1(in_features: int, features: int, *, use_bias: bool = True) -> CountedConv2d:
     """1×1 conv (bias on, zero-initialised)."""
-    return nn.Conv2d(in_features, features, 1, bias=use_bias)
+    return CountedConv2d(in_features, features, 1, bias=use_bias)
 
 
-def deconv(in_features: int, features: int, kernel: int) -> nn.ConvTranspose2d:
+def deconv(in_features: int, features: int, kernel: int) -> CountedConvTranspose2d:
     """ConvTranspose with kernel == stride (exact k× upsampling, no overlap)."""
-    return nn.ConvTranspose2d(in_features, features, kernel, stride=kernel)
+    return CountedConvTranspose2d(in_features, features, kernel, stride=kernel)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -234,6 +291,7 @@ class DeconvHead(nn.Module):
         w1 = self.conv1x1_kernel[:, :, 0, 0]  # (R, C)
         fused_w = torch.einsum("icab,rc->irab", self.deconv_kernel, w1)
         fused_b = w1 @ self.deconv_bias + self.conv1x1_bias
+        note_conv_problem("transposed", x, fused_w, (self.kernel,) * 2, (0, 0))
         return F.conv_transpose2d(x, fused_w.to(x.dtype), fused_b.to(x.dtype),
                                   stride=self.kernel)
 
@@ -316,7 +374,7 @@ class UpCat(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-class LecunConv2d(nn.Conv2d):
+class LecunConv2d(CountedConv2d):
     """A ``Conv2d`` that :func:`init_weights` draws LeCun normal: a flax
     ``nn.Conv`` left at its default ``kernel_init``."""
 
@@ -328,7 +386,7 @@ def _same_pads(size: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
+class SameConv2d(CountedConv2d):
     """flax ``nn.Conv(padding="SAME")``: pads (low, high) per axis as XLA
     does. A stride-2 3×3 conv on an even side pads (0, 1), where
     ``Conv2d(padding=1)`` would pad (1, 1)."""
@@ -342,6 +400,7 @@ class SameConv2d(nn.Conv2d):
         space = spatial.current()
         left, right = _same_pads(x.shape[3], k, s)
         if space is not None:  # the pads of the whole image's height
+            note_conv_problem("halo", x, self.weight, self.stride, self.padding)
             return spatial.halo_conv(x, space, self.weight, self.bias,
                                      _same_pads(x.shape[2] * space.size, k, s), s,
                                      (left, right))
@@ -349,7 +408,7 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
-class SameConvTranspose2d(nn.ConvTranspose2d):
+class SameConvTranspose2d(CountedConvTranspose2d):
     """flax ``nn.ConvTranspose(padding="SAME")``: the output side is
     ``stride`` × the input's, the transposed conv without padding cropped at
     its high end. Weights as :func:`deconv`'s (taps flipped against the JAX

@@ -10,7 +10,9 @@ and the port's own spans and counters.
   on ``time.perf_counter_ns``, parent, depth) in memory; its
   :meth:`Recording.export` returns them;
 - :func:`count` / :func:`counters`: named integers that always count, as
-  the launch counters of :mod:`..ops.launches` do;
+  the launch counters of :mod:`..ops.launches` do; :func:`count_once`
+  counts each distinct key once (``conv.problems_measured``, the
+  convolution problems cuDNN timed its engines for, :mod:`..models.blocks`);
 - :func:`profile_trace`: ``torch.profiler`` over the CPU and, where there is
   one, the GPU, exported as a Chrome trace (Perfetto, ``chrome://tracing``);
   inside it every span is also a ``record_function`` range, so the trace
@@ -28,7 +30,7 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Hashable, Iterator, List, Optional, Set
 
 _NOOP = contextlib.nullcontext()  # what span() returns while nothing traces
 
@@ -37,6 +39,7 @@ _recording: Optional["Recording"] = None
 _annotating = False
 
 COUNTS: Dict[str, int] = defaultdict(int)
+_SEEN: Dict[str, Set[Hashable]] = defaultdict(set)  # count_once's keys, by counter
 
 
 def _refresh() -> None:
@@ -144,6 +147,15 @@ def self_ns(spans: List[dict]) -> List[int]:
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name``."""
     COUNTS[name] += n
+
+
+def count_once(name: str, key: Hashable) -> None:
+    """Add 1 to the counter ``name`` the first time ``key`` comes with it
+    in this process; later calls with the same key add nothing."""
+    seen = _SEEN[name]
+    if key not in seen:
+        seen.add(key)
+        COUNTS[name] += 1
 
 
 def counters() -> Dict[str, int]:

@@ -20,13 +20,16 @@ between steps against optax (Adam, AdamW, the port's SGD; 1e-6 absolute,
 as ``tests/test_torch_optim.py``); the checkpoint of the card's optimizer
 form writing today's bytes; and the one rule (graphed on CUDA without a
 mesh or under a data mesh whose forward calls no collective). The ``cuda`` tests hold a graphed step and a graphed serving
-bucket against eager ones on the card (skipped here; on the card run
-``-m cuda --noconftest``: this module imports nothing of the JAX package at
-its top).
+bucket against eager ones on the card, and with cuDNN timing its engines
+(the port's policy) show that a capture and its replays search no
+convolution problem (skipped here; on the card run ``-m cuda
+--noconftest``: this module imports nothing of the JAX package at its
+top).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import importlib
 import pkgutil
@@ -39,6 +42,7 @@ from multi_task_breast_cancer_tpu_torch import graphs
 from multi_task_breast_cancer_tpu_torch import ops as ops_package
 from multi_task_breast_cancer_tpu_torch.data.dataset import ArrayDataset
 from multi_task_breast_cancer_tpu_torch.models import registry
+from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNET_WIDTHS
 from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
 from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 from multi_task_breast_cancer_tpu_torch.ops import launches
@@ -48,6 +52,7 @@ from multi_task_breast_cancer_tpu_torch.train import loop
 from multi_task_breast_cancer_tpu_torch.train import optim as O
 from multi_task_breast_cancer_tpu_torch.train.loop import Engine, EngineConfig
 from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
+from multi_task_breast_cancer_tpu_torch.utils import profiling
 
 WIDTHS = (4, 8, 8, 16, 16)
 SIZE = 64
@@ -483,17 +488,18 @@ def test_cuda_graphed_step_is_the_eager_step(dtype):
     assert all(torch.equal(a[k], b[k]) for a, b in zip(s_e, s_g) for k in a)
 
 
-def _cuda_step_runs(dtype: str) -> dict:
+def _cuda_step_runs(dtype: str, widths=WIDTHS, size: int = SIZE,
+                    order=(False, True)) -> dict:
     runs = {}
-    for graphed in (False, True):
-        model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
+    for graphed in order:
+        model = registry.init_multitask_model("MTnnUNet", nnunet_widths=widths, size=size,
                                               generator=torch.Generator().manual_seed(3))
         engine = Engine(model, EngineConfig(task="multitask", batch_size=B,
                                             fast_augmentation=True, compute_dtype=dtype),
                         device="cuda", cuda_graphs=graphed)
         assert engine.graphed is graphed
         state = create_train_state(engine.model, "Adam", 1e-3)
-        data = engine.device_data(_fold(8, 5))
+        data = engine.device_data(_fold(8, 5, size))
         before = _counts()
         metrics = []
         for epoch, valid in enumerate((np.array([1, 0, 1, 1], np.float32), None)):
@@ -547,3 +553,94 @@ def _cuda_bucket_check(dtype: str) -> None:
     swapped, want = graphed.predict(images), eager.predict(images)
     assert all(np.array_equal(a, b) for a, b in zip(_leaves(swapped), _leaves(want)))
     assert not all(np.array_equal(a, b) for a, b in zip(_leaves(swapped), _leaves(got)))
+
+
+def _measured() -> int:
+    return profiling.counters().get("conv.problems_measured", 0)
+
+
+class _CountedCaptures(graphs.Program):
+    """A ``graphs.Program`` that keeps ``conv.problems_measured`` before and
+    after each capture (class-wide, in order)."""
+    measured: list = []
+
+    def __init__(self, *args, **kwargs):
+        type(self).measured.append(_measured())
+        super().__init__(*args, **kwargs)
+        type(self).measured.append(_measured())
+
+
+def _in_a_fresh_thread(fn):
+    """``fn()`` in a thread of its own, its result or its exception: PyTorch
+    keeps cuDNN's chosen engines per thread, so the thread starts with none
+    and every problem it runs is searched there."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        return pool.submit(fn).result()
+
+
+@pytest.mark.cuda
+def test_cuda_timed_engines_graphed_epoch_is_the_eager_epoch(monkeypatch):
+    """cuDNN timing its engines (the Engine's policy) with deterministic
+    set, MTnnUNet at the paper's widths, 128², batch 2: the graphed Engine's
+    eager warm-up step measures the step's problems, its capture and every
+    replay measure none, and its epochs equal an eager Engine's bit for bit
+    (the eager Engine runs after it in the same thread: the same engines)."""
+    _cuda_or_skip()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(graphs, "Program", _CountedCaptures)
+    monkeypatch.setattr(_CountedCaptures, "measured", [])
+
+    def runs():
+        start = _measured()
+        graphed = _cuda_step_runs("float32", NNUNET_WIDTHS, 128, order=(True,))
+        after_graphed = _measured()
+        eager = _cuda_step_runs("float32", NNUNET_WIDTHS, 128, order=(False,))
+        return start, after_graphed, _measured(), {**graphed, **eager}
+
+    start, after_graphed, end, runs = _in_a_fresh_thread(runs)
+    assert torch.backends.cudnn.benchmark is True
+    assert torch.backends.cudnn.allow_tf32 is False
+    captured = _CountedCaptures.measured
+    assert len(captured) == 2, captured  # one capture: the graphed Engine's step
+    assert captured[0] - start > 0  # the warm-up step searched
+    assert captured[0] == captured[1] == after_graphed == end  # capture, replays, eager run
+    (m_e, c_e, w_e, s_e), (m_g, c_g, w_g, s_g) = runs[False], runs[True]
+    assert m_e == m_g, (m_e, m_g)
+    assert c_e == c_g == (25 * 6, 25 * 6, 6), (c_e, c_g)
+    assert all(torch.equal(w_e[k], w_g[k]) for k in w_e)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(s_e, s_g) for k in a)
+
+
+@pytest.mark.cuda
+def test_cuda_timed_engines_serving_bucket_searches_before_its_capture(monkeypatch):
+    """One serving bucket (``CheckpointBackend``, the paper's widths, 128²,
+    max batch 4): its eager warm-up measures the forward's problems, its
+    capture and the replays of every request measure none, and its answers
+    equal an eager backend's bit for bit (deterministic set)."""
+    _cuda_or_skip()
+    from multi_task_breast_cancer_tpu_torch.config import Config, ModelConfig
+    from multi_task_breast_cancer_tpu_torch.serve.server import CheckpointBackend
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(graphs, "Program", _CountedCaptures)
+    monkeypatch.setattr(_CountedCaptures, "measured", [])
+    cfg = Config(model=ModelConfig(architecture="MTnnUNet", nnunet_widths=list(NNUNET_WIDTHS)))
+    images = np.random.default_rng(0).integers(0, 256, (7, 128, 128, 1)).astype(np.uint8)
+
+    def serve():
+        start = _measured()
+        graphed = CheckpointBackend(cfg, "multitask", size=128, max_batch=4, device="cuda")
+        assert graphed.graphed and graphed.buckets == [4]
+        built = _measured()
+        got = graphed.predict(images)  # two replays: 4 rows, then 3 padded to 4
+        replayed = _measured()
+        eager = CheckpointBackend(cfg, "multitask", size=128, max_batch=4, device="cuda",
+                                  cuda_graphs=False)
+        return start, built, replayed, _measured(), got, eager.predict(images)
+
+    start, built, replayed, end, got, want = _in_a_fresh_thread(serve)
+    captured = _CountedCaptures.measured
+    assert len(captured) == 2, captured
+    assert captured[0] - start > 0  # the bucket's warm-up searched
+    assert captured[0] == captured[1] == built == replayed == end
+    assert all(np.array_equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))

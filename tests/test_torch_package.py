@@ -15,7 +15,11 @@ import torch
 
 import multi_task_breast_cancer_tpu.config as jax_config
 import multi_task_breast_cancer_tpu_torch.config as port_config
-from multi_task_breast_cancer_tpu_torch.device import resolve_device
+from multi_task_breast_cancer_tpu_torch.device import (
+    CUDNN_BENCHMARK_LIMIT,
+    resolve_device,
+    set_float32_policy,
+)
 from multi_task_breast_cancer_tpu_torch.serve.server import ArtifactBackend, CheckpointBackend
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -68,7 +72,8 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
 def test_engine_on_cuda_turns_tf32_off(monkeypatch):
     """An Engine built for the card with ``compute_dtype: float32`` computes
     convolutions and matmuls in float32, whoever built it (the driver, a
-    script), not only under the smoke's global switches."""
+    script), not only under the smoke's global switches; cuDNN times its
+    engines."""
     from torch import nn
 
     from multi_task_breast_cancer_tpu_torch.train import loop
@@ -77,13 +82,51 @@ def test_engine_on_cuda_turns_tf32_off(monkeypatch):
         def to(self, *args, **kwargs):  # stays on the CPU
             return self
 
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    _flip_switches(monkeypatch)
     monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda", 0))
     engine = loop.Engine(_Stub(1, 1), loop.EngineConfig(task="segmentation"))
     assert engine.device.type == "cuda"
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.benchmark is True
+
+
+def _flip_switches(monkeypatch) -> dict:
+    """Every switch of the port's policy set against it (TF32 on, cuDNN's
+    timed choice off, a search limit the port never sets, deterministic
+    on), each put back after the test; returns them."""
+    flipped = {(torch.backends.cudnn, "allow_tf32"): True,
+               (torch.backends.cuda.matmul, "allow_tf32"): True,
+               (torch.backends.cudnn, "benchmark"): False,
+               (torch.backends.cudnn, "benchmark_limit"): 3,
+               (torch.backends.cudnn, "deterministic"): True}
+    for (owner, name), value in flipped.items():
+        monkeypatch.setattr(owner, name, value)
+    return flipped
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_policy_on_cuda_times_cudnn_engines_with_tf32_off(monkeypatch, dtype):
+    """On the card: cuDNN times its engines for each convolution problem,
+    at most ``CUDNN_BENCHMARK_LIMIT`` of them; TF32 stays off in cuDNN and
+    in matmuls; ``cudnn.deterministic`` stays as the caller has it."""
+    _flip_switches(monkeypatch)
+    set_float32_policy(torch.device("cuda"), dtype)
+    assert torch.backends.cudnn.benchmark is True
+    assert torch.backends.cudnn.benchmark_limit == CUDNN_BENCHMARK_LIMIT
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.deterministic is True
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_policy_on_the_cpu_leaves_every_switch(monkeypatch, dtype):
+    flipped = _flip_switches(monkeypatch)
+    set_float32_policy(torch.device("cpu"), dtype)
+    assert {key: getattr(*key) for key in flipped} == flipped
+    with pytest.raises(ValueError, match="compute_dtype"):
+        set_float32_policy(torch.device("cuda"), "float16")
+    assert {key: getattr(*key) for key in flipped} == flipped
 
 
 def test_serve_cli_requires_a_model(monkeypatch):

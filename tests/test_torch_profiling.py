@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
+from collections import defaultdict
 
 import numpy as np
 import pytest
 import torch
 
-from multi_task_breast_cancer_tpu_torch.models import registry
+from multi_task_breast_cancer_tpu_torch.models import blocks, registry
 from multi_task_breast_cancer_tpu_torch.ops import _build
 from multi_task_breast_cancer_tpu_torch.train.loop import Engine, EngineConfig
 from multi_task_breast_cancer_tpu_torch.train.state import create_train_state
@@ -106,6 +108,119 @@ def test_counters_always_count_and_are_read_as_copies():
     assert after["test.things"] - before.get("test.things", 0) == 6
     after["test.things"] = -1
     assert P.counters()["test.things"] != -1
+
+
+def test_count_once_counts_each_key_once(monkeypatch):
+    monkeypatch.setattr(P, "_SEEN", defaultdict(set))
+    before = P.counters().get("test.once", 0)
+    for key in ("a", "b", "a", ("c", 1), ("c", 1), "b"):
+        P.count_once("test.once", key)
+    assert P.counters()["test.once"] - before == 3
+    P.count_once("test.other", "a")  # keys are kept per counter
+    assert P.counters()["test.other"] >= 1 and P.counters()["test.once"] - before == 3
+
+
+@pytest.fixture
+def counting_convs(monkeypatch):
+    """cuDNN's timed choice on and ``conv.problems_measured``'s keys fresh;
+    the CPU has no cuDNN, so the predicate is left to the switch alone (its
+    other half, a CUDA input, holds on the card: ``tests/test_torch_graphs.py``'s
+    ``cuda`` tests)."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(P, "_SEEN", defaultdict(set))
+    monkeypatch.setattr(blocks, "_cudnn_times", lambda x: torch.backends.cudnn.benchmark)
+
+
+def _measured() -> int:
+    return P.counters().get("conv.problems_measured", 0)
+
+
+def test_conv_problems_measured_counts_each_problem_once(counting_convs, monkeypatch):
+    """Each distinct problem of the port's convolution modules counts once:
+    two modules of one problem once, a repeated shape never again; a new
+    batch, size, stride, dtype, ``cudnn.deterministic`` or thread anew; and
+    nothing with the switch off."""
+    torch.manual_seed(0)
+    a, twin = blocks.Conv3x3(4, 8), blocks.Conv3x3(4, 8)
+    one, up, head = blocks.conv1x1(8, 2), blocks.deconv(8, 8, 2), blocks.DeconvHead(8, 1, 4)
+    for p in head.parameters():
+        torch.nn.init.normal_(p)
+
+    def forward(x):
+        h = a(x)
+        twin(x)
+        return one(h), up(h), head(h)
+
+    x = torch.randn(2, 4, 16, 16)
+    start = _measured()
+    grown = lambda: _measured() - start  # noqa: E731
+    forward(x)
+    assert grown() == 4  # Conv3x3 (both modules), conv1x1, deconv, DeconvHead
+    forward(x)
+    assert grown() == 4
+    forward(torch.randn(3, 4, 16, 16))
+    assert grown() == 8
+    forward(torch.randn(2, 4, 8, 8))
+    assert grown() == 12
+    blocks.Conv3x3(4, 8, stride=2)(x)
+    assert grown() == 13
+    a.double()(x.double())
+    assert grown() == 14
+    a.float()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    a(x)
+    a(x)
+    assert grown() == 15
+    other = threading.Thread(target=lambda: a(x))
+    other.start()
+    other.join()
+    assert grown() == 16
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    forward(torch.randn(5, 4, 16, 16))
+    assert grown() == 16
+
+
+def test_conv_problems_measured_counts_nothing_on_the_cpu(monkeypatch):
+    """With the switch on, a CPU input (no cuDNN) counts nothing."""
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    model = registry.init_multitask_model("MTnnUNet", nnunet_widths=WIDTHS,
+                                          generator=torch.Generator().manual_seed(3))
+    before = _measured()
+    with torch.no_grad():
+        model(torch.randn(2, 1, SIZE, SIZE))
+    assert _measured() == before
+    assert not blocks._cudnn_times(torch.zeros(1, 1, 4, 4))
+
+
+def test_graphed_engine_measures_in_its_warm_up_and_validation_only(counting_convs, stand_in):
+    """The Engine's graphed path on the stand-in capture: the eager warm-up
+    step measures MTnnUNet's problems at the training batch and the first
+    validation those at the validation batch; the capture, every replay and
+    the second epoch add nothing."""
+    engine = _engine(cuda_graphs_on_cpu=True)
+    at_capture = []
+    capture = engine._capture_step
+
+    def counted_capture(*args, **kwargs):
+        at_capture.append(_measured())
+        out = capture(*args, **kwargs)
+        at_capture.append(_measured())
+        return out
+
+    engine._capture_step = counted_capture
+    start = _measured()
+    _epochs(engine, np.array([1, 1, 1], np.float32), with_validation=False)
+    assert len(at_capture) == 2
+    warm_up = at_capture[0] - start
+    assert warm_up >= 10, warm_up
+    assert _measured() == at_capture[0] == at_capture[1]
+    state = create_train_state(engine.model, "Adam", 1e-3)
+    val = engine.device_data(_fold(4, 6, SIZE), for_training=False)
+    engine.eval_epoch(state, val)
+    assert _measured() - at_capture[1] == warm_up  # batch 4: each forward problem anew
+    engine.eval_epoch(state, val)
+    assert _measured() - at_capture[1] == warm_up
 
 
 def test_step_timer_sums_are_unchanged_and_each_phase_is_a_span():

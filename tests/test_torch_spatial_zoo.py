@@ -41,7 +41,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from multi_task_breast_cancer_tpu_torch.models import registry
+from multi_task_breast_cancer_tpu_torch.models import blocks, registry
 from multi_task_breast_cancer_tpu_torch.models.blocks import (
     Conv3x3,
     Dropout,
@@ -623,6 +623,20 @@ def _narrow(arch: str) -> torch.nn.Module:
     if arch in registry.CLASSIFICATION_ARCHS:
         return registry.init_classification_model(arch, size=32, **kw)
     return registry.init_multitask_model(arch, size=32, **kw)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_convolution_counts_its_cudnn_problem(arch):
+    """Each of the 17 architectures: every convolution module derives from
+    the counted classes (``blocks.note_conv_problem``), so a problem cuDNN
+    times its engines for while the switch is on shows in
+    ``conv.problems_measured``."""
+    model = _narrow(arch)
+    convs = {name: m for name, m in model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))}
+    assert convs, arch
+    assert [(name, type(m).__name__) for name, m in convs.items()
+            if not isinstance(m, (blocks.CountedConv2d, blocks.CountedConvTranspose2d))] == []
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
