@@ -23,13 +23,23 @@ rows (:func:`~..parallel.spatial.gather_rows`), runs replicated on the whole
 grid and keeps this rank's rows after its ``PatchMerging``; its grid is at
 most 1/16 of the input's side. The convolutions take their halo rows
 (:class:`~.blocks.Conv3x3`).
+
+Spans (:mod:`..utils.profiling`): ``swin.attention`` (each
+:class:`WindowAttention` call), ``swin.mlp`` (a block's fc1 → GELU → fc2),
+``swin.merge`` (each :class:`PatchMerging`) and ``swin.decoder`` (the UNETR
+conv blocks: ``encoder0``, then the other encoders, the decoders and the
+head). The counter ``swin.attention_windows`` adds the window × head pairs
+each :class:`WindowAttention` call attends: 720 per 128² image per forward.
+A captured step counts once, at its capture; a replay runs no Python.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Sequence
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +54,7 @@ from multi_task_breast_cancer_tpu_torch.models.blocks import (
     deconv,
 )
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
+from multi_task_breast_cancer_tpu_torch.utils import profiling
 
 WINDOW = 8
 
@@ -126,9 +137,11 @@ class WindowAttention(nn.Module):
         self.rel_pos_bias = nn.Parameter(torch.zeros((2 * win - 1) ** 2, num_heads))
         self.proj = nn.Linear(dim, dim)
 
+    @profiling.spanned("swin.attention")
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         nw, L, _ = x.shape
         heads, head_dim = self.num_heads, self.dim // self.num_heads
+        profiling.count("swin.attention_windows", nw * heads)
         qkv = self.qkv(x).reshape(nw, L, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
         # f32 logits from the input's products (JAX: preferred_element_type
@@ -174,7 +187,9 @@ class SwinBlock(nn.Module):
         if s:
             y = _roll(y, s, space)
         x = x + y
-        y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="tanh"))
+        y = self.norm2(x)
+        with profiling.span("swin.mlp"):
+            y = self.mlp_fc2(F.gelu(self.mlp_fc1(y), approximate="tanh"))
         return x + y
 
 
@@ -196,10 +211,77 @@ class PatchMerging(nn.Module):
         self.norm = LayerNorm(4 * dim)
         self.reduction = nn.Linear(4 * dim, out_dim, bias=False)
 
+    @profiling.spanned("swin.merge")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
         return self.reduction(self.norm(x.reshape(b, h // 2, w // 2, 4 * c)))
+
+
+_CUDNN_SWITCHES = threading.Lock()  # cuDNN's switches are the process's, not a thread's
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn() -> Iterator[None]:
+    """Inside, cuDNN runs the engine its heuristics choose among its
+    deterministic ones (``cudnn.deterministic`` on, ``cudnn.benchmark``
+    off): the same engine in every process, where timing the engines could
+    pick another in each. The switches are the process's: one thread at a
+    time sets and puts them back, and a convolution another thread launches
+    meanwhile runs under them too."""
+    cudnn = torch.backends.cudnn
+    with _CUDNN_SWITCHES:
+        before = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.benchmark = before
+
+
+class _DeterministicConv(torch.autograd.Function):
+    """``torch.ops.aten.convolution`` (dilation 1, one group, no output
+    padding) whose forward and backward both run under
+    :func:`_deterministic_cudnn`. Autograd runs a backward outside the
+    forward's context, so a switch set around the forward alone would
+    leave the backward's weight and data gradients to cuDNN's
+    nondeterministic engines (``wgrad_alg0_engine`` and others), which
+    accumulate with atomics in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride: Tuple[int, int], padding: Tuple[int, int], transposed: bool
+                ) -> torch.Tensor:
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, transposed, None if bias is None else list(bias.shape))
+        with _deterministic_cudnn():
+            return torch.ops.aten.convolution(x, weight, bias, stride, padding, (1, 1),
+                                              transposed, (0, 0), 1)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, weight = ctx.saved_tensors
+        stride, padding, transposed, bias_sizes = ctx.conv
+        needs = ctx.needs_input_grad
+        with _deterministic_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, bias_sizes, stride, padding, (1, 1), transposed, (0, 0), 1,
+                [needs[0], needs[1], bias_sizes is not None and needs[2]])
+        return gx, gw, gb, None, None, None
+
+
+def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for the model's convolutions and transposed
+    convolutions. On a CUDA device, outside a ``space`` group and a trace,
+    through :class:`_DeterministicConv`: two runs of a step on the same
+    inputs give the same gradients bit for bit, in one process or two,
+    while every other model keeps the engines ``cudnn.benchmark`` times for
+    it. No engine is timed here, so no problem counts as measured
+    (``conv.problems_measured``). Elsewhere ``conv(x)`` itself."""
+    if not x.is_cuda or spatial.current() is not None or torch.compiler.is_compiling():
+        return conv(x)
+    return _DeterministicConv.apply(x, conv.weight, conv.bias, tuple(conv.stride),
+                                    tuple(conv.padding), isinstance(conv, nn.ConvTranspose2d))
 
 
 class UnetrBasicBlock(nn.Module):
@@ -218,9 +300,9 @@ class UnetrBasicBlock(nn.Module):
             self.norm_skip = InstanceNorm(features, affine=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.leaky_relu(self.norm1(self.conv1(x)), 0.01)
-        y = self.norm2(self.conv2(y))
-        skip = x if self.conv_skip is None else self.norm_skip(self.conv_skip(x))
+        y = F.leaky_relu(self.norm1(_conv(self.conv1, x)), 0.01)
+        y = self.norm2(_conv(self.conv2, y))
+        skip = x if self.conv_skip is None else self.norm_skip(_conv(self.conv_skip, x))
         return F.leaky_relu(y + skip, 0.01)
 
 
@@ -232,7 +314,7 @@ class UnetrUpBlock(nn.Module):
         self.block = UnetrBasicBlock(features + skip_features, features)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.block(torch.cat([self.up(x), skip], dim=1))
+        return self.block(torch.cat([_conv(self.up, x), skip], dim=1))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -304,18 +386,20 @@ class SwinUNETR(nn.Module):
         if rows != self.size:
             raise ValueError(f"this SwinUNETR was built for {self.size}² inputs "
                              f"(its window sizes follow the side), not {rows}²")
-        enc0 = self.encoder0(x)
-        h = self.patch_embed(x).permute(0, 2, 3, 1)
+        with profiling.span("swin.decoder"):
+            enc0 = self.encoder0(x)
+        h = _conv(self.patch_embed, x).permute(0, 2, 3, 1)
         hidden = [h]
         for stage in range(4):
             h = self._stage(stage, h)
             hidden.append(h)
-        enc1 = self.encoder1(_nchw(hidden[0]))
-        enc2 = self.encoder2(_nchw(hidden[1]))
-        enc3 = self.encoder3(_nchw(hidden[2]))
-        dec4 = self.encoder10(_nchw(hidden[4]))
-        d3 = self.decoder5(dec4, _nchw(hidden[3]))
-        d2 = self.decoder4(d3, enc3)
-        d1 = self.decoder3(d2, enc2)
-        d0 = self.decoder2(d1, enc1)
-        return self.out(self.decoder1(d0, enc0))
+        with profiling.span("swin.decoder"):
+            enc1 = self.encoder1(_nchw(hidden[0]))
+            enc2 = self.encoder2(_nchw(hidden[1]))
+            enc3 = self.encoder3(_nchw(hidden[2]))
+            dec4 = self.encoder10(_nchw(hidden[4]))
+            d3 = self.decoder5(dec4, _nchw(hidden[3]))
+            d2 = self.decoder4(d3, enc3)
+            d1 = self.decoder3(d2, enc2)
+            d0 = self.decoder2(d1, enc1)
+            return _conv(self.out, self.decoder1(d0, enc0))
