@@ -59,6 +59,15 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    in turns, the plain version's time, the launch floor and the bound:
    selected source planes and output once, factors once (no single
    PyTorch call computes this function: no library time);
+6a. LayerNorm kernels (``phase_layer_norm``; alone:
+   ``phase_layer_norm_alone``): ``ops/layer_norm.py``'s forward, backward
+   and parameter-gradient kernels at the 20 LayerNorm sites of a SwinUNETR
+   step (batch 2, 128²), f32 and bf16: ptxas's registers and spills, the
+   forward, statistics and three gradients against the plain twin (in f32
+   on the same values, rounded once to the working type), two
+   backward calls bit for bit, and per site the forward's and the
+   backward's times beside their bytes bound, the plain twin's and
+   ``F.layer_norm``'s (forward and autograd backward, timed here only);
 7. training, a main path: ``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4,
    fused DICE + Focal, fast augmentation on, f32), the full-width model from
    generator seed 0, on a seeded synthetic 128² fold (48 train, 12 val, two
@@ -164,7 +173,9 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    learning rate halved, then 4 real) and 4 batch-64 f32 steps, Adam at the
    ``Config()`` defaults, fast augmentation: the epoch metrics, parameters,
    buffers, Adam's moments and step after every epoch and where the
-   dropout generator ends, bit for bit, the #1/#2/#3 launches equal; an
+   dropout generator ends, bit for bit, the #1/#2/#3 launches equal, and
+   SwinUNETR's LayerNorm launches 20/20/20 a real step both ways and 20
+   forwards a validation pass (the whole split, graphed == eager); an
    epoch of padding steps replaying nothing; the step after the lr change
    differing from a graphed run without it; UNet with the exact
    augmentation and the Hausdorff criterion the same way (4 steps); the
@@ -249,7 +260,10 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    ``parallel`` 7c's launches per rank of each multi-rank run; the four
    split entry points with 7d's launches (both ranks) and 5a's totals over
    the sites at batch 64 f32 (one part of two; ``batch_2``, ``bf16``
-   beside); then, last, ``{"ok": true, "device": ...}``.
+   beside); the three LayerNorm entry points with their launches per step
+   and per validation pass of 7f's graphed SwinUNETR Engine (each case)
+   and 6a's totals over SwinUNETR's sites; then, last, ``{"ok": true,
+   "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
 (two bf16 forwards round at other places, so each is held to its own f32
@@ -1269,13 +1283,23 @@ def _counts():
             hk.instance_norm_leaky_relu_backward.launches, FA.fast_augment.launches)
 
 
+def _ln_counts():
+    """The LayerNorm kernels' launches: forward, backward, parameter
+    gradient."""
+    from multi_task_breast_cancer_tpu_torch.ops import layer_norm as L
+    return L.layer_norm.launches, L.layer_norm_backward.launches, L.layer_norm_param_grad.launches
+
+
 def _reset_counts() -> None:
     from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.ops import layer_norm as L
     from multi_task_breast_cancer_tpu_torch.parallel import spatial
     hk.instance_norm_leaky_relu.launches = 0
     hk.instance_norm_leaky_relu_backward.launches = 0
     FA.fast_augment.launches = 0
+    for fn in (L.layer_norm, L.layer_norm_backward, L.layer_norm_param_grad):
+        fn.launches = 0
     for name in SPLIT_ENTRIES:
         getattr(hk, name).launches = 0
     spatial.reset_counts()
@@ -2341,7 +2365,8 @@ def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epo
             set_learning_rate(state.optimizer, cfg.optimizer.lr * cfg.optimizer.decrease_factor)
     torch.cuda.synchronize()
     return {"engine": engine, "state": state, "data": data, "metrics": metrics, "snaps": snaps,
-            "counts": _counts(), "drop": drop, "drop_state": drop.get_state()}
+            "counts": _counts(), "ln_counts": _ln_counts(), "drop": drop,
+            "drop_state": drop.get_state()}
 
 
 def _graph_pool_mib(pool):
@@ -2356,7 +2381,8 @@ def _graph_pool_mib(pool):
                if tuple(s["segment_pool_id"]) == tuple(pool)) / 2 ** 20
 
 
-def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple) -> None:
+def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple,
+                    want_ln: tuple = (0, 0, 0)) -> None:
     import torch
     check(g["metrics"] == e["metrics"], f"{what}: epoch metrics graphed {g['metrics']} "
                                         f"vs eager {e['metrics']}")
@@ -2365,6 +2391,9 @@ def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple) -> None:
                                  f"epoch {k} differ, graphed vs eager")
     check(g["counts"] == e["counts"] == want,
           f"{what}: launches graphed {g['counts']}, eager {e['counts']}, want {want}")
+    check(g["ln_counts"] == e["ln_counts"] == want_ln,
+          f"{what}: LayerNorm launches graphed {g['ln_counts']}, eager {e['ln_counts']}, "
+          f"want {want_ln}")
     check(torch.equal(g["drop_state"], e["drop_state"]),
           f"{what}: the dropout generator ended elsewhere, graphed vs eager")
 
@@ -2461,6 +2490,7 @@ def graphs_training_case(arch: str, card: str) -> dict:
     import torch
     init = {k: v.clone() for k, v in _graph_model(arch).state_dict().items()}
     n_norm = 25 if arch == "MTnnUNet" else 0
+    n_ln = 20 if arch == "SwinUNETR" else 0   # its LayerNorm sites a forward
     out = {}
     for dtype, b, epochs in (("float32", 2, GRAPH_EPOCHS), ("bfloat16", 2, GRAPH_EPOCHS),
                              ("float32", BATCH, GRAPH_EPOCHS_64)):
@@ -2470,11 +2500,28 @@ def graphs_training_case(arch: str, card: str) -> dict:
         runs = {True: _graph_run(arch, dtype, b, True, init, ds, epochs, capture=capture),
                 False: _graph_run(arch, dtype, b, False, init, ds, epochs)}
         real = sum(sum(v) for v in epochs)
-        _graph_vs_eager(what, runs[True], runs[False], (n_norm * real, n_norm * real, real))
+        _graph_vs_eager(what, runs[True], runs[False], (n_norm * real, n_norm * real, real),
+                        (n_ln * real,) * 3)
         g = runs[True]
         line = (f"  {what}: {sum(map(len, epochs))} steps ({real} real) graphed == eager: "
                 f"losses and metrics, parameters, buffers, Adam's moments and step bit for bit "
-                f"after every epoch; launches {g['counts']} both")
+                f"after every epoch; launches {g['counts']} both, LayerNorm {g['ln_counts']}")
+        if n_ln:
+            # validation: the whole split in one batch, one forward of the model
+            val = {}
+            for g_, r in runs.items():
+                _reset_counts()
+                val[g_] = (r["engine"].eval_epoch(r["state"], r["data"]), _ln_counts())
+            mg, me = val[True][0], val[False][0]
+            same = mg.keys() == me.keys() and all(   # NaN equals NaN here
+                mg[k] == me[k] or (mg[k] != mg[k] and me[k] != me[k]) for k in mg)
+            check(same and val[True][1] == val[False][1] == (n_ln, 0, 0),
+                  f"{what}: validation graphed {val[True]}, eager {val[False]}, want the same "
+                  f"metrics and LayerNorm launches {(n_ln, 0, 0)}")
+            out.setdefault("layer_norm", {})[f"{dtype}_b{b}"] = {
+                "per_step": [x // real for x in g["ln_counts"]],
+                "per_validation": list(val[True][1])}
+            line += f", {val[True][1]} in a validation pass, graphed == eager"
         if b == 2 and dtype == "float32":
             # padding steps: an epoch of them replays nothing and moves nothing
             before = _snapshot(g["state"])
@@ -2482,7 +2529,8 @@ def graphs_training_case(arch: str, card: str) -> dict:
             g["engine"].train_epoch(g["state"], g["data"], np.arange(2 * b),
                                     torch.Generator().manual_seed(7), np.zeros(2, np.float32),
                                     g["drop"])
-            check(_counts() == (0, 0, 0) and _same_state(before, _snapshot(g["state"])),
+            check(_counts() == _ln_counts() == (0, 0, 0)
+                  and _same_state(before, _snapshot(g["state"])),
                   f"{what}: graphed padding steps changed the state or launched a kernel")
             # the lr change takes effect in the replays
             same_lr = _graph_run(arch, dtype, b, True, init, ds, epochs[:2], lr_change=False)
@@ -5729,6 +5777,138 @@ def phase_spatial_zoo_alone() -> None:
     log(json.dumps({"spatial_zoo_launches": phase_spatial_zoo()}))
 
 
+def swin_layer_norm_sites(batch: int = 2) -> Counter:
+    """(rows, C) of every LayerNorm site of one SwinUNETR forward at SIZE²
+    and ``batch`` (the registry's model: feature 24, depths 2-2-2-2),
+    counted."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models import blocks, registry
+    model = registry.init_segmentation_model("SwinUNETR", size=SIZE).to(DEVICE)
+    seen = Counter()
+    hooks = [m.register_forward_hook(
+        lambda _m, inp, _o: seen.update([(inp[0].numel() // inp[0].shape[-1],
+                                          inp[0].shape[-1])]))
+        for m in model.modules() if isinstance(m, blocks.LayerNorm)]
+    with torch.inference_mode():
+        model(torch.zeros(batch, 1, SIZE, SIZE, device=DEVICE))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def phase_layer_norm() -> dict:
+    """The LayerNorm kernels (``ops/layer_norm.py``) at every site of a
+    SwinUNETR training step (batch 2, 128²), f32 and bf16: the forward, the
+    saved statistics and the three gradients against the plain twin on the
+    card (tolerances of ``tests/test_torch_layer_norm.py``), two backward
+    calls bit for bit; ptxas's registers and spills of every instantiation;
+    per site the forward's and the backward's (two launches) times beside
+    their bytes bound, the plain twin's (its forward, the autograd backward
+    through it) and ``F.layer_norm``'s (forward, autograd backward; timed
+    here only, never called by the port), and the totals over the sites.
+    Returns the f32 and bf16 totals."""
+    import torch
+    import torch.nn.functional as F
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    from multi_task_breast_cancer_tpu_torch.ops import layer_norm as L
+
+    _build.library("layer_norm")
+    rows_ = ptxas_report(_build.build_log("layer_norm"))
+    check(bool(rows_), "no ptxas report for the LayerNorm kernels")
+    log("LayerNorm kernels, ptxas -v (registers, spill store/load bytes, static shared memory):")
+    for name, regs, st, ld, smem in sorted(rows_):
+        log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B  smem {smem} B")
+    sites = swin_layer_norm_sites()
+    check(sum(sites.values()) == 20, f"SwinUNETR's LayerNorm sites: {dict(sites)}")
+    floor = launch_floor_ms()
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        keys = ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "plain_fwd_ms",
+                "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms")
+        totals = dict.fromkeys(keys, 0.0)
+        log(f"LayerNorm at SwinUNETR's {sum(sites.values())} sites, batch 2, "
+            f"{str(dtype)[6:]}:")
+        for (rows, c), n in sorted(sites.items(), key=lambda kv: kv[0][1]):
+            x = (torch.randn(rows, c, device=DEVICE, generator=g) * 2 + 5).to(dtype)
+            scale = torch.randn(c, device=DEVICE, generator=g).to(dtype)
+            bias = torch.randn(c, device=DEVICE, generator=g).to(dtype)
+            dy = torch.randn(rows, c, device=DEVICE, generator=g).to(dtype)
+            y, stats = L._forward(x, scale, bias, 1e-6)
+            got = L.layer_norm_backward(x, dy, scale, stats)
+            again = L.layer_norm_backward(x, dy, scale, stats)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"two LayerNorm backward calls differ at rows={rows} C={c} {dtype}")
+            # the plain twin in f32 on the same values, each result rounded
+            # once to the working type, as the kernels round
+            leaves = [t.float().requires_grad_() for t in (x, scale, bias)]
+            want_f32 = L.layer_norm_reference(*leaves)
+            want = [w.to(dtype) for w in torch.autograd.grad(want_f32, leaves, dy.float())]
+            want_y = want_f32.detach().to(dtype)
+            want_stats = L.layer_norm_statistics_reference(x)
+            xhat = (x.float() - want_stats[:, :1]) * want_stats[:, 1:].abs()
+            scales = (max(1.0, want_y.float().abs().max().item()),
+                      want[0].float().abs().max().item(),
+                      (dy.float() * xhat).abs().sum(0).max().item(),
+                      dy.float().abs().sum(0).max().item())
+            errs = []
+            for what, a, b, sc in zip(("y", "dx", "dscale", "dbias"), (y, *got),
+                                      (want_y, *want), scales):
+                err = (a.float() - b.float()).abs()
+                bound = F32_TOL * sc + (BF16_REL_TOL * b.float().abs()
+                                        if dtype == torch.bfloat16 else 0.0)
+                check(bool((err <= bound).all()), f"LayerNorm {what} != plain at rows={rows} "
+                      f"C={c} {dtype}: max abs err {err.max().item():.3g} (scale {sc:.3g})")
+                errs.append(err.max().item() / sc)
+            s = x.element_size()
+            leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+            plain_y = L.layer_norm_reference(*leaves)
+            numbers = {
+                "fwd_ms": time_ms(lambda: L._forward(x, scale, bias, 1e-6)),
+                "bwd_ms": time_ms(lambda: L.layer_norm_backward(x, dy, scale, stats)),
+                # x read, y written, (mean, rstd) written, scale and bias read
+                "fwd_bound_ms": (2 * x.numel() * s + 8 * rows + 2 * c * s)
+                / HBM_BYTES_PER_S * 1e3,
+                # x, dy read, dx written, the statistics read, scale read,
+                # dscale and dbias written
+                "bwd_bound_ms": (3 * x.numel() * s + 8 * rows + 3 * c * s)
+                / HBM_BYTES_PER_S * 1e3,
+                "plain_fwd_ms": time_ms(lambda: L.layer_norm_reference(x, scale, bias)),
+                "plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                    plain_y, leaves, dy, retain_graph=True)),
+                "library_fwd_ms": time_ms(lambda: F.layer_norm(x, (c,), scale, bias, 1e-6)),
+            }
+            lib_y = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-6)
+            numbers["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_y, leaves, dy, retain_graph=True))
+            del lib_y, plain_y, leaves
+            plan = L.plan_for(x, scale, bias, y)
+            log(f"  rows={rows:5d} C={c:4d} x{n} G={plan.group} V={plan.vectors} "
+                f"T={plan.threads} blocks {plan.blocks}/{plan.parts}  rel err "
+                + " ".join(f"{e:.2g}" for e in errs) + "  "
+                + "  ".join(f"{k} {v:.4f}" for k, v in numbers.items()))
+            for k, v in numbers.items():
+                totals[k] += n * v
+        log(f"LayerNorm totals over the 20 sites, {str(dtype)[6:]}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in totals.items())
+            + f"; launch floor x60 {60 * floor:.4f}")
+        result[str(dtype)[6:]] = totals
+    return result
+
+
+def phase_layer_norm_alone() -> None:
+    """The LayerNorm phase by itself.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_layer_norm_alone()"``
+    from the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    log(json.dumps({"layer_norm": phase_layer_norm()}))
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -5753,13 +5933,15 @@ def main() -> int:
     backward, backward_bf16 = totals[2][F32], {b: totals[b][BF16] for b in (2, BATCH)}
     split = phase_split_kernel(shapes)
     augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
+    layer_norm_totals = phase_layer_norm()
     work = tempfile.mkdtemp(prefix="mtbc_smoke_")
     try:
         (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
         h_fwd, h_bwd, h_aug = phase_training_bf16(f32_times)
         e_fwd, e16_fwd = phase_export(ckpt, work)
-        log(json.dumps({"graphs": phase_graphs({"f32": os.path.join(work, "artifact_f32"),
-                                                 "bf16": os.path.join(work, "artifact_bf16")})}))
+        graphs = phase_graphs({"f32": os.path.join(work, "artifact_f32"),
+                               "bf16": os.path.join(work, "artifact_bf16")})
+        log(json.dumps({"graphs": graphs}))
         (p_fwd, p_bwd, p_aug), parallel_rows, parallel_graphs = phase_parallel(
             os.path.join(work, "artifact_f32"))
         log(json.dumps({"parallel_graphs": parallel_graphs}))
@@ -5781,6 +5963,7 @@ def main() -> int:
                 "launches_per_rank": {what: [r[i] for r in rows]
                                       for what, rows in parallel_rows.items()}}
 
+    ln_path = graphs["SwinUNETR"]["layer_norm"]
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
@@ -5819,7 +6002,15 @@ def main() -> int:
            "launches": spatial_launches[name], **split[BATCH][F32][name],
            "parts": 2, "batch_2": split[2][F32][name],
            "bf16": {f"batch_{b}": split[b][BF16][name] for b in (2, BATCH)}}
-          for name in SPLIT_ENTRIES)]}))
+          for name in SPLIT_ENTRIES),
+        *({"name": name, "route": "cuda",
+           "source": "multi_task_breast_cancer_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+           "swinunetr_graphed_training": {
+               case: {"per_step": r["per_step"][i], "per_validation": r["per_validation"][i]}
+               for case, r in ln_path.items()},
+           "swinunetr_sites_batch_2": layer_norm_totals}
+          for i, name in enumerate(("layer_norm", "layer_norm_backward",
+                                    "layer_norm_param_grad")))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

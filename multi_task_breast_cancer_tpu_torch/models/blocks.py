@@ -13,7 +13,8 @@ from an explicit ``torch.Generator``.
 The flax layers the rest of the zoo uses, with flax's semantics where they
 differ from torch's: :class:`BatchNorm` (flax ``nn.BatchNorm``: the biased
 batch variance in the running update), :class:`GroupNorm` and
-:class:`LayerNorm` (eps 1e-6), :class:`PReLU` (one 0-d slope),
+:class:`LayerNorm` (eps 1e-6; on the card the hand-written kernels of
+:mod:`..ops.layer_norm`), :class:`PReLU` (one 0-d slope),
 :class:`Dropout` (draws from an explicit generator, :func:`dropout_draws`),
 and the ``padding="SAME"`` convolutions :class:`SameConv2d` and
 :class:`SameConvTranspose2d`. Flax's ``nn.gelu`` is ``F.gelu(x,
@@ -61,6 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import instance_norm_leaky_relu
+from multi_task_breast_cancer_tpu_torch.ops.flax_norm import f32_normalize, fast_stats, stats_dtype
+from multi_task_breast_cancer_tpu_torch.ops.layer_norm import layer_norm
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.utils import profiling
 
@@ -186,8 +189,9 @@ def flatten_hwc(x: torch.Tensor) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalisation over H, W (eps=1e-5).
     Statistics in f32 even for bf16 input (f64 stays f64,
-    :func:`_stats_dtype`); the result is cast back to the input's dtype
-    before the affine and any activation, as the JAX module does.
+    :func:`~..ops.flax_norm.stats_dtype`); the result is cast back to the
+    input's dtype before the affine and any activation, as the JAX module
+    does.
     ``affine=True`` (the UNet++ family's MONAI norm) adds the per-channel
     ``scale`` and ``bias`` of ``features`` channels."""
 
@@ -203,7 +207,7 @@ class InstanceNorm(nn.Module):
             self.scale = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(_stats_dtype(x))
+        xf = x.to(stats_dtype(x))
         space = spatial.current()
         if space is None:
             centered = xf - xf.mean(dim=(2, 3), keepdim=True)
@@ -437,31 +441,6 @@ class SameConvTranspose2d(CountedConvTranspose2d):
         return super().forward(x)[:, :, s:s * (h + 1), :s * w]
 
 
-def _f32_normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
-                   scale: torch.Tensor, bias: torch.Tensor, eps: float,
-                   channels_last: bool = False) -> torch.Tensor:
-    """flax ``_normalize``: ``(x − mean)·(rsqrt(var + eps)·scale) + bias`` in
-    f32, cast back to ``x``'s dtype. ``mean``/``var`` broadcast against
-    ``x``; ``scale``/``bias`` are per channel of NCHW ``x`` or, with
-    ``channels_last``, of its last axis."""
-    shape = (-1,) if channels_last else (-1, 1, 1)
-    dt = _stats_dtype(x)
-    mul = torch.rsqrt(var + eps) * scale.to(dt).reshape(shape)
-    return ((x.to(dt) - mean) * mul + bias.to(dt).reshape(shape)).to(x.dtype)
-
-
-def _stats_dtype(x: torch.Tensor) -> torch.dtype:
-    """flax's ``force_float32_reductions``: at least f32 (f64 stays f64)."""
-    return torch.float64 if x.dtype == torch.float64 else torch.float32
-
-
-def _fast_stats(xf: torch.Tensor, dims) -> tuple:
-    """flax's ``use_fast_variance`` statistics: E[x] and E[x²] − E[x]²
-    clipped at 0, kept dims, of ``xf`` (in :func:`_stats_dtype`)."""
-    mean = xf.mean(dim=dims, keepdim=True)
-    return mean, ((xf * xf).mean(dim=dims, keepdim=True) - mean * mean).clamp(min=0.0)
-
-
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over N, H, W of NCHW
     input: parameters ``scale``, ``bias``; buffers ``mean``, ``var`` (the
@@ -505,9 +484,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.to(_stats_dtype(x))
+            xf = x.to(stats_dtype(x))
             space = spatial.current()
-            mean, var = (_fast_stats(xf, (0, 2, 3)) if self.shard is None and space is None
+            mean, var = (fast_stats(xf, (0, 2, 3)) if self.shard is None and space is None
                          else self._global_stats(xf, space))
             with torch.no_grad():
                 m = self.momentum
@@ -515,7 +494,7 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var.flatten().to(self.var.dtype))
         else:
             mean, var = self.mean[:, None, None], self.var[:, None, None]
-        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
+        return f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
 
 
 class GroupNorm(nn.Module):
@@ -532,10 +511,10 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
-        xg = x.to(_stats_dtype(x)).reshape(n, self.groups, -1)
+        xg = x.to(stats_dtype(x)).reshape(n, self.groups, -1)
         space = spatial.current()
         if space is None:
-            mean, var = _fast_stats(xg, (2,))
+            mean, var = fast_stats(xg, (2,))
         else:  # flax's fast variance from Σx and Σx² summed over the group
             sums = torch.stack([xg.sum(dim=2), (xg * xg).sum(dim=2)])
             if n:
@@ -546,12 +525,13 @@ class GroupNorm(nn.Module):
         per = c // self.groups
         mean = mean.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
         var = var.repeat_interleave(per, dim=1).reshape(n, c, 1, 1)
-        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
+        return f32_normalize(x, mean, var, self.scale, self.bias, self.eps)
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` (eps 1e-6) over the last axis; parameters
-    ``scale``, ``bias``."""
+    ``scale``, ``bias``. :func:`~..ops.layer_norm.layer_norm`: on a CUDA
+    tensor in f32 or bf16 the hand-written kernels, else its plain twin."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -560,8 +540,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = _fast_stats(x.to(_stats_dtype(x)), (-1,))
-        return _f32_normalize(x, mean, var, self.scale, self.bias, self.eps, channels_last=True)
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 class PReLU(nn.Module):

@@ -1,3 +1,4 @@
 """Kernels of the port, hand-written CUDA built on first use by :mod:`._build`
-(:mod:`.hopper_kernels`, :mod:`.fast_augment`), and the training losses and
+(:mod:`.hopper_kernels`, :mod:`.fast_augment`, :mod:`.layer_norm`), flax's
+normalisation arithmetic (:mod:`.flax_norm`), and the training losses and
 device metrics."""

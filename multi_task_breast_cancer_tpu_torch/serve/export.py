@@ -28,8 +28,10 @@ Design points, as in the JAX package:
   traced for. Exporting ``cuda`` needs a card; it is never skipped.
 - **The fused norm is one node** of each program, the custom operator
   ``mtbc_torch::instance_norm_leaky_relu`` (:mod:`..ops.hopper_kernels`): on
-  the card it launches the kernel, 25 times per MTnnUNet forward. Loading an
-  artifact imports that operator library and nothing of the model zoo.
+  the card it launches the kernel, 25 times per MTnnUNet forward; so is
+  SwinUNETR's LayerNorm, ``mtbc_torch::layer_norm`` (:mod:`..ops.layer_norm`),
+  20 times per forward. Loading an artifact imports those operator libraries
+  and nothing of the model zoo.
 - **bf16**: the program casts the f32 parameters and the input to bf16 and
   its outputs to f32, as JAX's does; the batch statistics, inputs like the
   weights, stay f32.
@@ -75,6 +77,7 @@ from multi_task_breast_cancer_tpu_torch.models.jax_weights import (
     transposed_convs,
 )
 from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels  # noqa: F401  (the operator library)
+from multi_task_breast_cancer_tpu_torch.ops import layer_norm  # noqa: F401  (the operator library)
 from multi_task_breast_cancer_tpu_torch.utils.trees import multitask_pair, tree_map
 
 MANIFEST = "manifest.json"

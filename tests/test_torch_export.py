@@ -550,7 +550,8 @@ def test_seg_zoo_artifact_equals_the_live_backend(arch, tmp_path):
     """The MONAI twins and SwinUNETR through ``serve export``: the program
     answers as the live backend does (1e-5 of scale, as the flagship's).
     SwinUNETR's relative-position index and shift masks, first made inside
-    the trace, become real constants of the program."""
+    the trace, become real constants of the program, and each of its 20
+    LayerNorm sites is one ``mtbc_torch::layer_norm`` node."""
     from multi_task_breast_cancer_tpu_torch.models import swin_unetr
     from multi_task_breast_cancer_tpu_torch.models.registry import init_segmentation_model
 
@@ -572,3 +573,6 @@ def test_seg_zoo_artifact_equals_the_live_backend(arch, tmp_path):
     program = torch.export.load(art / E.program_name(2, "cpu"))
     assert len(program.state_dict) == 0
     assert (len(program.constants) > 0) == (arch == "SwinUNETR")
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function" and "mtbc_torch" in str(n.target)]
+    assert ops == ["mtbc_torch.layer_norm.default"] * (20 if arch == "SwinUNETR" else 0)
