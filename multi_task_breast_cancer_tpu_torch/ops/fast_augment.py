@@ -42,14 +42,12 @@ tests feed the same draws to both packages.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from multi_task_breast_cancer_tpu_torch.ops import _build
-from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import H100_SMS, _sm_count
 from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
 _LANE = 128  # the JAX kernel's lane width: kept so both packages plan one canvas
@@ -352,7 +350,7 @@ def make_plan(variant: str, split: int, b: int, planes: int, s: int,
     return AugPlan(variant, split, threads, b * planes * split, _smem_bytes(variant, s))
 
 
-def _plan(b: int, planes: int, s: int, sms: int = H100_SMS) -> AugPlan:
+def _plan(b: int, planes: int, s: int, sms: int = _build.H100_SMS) -> AugPlan:
     """The launch plan for ``b`` samples of ``planes`` S×S planes, chosen by
     timing every plan on an H100 (``chip_smoke.py`` phase 6, ``PERF.md``).
 
@@ -388,16 +386,7 @@ def plan_for(packed: torch.Tensor, b: int) -> AugPlan:
     """The plan a launch over ``b`` samples of this (N, P, S, S) CUDA stack
     takes: SMs from its card."""
     _, p, s, _ = packed.shape
-    return _plan(b, p, s, _sm_count(packed.device.index or 0))
-
-
-def _entry():
-    fn = _build.library("fast_augment").fast_augment_i32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                       + [ctypes.c_int] * 3)
-        fn.restype = ctypes.c_int
-    return fn
+    return _plan(b, p, s, _build.sm_count(packed.device.index or 0))
 
 
 def _check_factors(factors, b: int, s: int) -> PipelineFactors:
@@ -445,15 +434,9 @@ def fast_augment(packed: torch.Tensor, batch_idx: torch.Tensor, factors: Pipelin
     if out.numel() == 0:
         return out.transpose(0, 1)
     plan = plan or plan_for(packed, b)
-    with torch.cuda.device(packed.device):
-        err = _entry()(packed.data_ptr(), batch_idx.data_ptr(),
-                       *(t.data_ptr() for t in factors), out.data_ptr(), n, b, p, s,
-                       torch.cuda.current_stream(packed.device).cuda_stream,
-                       _VARIANT_CODES[plan.variant], plan.split, plan.threads)
-    if err != 0:
-        raise RuntimeError(f"fast_augment: CUDA launch failed with error {err} "
-                           f"at packed {tuple(packed.shape)}, batch {b}, plan {plan}")
-    fast_augment.launches += 1
+    _build.launch("fast_augment", "fast_augment_i32", packed.device, packed, batch_idx,
+                  *factors, out, n, b, p, s, _build.STREAM, _VARIANT_CODES[plan.variant],
+                  plan.split, plan.threads, counter=fast_augment, plan=plan)
     return out.transpose(0, 1)
 
 

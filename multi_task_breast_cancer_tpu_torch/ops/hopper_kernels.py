@@ -50,8 +50,6 @@ the two combined f32 sums per plane.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -59,7 +57,6 @@ import torch
 from multi_task_breast_cancer_tpu_torch.ops import _build
 from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SOURCE = "instance_norm_leaky_relu"
 
 
@@ -113,7 +110,6 @@ class NormPlan(NamedTuple):
 
 
 _VARIANT_CODES = {"streaming": 0, "subwarp": 1, "resident": 2}
-H100_SMS = 132
 _MAX_THREADS = 256         # the kernels' __launch_bounds__
 _MAX_VECTORS = 4           # register array per thread and input, resident
 _MIN_THREADS = 64          # a block keeps two warps at least
@@ -132,7 +128,7 @@ def streaming_plan(planes: int, hw: int) -> NormPlan:
 
 
 def _plan(planes: int, hw: int, dtype: torch.dtype, aligned: bool,
-          sms: int = H100_SMS) -> NormPlan:
+          sms: int = _build.H100_SMS) -> NormPlan:
     """The launch plan for ``planes`` planes of ``hw`` elements of ``dtype``.
 
     ``aligned``: every pointer of the launch is 16-byte aligned. The vector
@@ -178,11 +174,6 @@ def _plan(planes: int, hw: int, dtype: torch.dtype, aligned: bool,
                     planes * k)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(*tensors: torch.Tensor) -> NormPlan:
     """The plan a launch over these NCHW CUDA tensors (inputs and output,
     one shape) takes: alignment read from their pointers, SMs from their
@@ -190,17 +181,7 @@ def plan_for(*tensors: torch.Tensor) -> NormPlan:
     n, c, h, w = tensors[0].shape
     aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
     return _plan(n * c, h * w, tensors[0].dtype, aligned,
-                 _sm_count(tensors[0].device.index or 0))
-
-
-def _entry(name: str, dtype: torch.dtype, n_pointers: int):
-    fn = getattr(_build.library(_SOURCE), f"{name}_{_DTYPES[dtype]}")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p] + [ctypes.c_int] * 5
-        fn.restype = ctypes.c_int
-    return fn
+                 _build.sm_count(tensors[0].device.index or 0))
 
 
 def _check_cuda_input(x: torch.Tensor, what: str) -> None:
@@ -208,7 +189,7 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"{what}: expected NCHW, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _build.DTYPE_SUFFIXES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported (float32, bfloat16)")
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be NCHW-contiguous")
@@ -217,34 +198,22 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
 def _launch(fn, inputs, out: torch.Tensor, eps: float, slope: float,
             plan: NormPlan | None) -> None:
     """Launch ``fn``'s kernel (``fn.__name__``) over ``inputs`` into ``out``
-    under ``plan`` (default :func:`plan_for`) and count it in
-    ``fn.launches``. An empty batch (a data-mesh rank's empty shard) has no
-    plane: nothing is launched or counted, and ``out`` stays empty."""
+    under ``plan`` (default :func:`plan_for`), counted in ``fn.launches``.
+    An empty batch (a data-mesh rank's empty shard) has no plane: nothing is
+    launched or counted, and ``out`` stays empty."""
     if out.numel() == 0:
         return
-    name = fn.__name__
     plan = plan or plan_for(*inputs, out)
     n, c, h, w = out.shape
-    with torch.cuda.device(out.device):
-        err = _entry(name, out.dtype, len(inputs) + 1)(
-            *(t.data_ptr() for t in inputs), out.data_ptr(), n * c, h * w,
-            float(eps), float(slope), torch.cuda.current_stream(out.device).cuda_stream,
-            _VARIANT_CODES[plan.variant], plan.cluster, plan.threads, plan.vectors,
-            plan.group)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} at "
-                           f"shape {tuple(out.shape)}, plan {plan}")
-    fn.launches += 1
+    _build.launch(_SOURCE, fn.__name__, out.device, *inputs, out, n * c, h * w, float(eps),
+                  float(slope), _build.STREAM, _VARIANT_CODES[plan.variant], plan.cluster,
+                  plan.threads, plan.vectors, plan.group, dtype=out.dtype, counter=fn,
+                  plan=plan)
 
 
 def empty_launch(device: torch.device) -> None:
-    """One launch of the library's empty kernel (the launch floor)."""
-    fn = _build.library(_SOURCE).instance_norm_leaky_relu_empty
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"empty kernel: CUDA launch failed with error {err}")
+    """One launch of the library's empty kernel (the launch floor), uncounted."""
+    _build.launch(_SOURCE, "instance_norm_leaky_relu_empty", device, _build.STREAM)
 
 
 def _forward(x: torch.Tensor, eps: float, slope: float,
@@ -434,28 +403,11 @@ def instance_norm_leaky_relu_split_backward_apply_reference(
     return (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _split_launch(wrapper, tensors, out: torch.Tensor, ints, floats) -> None:
-    """Launch ``wrapper``'s split kernel (``wrapper.__name__``): pointers of
-    ``tensors`` (``None``: a null pointer) and ``out``, the planes and
-    elements of this part, then ``ints`` and ``floats``; count it."""
-    x = tensors[0]
+def _planes(x: torch.Tensor):
+    """(planes, elements a plane) of this part of NCHW ``x``: the split
+    entries' two sizes."""
     n, c, h, w = x.shape
-    fn = getattr(_build.library(_SOURCE), f"{wrapper.__name__}_{_DTYPES[x.dtype]}")
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * (len(tensors) + 1) + [_I, _I] + [_I] * len(ints)
-                       + [_F] * len(floats) + [_P])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(*(None if t is None else t.data_ptr() for t in tensors), out.data_ptr(),
-                 n * c, h * w, *ints, *(float(f) for f in floats),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{wrapper.__name__}: CUDA launch failed with error {err} "
-                           f"at shape {tuple(x.shape)}")
-    wrapper.launches += 1
+    return n * c, h * w
 
 
 def _check_split_inputs(what: str, x: torch.Tensor, *stats: torch.Tensor,
@@ -485,7 +437,9 @@ def instance_norm_split_sums(x: torch.Tensor, total: int,
     _check_split_inputs("instance_norm_split_sums", x, sums)
     part = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
     if x.numel():
-        _split_launch(instance_norm_split_sums, (x, sums), part, (total,), ())
+        _build.launch(_SOURCE, "instance_norm_split_sums", x.device, x, sums, part,
+                      *_planes(x), total, _build.STREAM, dtype=x.dtype,
+                      counter=instance_norm_split_sums)
     return part
 
 
@@ -500,8 +454,9 @@ def instance_norm_leaky_relu_split_apply(x: torch.Tensor, sums: torch.Tensor,
     _check_split_inputs("instance_norm_leaky_relu_split_apply", x, sums, sq)
     y = torch.empty_like(x)
     if x.numel():
-        _split_launch(instance_norm_leaky_relu_split_apply, (x, sums, sq), y, (total,),
-                      (eps, slope))
+        _build.launch(_SOURCE, "instance_norm_leaky_relu_split_apply", x.device, x, sums, sq,
+                      y, *_planes(x), total, float(eps), float(slope), _build.STREAM,
+                      dtype=x.dtype, counter=instance_norm_leaky_relu_split_apply)
     return y
 
 
@@ -517,8 +472,10 @@ def instance_norm_leaky_relu_split_backward_sums(
     _check_split_inputs("instance_norm_leaky_relu_split_backward_sums", x, sums, sq, g=g)
     part = torch.empty(x.shape[:2] + (2,), dtype=torch.float32, device=x.device)
     if x.numel():
-        _split_launch(instance_norm_leaky_relu_split_backward_sums, (x, g, sums, sq), part,
-                      (total,), (eps, slope))
+        _build.launch(_SOURCE, "instance_norm_leaky_relu_split_backward_sums", x.device, x, g,
+                      sums, sq, part, *_planes(x), total, float(eps), float(slope),
+                      _build.STREAM, dtype=x.dtype,
+                      counter=instance_norm_leaky_relu_split_backward_sums)
     return part
 
 
@@ -536,8 +493,10 @@ def instance_norm_leaky_relu_split_backward_apply(
                         gsums, g=g)
     dx = torch.empty_like(x)
     if x.numel():
-        _split_launch(instance_norm_leaky_relu_split_backward_apply,
-                      (x, g, sums, sq, gsums), dx, (total,), (eps, slope))
+        _build.launch(_SOURCE, "instance_norm_leaky_relu_split_backward_apply", x.device, x, g,
+                      sums, sq, gsums, dx, *_planes(x), total, float(eps), float(slope),
+                      _build.STREAM, dtype=x.dtype,
+                      counter=instance_norm_leaky_relu_split_backward_apply)
     return dx
 
 

@@ -1,8 +1,9 @@
 """The launch counters of the port's kernel wrappers, in one registry.
 
 Every wrapper that launches a hand-written kernel counts its launches in
-its own ``launches`` attribute, where it launches and nowhere else, and is
-registered here by :func:`counted`. A CUDA graph (:mod:`..graphs`) calls
+its own ``launches`` attribute, and is registered here by :func:`counted`;
+``_build.launch`` adds the one after each launch that succeeds, and
+nothing else adds to it. A CUDA graph (:mod:`..graphs`) calls
 every wrapper once while it captures but launches nothing then; it takes
 the counters' growth over the capture as its launches per replay
 (:func:`snapshot`, :func:`since`), puts the counters back

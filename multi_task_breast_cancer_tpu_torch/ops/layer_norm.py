@@ -28,7 +28,6 @@ signed rstd), the backward's input gradient with per-block column sums
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,10 +39,8 @@ from multi_task_breast_cancer_tpu_torch.ops.flax_norm import (
     fast_stats,
     stats_dtype,
 )
-from multi_task_breast_cancer_tpu_torch.ops.hopper_kernels import H100_SMS, _sm_count
 from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SOURCE = "layer_norm"
 
 
@@ -120,7 +117,8 @@ def _pow2_at_least(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def _plan(rows: int, c: int, dtype: torch.dtype, sms: int = H100_SMS) -> LayerNormPlan:
+def _plan(rows: int, c: int, dtype: torch.dtype,
+          sms: int = _build.H100_SMS) -> LayerNormPlan:
     """The launch plan for ``rows`` rows of ``c`` elements of ``dtype``.
 
     Rows load in 16-byte chunks (4 f32 or 8 bf16). A row goes to the
@@ -158,7 +156,8 @@ def plan_for(x: torch.Tensor, *others: torch.Tensor) -> LayerNormPlan:
     if any(t.data_ptr() % 16 for t in (x, *others)):
         raise ValueError("layer_norm: every tensor of a launch must start on a 16-byte "
                          "boundary")
-    return _plan(x.numel() // x.shape[-1], x.shape[-1], x.dtype, _sm_count(x.device.index or 0))
+    return _plan(x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                 _build.sm_count(x.device.index or 0))
 
 
 # ---------------------------------------------------------------------------
@@ -166,40 +165,8 @@ def plan_for(x: torch.Tensor, *others: torch.Tensor) -> LayerNormPlan:
 # ---------------------------------------------------------------------------
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "layer_norm_forward": [_P] * 5 + [_I, _I, _F, _P] + [_I] * 4,
-    "layer_norm_backward": [_P] * 6 + [_I, _I, _P] + [_I] * 4,
-    "layer_norm_param_grad": [_P] * 3 + [_I, _I, _P],
-}
-
-
-def _entry(name: str, dtype: torch.dtype):
-    fn = getattr(_build.library(_SOURCE), f"{name}_{_DTYPES[dtype]}")
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(counter, name: str, x: torch.Tensor, *args) -> None:
-    """Launch ``name``'s kernel for ``x``'s dtype with ``args`` (tensors as
-    their pointers) on ``x``'s card, and count it in ``counter.launches``."""
-    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(x.device):
-        err = _entry(name, x.dtype)(*values)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} at shape "
-                           f"{tuple(x.shape)} {x.dtype}")
-    counter.launches += 1
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _check_cuda(what: str, x: torch.Tensor, *params: torch.Tensor) -> None:
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _build.DTYPE_SUFFIXES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported on the card (float32, "
                         "bfloat16; float64 takes the plain twin)")
     if x.dim() == 0 or not x.is_contiguous():
@@ -225,9 +192,10 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     stats = torch.empty(x.shape[:-1] + (2,), dtype=torch.float32, device=x.device)
     if x.numel():
         plan = plan_for(x, scale, bias, y)
-        _launch(layer_norm, "layer_norm_forward", x, x, scale, bias, y, stats,
-                x.numel() // x.shape[-1], x.shape[-1], float(eps), _stream(x), plan.group,
-                plan.vectors, plan.threads, plan.blocks)
+        _build.launch(_SOURCE, "layer_norm_forward", x.device, x, scale, bias, y, stats,
+                      x.numel() // x.shape[-1], x.shape[-1], float(eps), _build.STREAM,
+                      plan.group, plan.vectors, plan.threads, plan.blocks, dtype=x.dtype,
+                      counter=layer_norm, plan=plan)
     return y, stats
 
 
@@ -240,8 +208,8 @@ def layer_norm_param_grad(partials: torch.Tensor,
     _, c, parts = partials.shape
     dscale = partials.new_empty(c, dtype=dtype)
     dbias = partials.new_empty(c, dtype=dtype)
-    _launch(layer_norm_param_grad, "layer_norm_param_grad", dscale, partials, dscale, dbias,
-            parts, c, _stream(dscale))
+    _build.launch(_SOURCE, "layer_norm_param_grad", partials.device, partials, dscale, dbias,
+                  parts, c, _build.STREAM, dtype=dtype, counter=layer_norm_param_grad)
     return dscale, dbias
 
 
@@ -270,8 +238,9 @@ def layer_norm_backward(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
         return dx, torch.zeros_like(scale), torch.zeros_like(scale)
     plan = plan_for(x, dy, scale, dx)
     partials = torch.empty((2, c, plan.parts), dtype=torch.float32, device=x.device)
-    _launch(layer_norm_backward, "layer_norm_backward", x, x, dy, scale, stats, dx, partials,
-            x.numel() // c, c, _stream(x), plan.group, plan.vectors, plan.threads, plan.parts)
+    _build.launch(_SOURCE, "layer_norm_backward", x.device, x, dy, scale, stats, dx, partials,
+                  x.numel() // c, c, _build.STREAM, plan.group, plan.vectors, plan.threads,
+                  plan.parts, dtype=x.dtype, counter=layer_norm_backward, plan=plan)
     return (dx, *layer_norm_param_grad(partials, x.dtype))
 
 
