@@ -68,6 +68,20 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    backward calls bit for bit, and per site the forward's and the
    backward's times beside their bytes bound, the plain twin's and
    ``F.layer_norm``'s (forward and autograd backward, timed here only);
+6b. affine InstanceNorm kernels (``phase_instance_norm_affine``; alone:
+   ``phase_instance_norm_affine_alone``): ``ops/instance_norm_affine.py``'s
+   forward, backward and parameter-gradient kernels at the 26 UNETR norm
+   sites of a SwinUNETR step (batch 2, 128²; ``norm1``, ``norm2`` with its
+   residual, ``norm_skip``), f32 and bf16: ptxas's registers and spills,
+   the output bit for bit against the module's epilogue on the kernel's
+   saved statistics, the statistics against the plain twin, the gradients
+   against the backward's plain reference on the same output and
+   statistics (tolerances of ``tests/test_torch_instance_norm_affine.py``),
+   two backward calls bit for bit, and per site the forward's and the
+   backward's (two launches) times beside their bytes bound, the plain
+   twin's (its forward, the autograd backward through it) and the library
+   call's (``F.instance_norm`` with the affine, the add and
+   ``F.leaky_relu``; forward and autograd backward, timed here only);
 7. training, a main path: ``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4,
    fused DICE + Focal, fast augmentation on, f32), the full-width model from
    generator seed 0, on a seeded synthetic 128² fold (48 train, 12 val, two
@@ -174,8 +188,9 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    ``Config()`` defaults, fast augmentation: the epoch metrics, parameters,
    buffers, Adam's moments and step after every epoch and where the
    dropout generator ends, bit for bit, the #1/#2/#3 launches equal, and
-   SwinUNETR's LayerNorm launches 20/20/20 a real step both ways and 20
-   forwards a validation pass (the whole split, graphed == eager); an
+   SwinUNETR's LayerNorm launches 20/20/20 and its affine InstanceNorm
+   launches 26/26/26 a real step both ways, and 20 and 26 forwards a
+   validation pass (the whole split, graphed == eager); an
    epoch of padding steps replaying nothing; the step after the lr change
    differing from a graphed run without it; UNet with the exact
    augmentation and the Hausdorff criterion the same way (4 steps); the
@@ -1290,15 +1305,26 @@ def _ln_counts():
     return L.layer_norm.launches, L.layer_norm_backward.launches, L.layer_norm_param_grad.launches
 
 
+def _ina_counts():
+    """The affine InstanceNorm kernels' launches: forward, backward,
+    parameter gradient."""
+    from multi_task_breast_cancer_tpu_torch.ops import instance_norm_affine as A
+    return (A.instance_norm_affine.launches, A.instance_norm_affine_backward.launches,
+            A.instance_norm_affine_param_grad.launches)
+
+
 def _reset_counts() -> None:
     from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
+    from multi_task_breast_cancer_tpu_torch.ops import instance_norm_affine as A
     from multi_task_breast_cancer_tpu_torch.ops import layer_norm as L
     from multi_task_breast_cancer_tpu_torch.parallel import spatial
     hk.instance_norm_leaky_relu.launches = 0
     hk.instance_norm_leaky_relu_backward.launches = 0
     FA.fast_augment.launches = 0
-    for fn in (L.layer_norm, L.layer_norm_backward, L.layer_norm_param_grad):
+    for fn in (L.layer_norm, L.layer_norm_backward, L.layer_norm_param_grad,
+               A.instance_norm_affine, A.instance_norm_affine_backward,
+               A.instance_norm_affine_param_grad):
         fn.launches = 0
     for name in SPLIT_ENTRIES:
         getattr(hk, name).launches = 0
@@ -1606,7 +1632,9 @@ def trace_window(fn, lead_in=None) -> dict:
     if lead_in is not None:
         marks = [k for k, e in enumerate(events) if MARKER in e[3]]
         if len(marks) != 2:
-            return {"host_ms": host_ms, "events": None, "marks": len(marks)}
+            return {"host_ms": host_ms, "events": None, "marks": len(marks),
+                    "n_events": len(events),
+                    "before_marks": [port_kernel_launches(events[:k]) for k in marks]}
         # fn's host calls come after the first marker ran, before the second
         runtime = [ts for ts in runtime if events[marks[0]][1] <= ts <= events[marks[1]][0]]
         events = events[marks[0] + 1:marks[1]]
@@ -2365,7 +2393,8 @@ def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epo
             set_learning_rate(state.optimizer, cfg.optimizer.lr * cfg.optimizer.decrease_factor)
     torch.cuda.synchronize()
     return {"engine": engine, "state": state, "data": data, "metrics": metrics, "snaps": snaps,
-            "counts": _counts(), "ln_counts": _ln_counts(), "drop": drop,
+            "counts": _counts(), "ln_counts": _ln_counts(), "ina_counts": _ina_counts(),
+            "drop": drop,
             "drop_state": drop.get_state()}
 
 
@@ -2382,7 +2411,7 @@ def _graph_pool_mib(pool):
 
 
 def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple,
-                    want_ln: tuple = (0, 0, 0)) -> None:
+                    want_ln: tuple = (0, 0, 0), want_ina: tuple = (0, 0, 0)) -> None:
     import torch
     check(g["metrics"] == e["metrics"], f"{what}: epoch metrics graphed {g['metrics']} "
                                         f"vs eager {e['metrics']}")
@@ -2394,6 +2423,9 @@ def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple,
     check(g["ln_counts"] == e["ln_counts"] == want_ln,
           f"{what}: LayerNorm launches graphed {g['ln_counts']}, eager {e['ln_counts']}, "
           f"want {want_ln}")
+    check(g.get("ina_counts", (0, 0, 0)) == e.get("ina_counts", (0, 0, 0)) == want_ina,
+          f"{what}: affine InstanceNorm launches graphed {g.get('ina_counts')}, eager "
+          f"{e.get('ina_counts')}, want {want_ina}")
     check(torch.equal(g["drop_state"], e["drop_state"]),
           f"{what}: the dropout generator ended elsewhere, graphed vs eager")
 
@@ -2491,6 +2523,7 @@ def graphs_training_case(arch: str, card: str) -> dict:
     init = {k: v.clone() for k, v in _graph_model(arch).state_dict().items()}
     n_norm = 25 if arch == "MTnnUNet" else 0
     n_ln = 20 if arch == "SwinUNETR" else 0   # its LayerNorm sites a forward
+    n_ina = 26 if arch == "SwinUNETR" else 0  # its affine InstanceNorm sites a forward
     out = {}
     for dtype, b, epochs in (("float32", 2, GRAPH_EPOCHS), ("bfloat16", 2, GRAPH_EPOCHS),
                              ("float32", BATCH, GRAPH_EPOCHS_64)):
@@ -2501,27 +2534,34 @@ def graphs_training_case(arch: str, card: str) -> dict:
                 False: _graph_run(arch, dtype, b, False, init, ds, epochs)}
         real = sum(sum(v) for v in epochs)
         _graph_vs_eager(what, runs[True], runs[False], (n_norm * real, n_norm * real, real),
-                        (n_ln * real,) * 3)
+                        (n_ln * real,) * 3, (n_ina * real,) * 3)
         g = runs[True]
         line = (f"  {what}: {sum(map(len, epochs))} steps ({real} real) graphed == eager: "
                 f"losses and metrics, parameters, buffers, Adam's moments and step bit for bit "
-                f"after every epoch; launches {g['counts']} both, LayerNorm {g['ln_counts']}")
+                f"after every epoch; launches {g['counts']} both, LayerNorm {g['ln_counts']}, "
+                f"affine InstanceNorm {g['ina_counts']}")
         if n_ln:
             # validation: the whole split in one batch, one forward of the model
             val = {}
             for g_, r in runs.items():
                 _reset_counts()
-                val[g_] = (r["engine"].eval_epoch(r["state"], r["data"]), _ln_counts())
+                val[g_] = (r["engine"].eval_epoch(r["state"], r["data"]), _ln_counts(),
+                           _ina_counts())
             mg, me = val[True][0], val[False][0]
             same = mg.keys() == me.keys() and all(   # NaN equals NaN here
                 mg[k] == me[k] or (mg[k] != mg[k] and me[k] != me[k]) for k in mg)
-            check(same and val[True][1] == val[False][1] == (n_ln, 0, 0),
+            check(same and val[True][1:] == val[False][1:] == ((n_ln, 0, 0), (n_ina, 0, 0)),
                   f"{what}: validation graphed {val[True]}, eager {val[False]}, want the same "
-                  f"metrics and LayerNorm launches {(n_ln, 0, 0)}")
+                  f"metrics, LayerNorm launches {(n_ln, 0, 0)} and affine InstanceNorm "
+                  f"launches {(n_ina, 0, 0)}")
             out.setdefault("layer_norm", {})[f"{dtype}_b{b}"] = {
                 "per_step": [x // real for x in g["ln_counts"]],
                 "per_validation": list(val[True][1])}
-            line += f", {val[True][1]} in a validation pass, graphed == eager"
+            out.setdefault("instance_norm_affine", {})[f"{dtype}_b{b}"] = {
+                "per_step": [x // real for x in g["ina_counts"]],
+                "per_validation": list(val[True][2])}
+            line += (f", {val[True][1]} and {val[True][2]} in a validation pass, graphed == "
+                     "eager")
         if b == 2 and dtype == "float32":
             # padding steps: an epoch of them replays nothing and moves nothing
             before = _snapshot(g["state"])
@@ -2529,7 +2569,7 @@ def graphs_training_case(arch: str, card: str) -> dict:
             g["engine"].train_epoch(g["state"], g["data"], np.arange(2 * b),
                                     torch.Generator().manual_seed(7), np.zeros(2, np.float32),
                                     g["drop"])
-            check(_counts() == _ln_counts() == (0, 0, 0)
+            check(_counts() == _ln_counts() == _ina_counts() == (0, 0, 0)
                   and _same_state(before, _snapshot(g["state"])),
                   f"{what}: graphed padding steps changed the state or launched a kernel")
             # the lr change takes effect in the replays
@@ -5909,6 +5949,168 @@ def phase_layer_norm_alone() -> None:
     log(json.dumps({"layer_norm": phase_layer_norm()}))
 
 
+def swin_instance_norm_sites(batch: int = 2) -> Counter:
+    """(C, H, residual, activation) of every affine InstanceNorm site of one
+    SwinUNETR forward at SIZE² and ``batch`` (the registry's model: feature
+    24), counted: the calls of ``instance_norm_affine`` it makes."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models import registry, swin_unetr
+    model = registry.init_segmentation_model("SwinUNETR", size=SIZE).to(DEVICE)
+    seen = Counter()
+    op = swin_unetr.instance_norm_affine
+
+    def recorded(x, scale, bias, eps, residual=None, slope=None):
+        seen[(x.shape[1], x.shape[2], residual is not None, slope is not None)] += 1
+        return op(x, scale, bias, eps, residual, slope)
+
+    swin_unetr.instance_norm_affine = recorded
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(batch, 1, SIZE, SIZE, device=DEVICE))
+    finally:
+        swin_unetr.instance_norm_affine = op
+    return seen
+
+
+def phase_instance_norm_affine() -> dict:
+    """6b: the affine InstanceNorm kernels (``ops/instance_norm_affine.py``)
+    at every UNETR norm site of a SwinUNETR training step (batch 2, 128²),
+    f32 and bf16: the output bit for bit against the module's epilogue on
+    the kernel's saved statistics, the statistics against the plain twin,
+    the four gradients against the backward's plain reference on the same
+    output and statistics, two backward calls bit for bit; ptxas's
+    registers and spills; per site the forward's and the backward's (two
+    launches) times beside their bytes bound, the plain twin's (its
+    forward, the autograd backward through it) and the library call's
+    (``F.instance_norm`` with the affine, the add, ``F.leaky_relu``; timed
+    here only, never called by the port), and the totals over the sites.
+    Returns the f32 and bf16 totals."""
+    import torch
+    import torch.nn.functional as F
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    from multi_task_breast_cancer_tpu_torch.ops import instance_norm_affine as A
+
+    _build.library("instance_norm_affine")
+    rows_ = ptxas_report(_build.build_log("instance_norm_affine"))
+    check(bool(rows_), "no ptxas report for the affine InstanceNorm kernels")
+    log("affine InstanceNorm kernels, ptxas -v (registers, spill store/load bytes, static "
+        "shared memory):")
+    for name, regs, st, ld, smem in sorted(rows_):
+        log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B  smem {smem} B")
+        check(st == ld == 0, f"{name}: spills {st}/{ld} B")
+    sites = swin_instance_norm_sites()
+    check(sum(sites.values()) == 26, f"SwinUNETR's affine InstanceNorm sites: {dict(sites)}")
+    floor = launch_floor_ms()
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        keys = ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "plain_fwd_ms",
+                "plain_bwd_ms", "library_fwd_ms", "library_bwd_ms")
+        totals = dict.fromkeys(keys, 0.0)
+        log(f"affine InstanceNorm at SwinUNETR's {sum(sites.values())} UNETR sites, batch 2, "
+            f"{str(dtype)[6:]}:")
+        for (c, side, has_res, act), n in sorted(sites.items()):
+            shape = (2, c, side, side)
+            x = (torch.randn(shape, device=DEVICE, generator=g) * 2 + 5).to(dtype)
+            scale = torch.randn(c, device=DEVICE, generator=g).to(dtype)
+            bias = torch.randn(c, device=DEVICE, generator=g).to(dtype)
+            res = torch.randn(shape, device=DEVICE, generator=g).to(dtype) if has_res else None
+            dy = torch.randn(shape, device=DEVICE, generator=g).to(dtype)
+            slope = 0.01 if act else None
+            y, stats = A._forward(x, scale, bias, 1e-5, res, slope)
+            got = A.instance_norm_affine_backward(x, y, dy, scale, stats, slope, has_res)
+            again = A.instance_norm_affine_backward(x, y, dy, scale, stats, slope, has_res)
+            check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, again)),
+                  f"two affine InstanceNorm backward calls differ at C={c} {side}² {dtype}")
+            xhat = ((x.float() - stats[..., :1, None]) * stats[..., 1:, None]).to(dtype)
+            epi = xhat * scale[:, None, None] + bias[:, None, None]
+            epi = epi if res is None else epi + res
+            epi = epi if slope is None else F.leaky_relu(epi, slope)
+            check(torch.equal(y, epi), f"affine InstanceNorm output != the module's epilogue "
+                  f"on its statistics at C={c} {side}² {dtype}")
+            want_stats = A.instance_norm_affine_statistics_reference(x)
+            err_stats = ((stats - want_stats).abs().amax(dim=(0, 1))
+                         / want_stats.abs().amax(dim=(0, 1))).max().item()
+            check(err_stats <= F32_TOL, f"affine InstanceNorm statistics at C={c} {side}² "
+                  f"{dtype}: relative error {err_stats:.3g}")
+            want = A.instance_norm_affine_backward_reference(x, y, dy, scale, stats, slope,
+                                                             has_res)
+            check(has_res is False or torch.equal(got[1], want[1]),
+                  f"affine InstanceNorm dresidual != dpre at C={c} {side}² {dtype}")
+            errs = [err_stats]
+            dpre = dy if slope is None else torch.where(y > 0, dy, dy * slope)
+            # dx: its largest magnitude; dscale, dbias: the channel's sum of
+            # absolute terms (the same f32 arithmetic summed in another order)
+            scales = (want[0].float().abs().max().item(),
+                      (dpre * xhat).float().abs().sum(dim=(0, 2, 3)).max().item(),
+                      dpre.float().abs().sum(dim=(0, 2, 3)).max().item())
+            for what, a, b, sc in zip(("dx", "dscale", "dbias"), (got[0], *got[2:]),
+                                      (want[0], *want[2:]), scales):
+                err = (a.float() - b.float()).abs()
+                sc = max(sc, 1e-30)
+                bound = F32_TOL * sc + (BF16_REL_TOL * b.float().abs()
+                                        if dtype == torch.bfloat16 else 0.0)
+                check(bool((err <= bound).all()), f"affine InstanceNorm {what} != its reference "
+                      f"at C={c} {side}² {dtype}: max abs err {err.max().item():.3g}")
+                errs.append(err.max().item() / sc)
+            s_ = x.element_size()
+            planes = (2 if res is not None else 1) + 1   # x (and residual) read, y written
+            leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+            plain_y = A.instance_norm_affine_reference(*leaves, 1e-5, res, slope)
+
+            def library(x_, w, b_):
+                out = F.instance_norm(x_, weight=w, bias=b_, eps=1e-5)
+                out = out if res is None else out + res
+                return out if slope is None else F.leaky_relu(out, slope)
+
+            numbers = {
+                "fwd_ms": time_ms(lambda: A._forward(x, scale, bias, 1e-5, res, slope)),
+                "bwd_ms": time_ms(lambda: A.instance_norm_affine_backward(
+                    x, y, dy, scale, stats, slope, has_res)),
+                # x (and the residual) read, y written, the statistics written
+                "fwd_bound_ms": (planes * x.numel() * s_ + 8 * 2 * c + 2 * c * s_)
+                / HBM_BYTES_PER_S * 1e3,
+                # x, y (with the activation) and dy read, dx (and dresidual)
+                # written, the statistics read, dscale and dbias written
+                "bwd_bound_ms": ((3 + (slope is not None) + has_res) * x.numel() * s_
+                                 + 8 * 2 * c + 3 * c * s_) / HBM_BYTES_PER_S * 1e3,
+                "plain_fwd_ms": time_ms(lambda: A.instance_norm_affine_reference(
+                    x, scale, bias, 1e-5, res, slope)),
+                "plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                    plain_y, leaves, dy, retain_graph=True)),
+                "library_fwd_ms": time_ms(lambda: library(x, scale, bias)),
+            }
+            lib_y = library(*leaves)
+            numbers["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_y, leaves, dy, retain_graph=True))
+            del lib_y, plain_y, leaves
+            plan = A.plan_for(x)
+            log(f"  C={c:3d} {side:3d}² residual={int(has_res)} act={int(act)} x{n} "
+                f"{plan.variant} k={plan.cluster} T={plan.threads} V={plan.vectors} "
+                f"G={plan.group}  rel err " + " ".join(f"{e:.2g}" for e in errs) + "  "
+                + "  ".join(f"{k} {v:.4f}" for k, v in numbers.items()))
+            for k, v in numbers.items():
+                totals[k] += n * v
+        log(f"affine InstanceNorm totals over the 26 sites, {str(dtype)[6:]}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in totals.items())
+            + f"; launch floor x78 {78 * floor:.4f}")
+        result[str(dtype)[6:]] = totals
+    return result
+
+
+def phase_instance_norm_affine_alone() -> None:
+    """6b by itself.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_instance_norm_affine_alone()"``
+    from the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    log(json.dumps({"instance_norm_affine": phase_instance_norm_affine()}))
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -5934,6 +6136,7 @@ def main() -> int:
     split = phase_split_kernel(shapes)
     augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
     layer_norm_totals = phase_layer_norm()
+    instance_norm_affine_totals = phase_instance_norm_affine()
     work = tempfile.mkdtemp(prefix="mtbc_smoke_")
     try:
         (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
@@ -5964,6 +6167,7 @@ def main() -> int:
                                       for what, rows in parallel_rows.items()}}
 
     ln_path = graphs["SwinUNETR"]["layer_norm"]
+    ina_path = graphs["SwinUNETR"]["instance_norm_affine"]
     norm_src = "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_leaky_relu.cu"
     log(json.dumps({"kernels": [
         {"name": "instance_norm_leaky_relu", "route": "cuda", "source": norm_src,
@@ -6010,7 +6214,16 @@ def main() -> int:
                for case, r in ln_path.items()},
            "swinunetr_sites_batch_2": layer_norm_totals}
           for i, name in enumerate(("layer_norm", "layer_norm_backward",
-                                    "layer_norm_param_grad")))]}))
+                                    "layer_norm_param_grad"))),
+        *({"name": name, "route": "cuda",
+           "source": "multi_task_breast_cancer_tpu_torch/csrc/instance_norm_affine.cu",
+           "replaces": None,
+           "swinunetr_graphed_training": {
+               case: {"per_step": r["per_step"][i], "per_validation": r["per_validation"][i]}
+               for case, r in ina_path.items()},
+           "swinunetr_sites_batch_2": instance_norm_affine_totals}
+          for i, name in enumerate(("instance_norm_affine", "instance_norm_affine_backward",
+                                    "instance_norm_affine_param_grad")))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,12 @@ grid and keeps this rank's rows after its ``PatchMerging``; its grid is at
 most 1/16 of the input's side. The convolutions take their halo rows
 (:class:`~.blocks.Conv3x3`).
 
+Each UNETR block's affine InstanceNorm, with the residual add and the
+LeakyReLU after it, is one call of
+:func:`~..ops.instance_norm_affine.instance_norm_affine` (26 sites a forward;
+on the card one kernel forward and two backward a site); under a ``space``
+group the modules' split statistics run instead.
+
 Spans (:mod:`..utils.profiling`): ``swin.attention`` (each
 :class:`WindowAttention` call), ``swin.mlp`` (a block's fc1 → GELU → fc2),
 ``swin.merge`` (each :class:`PatchMerging`) and ``swin.decoder`` (the UNETR
@@ -53,6 +59,7 @@ from multi_task_breast_cancer_tpu_torch.models.blocks import (
     LecunConv2d,
     deconv,
 )
+from multi_task_breast_cancer_tpu_torch.ops.instance_norm_affine import instance_norm_affine
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.utils import profiling
 
@@ -284,9 +291,25 @@ def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
                                     tuple(conv.padding), isinstance(conv, nn.ConvTranspose2d))
 
 
+def _norm_epilogue(norm: InstanceNorm, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                   slope: Optional[float] = None) -> torch.Tensor:
+    """``norm(x)``, then ``+ residual``, then ``F.leaky_relu(·, slope)``, each
+    where given: one call of
+    :func:`~..ops.instance_norm_affine.instance_norm_affine` (on the card one
+    kernel forward and two backward), or under a ``space`` group the
+    module's split statistics and plain torch."""
+    if spatial.current() is None:
+        return instance_norm_affine(x, norm.scale, norm.bias, norm.eps, residual, slope)
+    y = norm(x)
+    if residual is not None:
+        y = y + residual
+    return y if slope is None else F.leaky_relu(y, slope)
+
+
 class UnetrBasicBlock(nn.Module):
     """(3×3 conv → affine InstanceNorm → LeakyReLU) twice, with a projected
-    skip (1×1 conv → affine InstanceNorm) when the channels change."""
+    skip (1×1 conv → affine InstanceNorm) when the channels change; each
+    norm with what follows it is one :func:`_norm_epilogue`."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -300,10 +323,11 @@ class UnetrBasicBlock(nn.Module):
             self.norm_skip = InstanceNorm(features, affine=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.leaky_relu(self.norm1(_conv(self.conv1, x)), 0.01)
-        y = self.norm2(_conv(self.conv2, y))
-        skip = x if self.conv_skip is None else self.norm_skip(_conv(self.conv_skip, x))
-        return F.leaky_relu(y + skip, 0.01)
+        y = _norm_epilogue(self.norm1, _conv(self.conv1, x), slope=0.01)
+        y = _conv(self.conv2, y)
+        skip = x if self.conv_skip is None else _norm_epilogue(self.norm_skip,
+                                                               _conv(self.conv_skip, x))
+        return _norm_epilogue(self.norm2, y, residual=skip, slope=0.01)
 
 
 class UnetrUpBlock(nn.Module):
