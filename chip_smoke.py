@@ -82,6 +82,21 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    twin's (its forward, the autograd backward through it) and the library
    call's (``F.instance_norm`` with the affine, the add and
    ``F.leaky_relu``; forward and autograd backward, timed here only);
+6c. selective scan kernels (``phase_selective_scan``; alone:
+   ``phase_selective_scan_alone``): ``ops/selective_scan.py``'s forward,
+   reverse scan and reduction at the six scans of a U-Mamba_Enc training
+   step (batch 2, 128², read from the registry's model), f32: ptxas's
+   registers and spills, the output and the eight gradients through the
+   autograd Function against the plain twin in f64 on the same inputs (its
+   gradients autograd's; 2e-5 of each one's largest magnitude, as
+   ``tests/test_torch_umamba.py``), two runs bit for bit, one launch of
+   each kernel a site, and per site the forward's and the backward's times
+   beside their bound and the plain twin's (no library call computes the
+   scan); then U-Mamba_Enc's step graphed against eager as 7f holds its
+   cases (batch 2 f32, 8 steps, 7 real): bit for bit after every epoch,
+   the scan 6/6/6 launches a real step, LayerNorm 6/6/6, affine
+   InstanceNorm 48/48/48 both ways, a validation pass of 6, 6 and 48
+   forwards graphed == eager, an epoch of padding steps launching nothing;
 7. training, a main path: ``Config()`` defaults (MTnnUNet, batch 2, Adam 1e-4,
    fused DICE + Focal, fast augmentation on, f32), the full-width model from
    generator seed 0, on a seeded synthetic 128² fold (48 train, 12 val, two
@@ -277,8 +292,11 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    the sites at batch 64 f32 (one part of two; ``batch_2``, ``bf16``
    beside); the three LayerNorm entry points with their launches per step
    and per validation pass of 7f's graphed SwinUNETR Engine (each case)
-   and 6a's totals over SwinUNETR's sites; then, last, ``{"ok": true,
-   "device": ...}``.
+   and 6a's totals over SwinUNETR's sites; the three affine InstanceNorm
+   entry points likewise (6b); the three selective scan entry points with
+   their launches per step and per validation pass of 6c's graphed
+   U-Mamba_Enc Engine and 6c's totals over its sites; then, last, ``{"ok":
+   true, "device": ...}``.
 
 Tolerances. bf16 paths: see 7a and 7b, and ``tests/test_torch_bf16.py``
 (two bf16 forwards round at other places, so each is held to its own f32
@@ -361,6 +379,9 @@ ZOO_NORMS = {"BTSUNet": 17, "FSBBTSUNet": 25, "UnetPlusPlus": 0, "BTSUNetClassif
 SEG_ZOO_PARAMETERS = {"ResidualUNet": 1_304_449, "UNet": 363_967, "AttentionUNet": 1_095_544,
                       "SegResNet": 395_985, "SwinUNETR": 6_311_899}
 SEG_ZOO_BATCH_STATS = {"ResidualUNet": 2_784}
+# U-Mamba_Enc's scans at 128², (d_inner, L): patch tokens, then channel tokens
+SCAN_SITES = ((64, 16384), (128, 4096), (256, 1024), (512, 256), (128, 512), (32, 512))
+SCAN_REL_TOL = 2e-5  # the f32 chain of up to 16,384 steps against the f64 twin
 
 
 def log(*args) -> None:
@@ -1313,18 +1334,28 @@ def _ina_counts():
             A.instance_norm_affine_param_grad.launches)
 
 
+def _ss_counts():
+    """The selective scan kernels' launches: forward, reverse scan, fixed-order
+    reduction."""
+    from multi_task_breast_cancer_tpu_torch.ops import selective_scan as S
+    return S.selective_scan.launches, S.selective_scan_backward.launches, \
+        S.selective_scan_reduce.launches
+
+
 def _reset_counts() -> None:
     from multi_task_breast_cancer_tpu_torch.ops import fast_augment as FA
     from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
     from multi_task_breast_cancer_tpu_torch.ops import instance_norm_affine as A
     from multi_task_breast_cancer_tpu_torch.ops import layer_norm as L
+    from multi_task_breast_cancer_tpu_torch.ops import selective_scan as S
     from multi_task_breast_cancer_tpu_torch.parallel import spatial
     hk.instance_norm_leaky_relu.launches = 0
     hk.instance_norm_leaky_relu_backward.launches = 0
     FA.fast_augment.launches = 0
     for fn in (L.layer_norm, L.layer_norm_backward, L.layer_norm_param_grad,
                A.instance_norm_affine, A.instance_norm_affine_backward,
-               A.instance_norm_affine_param_grad):
+               A.instance_norm_affine_param_grad, S.selective_scan,
+               S.selective_scan_backward, S.selective_scan_reduce):
         fn.launches = 0
     for name in SPLIT_ENTRIES:
         getattr(hk, name).launches = 0
@@ -2330,9 +2361,14 @@ def _tree_leaves(out) -> list:
 
 def _graph_model(arch: str, init=None):
     import torch
-    from multi_task_breast_cancer_tpu_torch.models.registry import init_multitask_model
-    model = (init_multitask_model(arch, generator=torch.Generator().manual_seed(0))
-             if arch == "MTnnUNet" else seg_zoo_model(arch))
+    from multi_task_breast_cancer_tpu_torch.models.registry import (init_multitask_model,
+                                                                     init_segmentation_model)
+    if arch == "MTnnUNet":
+        model = init_multitask_model(arch, generator=torch.Generator().manual_seed(0))
+    elif arch == "UMambaEnc":  # the published widths, no width knob
+        model = init_segmentation_model(arch, size=SIZE, generator=torch.Generator().manual_seed(0))
+    else:
+        model = seg_zoo_model(arch)
     if init is not None:
         model.load_state_dict(init)
     return model
@@ -2394,7 +2430,7 @@ def _graph_run(arch: str, dtype: str, b: int, graphed: bool, init: dict, ds, epo
     torch.cuda.synchronize()
     return {"engine": engine, "state": state, "data": data, "metrics": metrics, "snaps": snaps,
             "counts": _counts(), "ln_counts": _ln_counts(), "ina_counts": _ina_counts(),
-            "drop": drop,
+            "ss_counts": _ss_counts(), "drop": drop,
             "drop_state": drop.get_state()}
 
 
@@ -2411,7 +2447,8 @@ def _graph_pool_mib(pool):
 
 
 def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple,
-                    want_ln: tuple = (0, 0, 0), want_ina: tuple = (0, 0, 0)) -> None:
+                    want_ln: tuple = (0, 0, 0), want_ina: tuple = (0, 0, 0),
+                    want_ss: tuple = (0, 0, 0)) -> None:
     import torch
     check(g["metrics"] == e["metrics"], f"{what}: epoch metrics graphed {g['metrics']} "
                                         f"vs eager {e['metrics']}")
@@ -2426,6 +2463,9 @@ def _graph_vs_eager(what: str, g: dict, e: dict, want: tuple,
     check(g.get("ina_counts", (0, 0, 0)) == e.get("ina_counts", (0, 0, 0)) == want_ina,
           f"{what}: affine InstanceNorm launches graphed {g.get('ina_counts')}, eager "
           f"{e.get('ina_counts')}, want {want_ina}")
+    check(g.get("ss_counts", (0, 0, 0)) == e.get("ss_counts", (0, 0, 0)) == want_ss,
+          f"{what}: selective scan launches graphed {g.get('ss_counts')}, eager "
+          f"{e.get('ss_counts')}, want {want_ss}")
     check(torch.equal(g["drop_state"], e["drop_state"]),
           f"{what}: the dropout generator ended elsewhere, graphed vs eager")
 
@@ -6111,6 +6151,223 @@ def phase_instance_norm_affine_alone() -> None:
     log(json.dumps({"instance_norm_affine": phase_instance_norm_affine()}))
 
 
+def umamba_scan_sites(batch: int = 2) -> Counter:
+    """(d_inner, L) of every selective scan of one U-Mamba_Enc forward at
+    SIZE² and ``batch`` (the registry's model, the published widths),
+    counted: the calls of ``selective_scan`` it makes."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.models import registry, umamba
+    model = registry.init_segmentation_model("UMambaEnc", size=SIZE).to(DEVICE)
+    seen = Counter()
+    op = umamba.selective_scan
+
+    def recorded(u, *args):
+        seen[(u.shape[2], u.shape[1])] += 1
+        return op(u, *args)
+
+    umamba.selective_scan = recorded
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(batch, 1, SIZE, SIZE, device=DEVICE))
+    finally:
+        umamba.selective_scan = op
+    return seen
+
+
+def _scan_site_inputs(b: int, steps: int, dn: int, g) -> dict:
+    """A scan's inputs as the Mamba layer hands them over: ``z`` a slice of
+    the input projection's rows, ``B`` and ``C`` neighbouring slices of
+    x_proj's (read in place by the kernel), f32 on the card."""
+    import torch
+    import torch.nn.functional as F
+    from multi_task_breast_cancer_tpu_torch.ops import selective_scan as S
+    rank, n = -(-dn // 32), S.D_STATE  # dt_rank ⌈d_model/16⌉, d_inner = 2·d_model
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=DEVICE) * scale
+
+    xz = rnd(b, steps, 2 * dn, scale=1.5)
+    xd = rnd(b, steps, rank + 2 * n, scale=1.5)
+    return dict(u=F.silu(xz[..., :dn]).contiguous(), delta=rnd(b, steps, dn, scale=1.5),
+                A=-torch.exp(rnd(dn, n, scale=0.35)), B=xd[..., rank:rank + n],
+                C=xd[..., rank + n:], D=rnd(dn, scale=0.5), z=xz[..., dn:],
+                delta_bias=rnd(dn, scale=0.5))
+
+
+def graphs_umamba(card: str) -> dict:
+    """U-Mamba_Enc's training step graphed against eager, 7f's way (cuDNN
+    deterministic, batch 2 f32, ``GRAPH_EPOCHS``: 7 real steps and a
+    padding step, the learning rate halved after the first epoch): the
+    epoch metrics, parameters, buffers and Adam's state after every epoch
+    bit for bit; the selective scan 6/6/6 launches a real step both ways,
+    the LayerNorm 6/6/6, the affine InstanceNorm 48/48/48, the augmentation
+    one; a validation pass graphed == eager with 6 scan, 6 LayerNorm and 48
+    affine InstanceNorm forwards; an epoch of padding steps launching
+    nothing. Returns the scan's launches per step and per validation pass."""
+    import numpy as np
+    import torch
+    init = {k: v.clone() for k, v in _graph_model("UMambaEnc").state_dict().items()}
+    ds = synthetic_fold(GRAPH_N[2], 32)
+    real = sum(sum(v) for v in GRAPH_EPOCHS)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {g: _graph_run("UMambaEnc", "float32", 2, g, init, ds, GRAPH_EPOCHS)
+                for g in (True, False)}
+        _graph_vs_eager("UMambaEnc batch 2 float32", runs[True], runs[False], (0, 0, real),
+                        (6 * real,) * 3, (48 * real,) * 3, (6 * real,) * 3)
+        val = {}
+        for g, r in runs.items():
+            _reset_counts()
+            val[g] = (r["engine"].eval_epoch(r["state"], r["data"]), _ln_counts(),
+                      _ina_counts(), _ss_counts())
+        mg, me = val[True][0], val[False][0]
+        same = mg.keys() == me.keys() and all(
+            mg[k] == me[k] or (mg[k] != mg[k] and me[k] != me[k]) for k in mg)
+        want = ((6, 0, 0), (48, 0, 0), (6, 0, 0))
+        check(same and val[True][1:] == val[False][1:] == want,
+              f"UMambaEnc: validation graphed {val[True]}, eager {val[False]}, want the same "
+              f"metrics and launches {want}")
+        g = runs[True]
+        before = _snapshot(g["state"])
+        _reset_counts()
+        g["engine"].train_epoch(g["state"], g["data"], np.arange(4),
+                                torch.Generator().manual_seed(7), np.zeros(2, np.float32),
+                                g["drop"])
+        check(_counts() == _ln_counts() == _ina_counts() == _ss_counts() == (0, 0, 0)
+              and _same_state(before, _snapshot(g["state"])),
+              "UMambaEnc: graphed padding steps changed the state or launched a kernel")
+        per_step = [x // real for x in g["ss_counts"]]
+        log(f"  UMambaEnc batch 2 float32: {sum(map(len, GRAPH_EPOCHS))} steps ({real} real) "
+            f"graphed == eager: losses and metrics, parameters, buffers, Adam's moments and "
+            f"step bit for bit after every epoch; selective scan {g['ss_counts']} both "
+            f"({'/'.join(map(str, per_step))} a step), LayerNorm {g['ln_counts']}, affine "
+            f"InstanceNorm {g['ina_counts']}, #3 {g['counts'][2]}; a validation pass "
+            f"{val[True][3]} scan, {val[True][1]} LayerNorm, {val[True][2]} affine "
+            f"InstanceNorm launches, graphed == eager; an epoch of padding steps launches "
+            f"nothing and leaves the state as it was [{card}]")
+        return {"per_step": per_step, "per_validation": list(val[True][3])}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        runs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_selective_scan() -> dict:
+    """6c: the selective scan kernels (``ops/selective_scan.py``) at the six
+    scans of a U-Mamba_Enc training step (batch 2, 128², read from the
+    registry's model), f32: ptxas's registers and spills; per site the
+    output and the eight gradients of the kernels (through the autograd
+    Function, as the model calls them) against the plain twin in f64 on
+    the same inputs, its gradients autograd's, each within 2e-5 of its
+    largest magnitude (``tests/test_torch_umamba.py``'s tolerance), and two
+    runs bit for bit; per site the forward's (as a training step saves its
+    states) and the backward's (the reverse scan and the reduction) times
+    beside their bound (``benchmark/umamba_counts.py``: the algorithm's own
+    bytes at 3.35 TB/s or its f32 arithmetic, the larger) and the plain
+    twin's (its forward in f32, the autograd backward through it; no
+    library call computes the scan), and the totals over the sites; then
+    :func:`graphs_umamba`. Returns the totals and the graphed path's
+    launches."""
+    import torch
+    from benchmark import umamba_counts
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+    from multi_task_breast_cancer_tpu_torch.ops import selective_scan as S
+
+    card = _card()
+    _build.library("selective_scan")
+    rows_ = ptxas_report(_build.build_log("selective_scan"))
+    check(bool(rows_), "no ptxas report for the selective scan kernels")
+    log("selective scan kernels, ptxas -v (registers, spill store/load bytes, static shared "
+        "memory):")
+    for name, regs, st, ld, smem in sorted(rows_):
+        log(f"  {name[:90]:90s} {regs:3d} regs  spills {st}/{ld} B  smem {smem} B")
+        check(st == ld == 0, f"{name}: spills {st}/{ld} B")
+    sites = umamba_scan_sites()
+    check(sorted(sites) == sorted(SCAN_SITES) and set(sites.values()) == {1},
+          f"U-Mamba_Enc's scan sites: {dict(sites)}, want {SCAN_SITES}")
+    names = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    keys = ("fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "plain_fwd_ms", "plain_bwd_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    log(f"selective scan at U-Mamba_Enc's 6 sites, batch 2, float32 [{card}]:")
+    n = S.D_STATE
+    for dn, steps in SCAN_SITES:
+        ins = _scan_site_inputs(2, steps, dn, g)
+        dout = torch.randn(2, steps, dn, device=DEVICE, generator=g)
+
+        def kernels():
+            # B and C neighbouring slices of one leaf, z a slice of another, as
+            # the layer's projections hand them over
+            u, delta, A, D, bias = (ins[k].detach().clone().requires_grad_()
+                                    for k in ("u", "delta", "A", "D", "delta_bias"))
+            bc = torch.cat([ins["B"], ins["C"]], dim=-1).requires_grad_()
+            xz = torch.cat([ins["u"], ins["z"]], dim=-1).requires_grad_()
+            out = S.selective_scan(u, delta, A, bc[..., :n], bc[..., n:], D, xz[..., dn:], bias)
+            du, dd, dA, dbc, dD, dxz, db = torch.autograd.grad(
+                out, [u, delta, A, bc, D, xz, bias], dout)
+            return out.detach(), du, dd, dA, dbc[..., :n], dbc[..., n:], dD, dxz[..., dn:], db
+
+        _reset_counts()
+        got = kernels()
+        check(_ss_counts() == (1, 1, 1), f"selective scan at d_inner={dn} L={steps}: "
+                                         f"launches {_ss_counts()}, want (1, 1, 1)")
+        again = kernels()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"two selective scan runs differ at d_inner={dn} L={steps}")
+        d64 = [ins[k].detach().double().requires_grad_() for k in names]
+        want_out = S.selective_scan_reference(*d64)
+        want = (want_out.detach(), *torch.autograd.grad(want_out, d64, dout.double()))
+        errs = []
+        for what, a, w in zip(("out",) + names, got, want):
+            err = (a.double() - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            check(err <= SCAN_REL_TOL, f"selective scan {what} != the f64 twin at d_inner={dn} "
+                                       f"L={steps}: {err:.3g} of its largest magnitude")
+            errs.append(err)
+        del d64, want_out, want, got, again
+        x = [ins[k] for k in names]
+        y, states = S._forward(*x, save=True)
+        leaves = [t.detach().clone().requires_grad_() for t in x]
+        plain_y = S.selective_scan_reference(*leaves)
+        site = [(dn, steps, n)]
+        fwd_bound = umamba_counts.scan_forward_bound_s(site, 2) * 1e3
+        bwd_bound = umamba_counts.scan_backward_bound_s(site, 2) * 1e3
+        numbers = {
+            "fwd_ms": time_ms(lambda: S._forward(*x, save=True)),
+            "bwd_ms": time_ms(lambda: S.selective_scan_backward(*x, states, dout)),
+            "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+            # ~6 launches a step: the host's queueing is part of the plain path's time
+            "plain_fwd_ms": time_ms(lambda: S.selective_scan_reference(*x), reps=3),
+            "plain_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                plain_y, leaves, dout, retain_graph=True), reps=3),
+        }
+        del y, states, plain_y, leaves
+        log(f"  d_inner={dn:3d} L={steps:5d}  rel err "
+            + " ".join(f"{e:.2g}" for e in errs) + "  "
+            + "  ".join(f"{k} {v:.4f}" for k, v in numbers.items()))
+        for k, v in numbers.items():
+            totals[k] += v
+    log(f"selective scan totals over the 6 sites, float32: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+    return {"float32": totals, "graphed_training": graphs_umamba(card)}
+
+
+def phase_selective_scan_alone() -> None:
+    """6c by itself.
+    ``python3 -c "import chip_smoke; chip_smoke.phase_selective_scan_alone()"``
+    from the repository root."""
+    import torch
+    from multi_task_breast_cancer_tpu_torch.ops import _build
+
+    check(torch.cuda.is_available(), "CUDA is not available")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"{_card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; kernels built in "
+        f"{_build.build():.1f} s")
+    log(json.dumps({"selective_scan": phase_selective_scan()}))
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -6137,6 +6394,7 @@ def main() -> int:
     augment, augment_bf16 = phase_augment_kernel(index_plane_lib)
     layer_norm_totals = phase_layer_norm()
     instance_norm_affine_totals = phase_instance_norm_affine()
+    scan = phase_selective_scan()
     work = tempfile.mkdtemp(prefix="mtbc_smoke_")
     try:
         (fwd, bwd, aug), f32_times, ckpt = phase_training(work)
@@ -6223,7 +6481,16 @@ def main() -> int:
                for case, r in ina_path.items()},
            "swinunetr_sites_batch_2": instance_norm_affine_totals}
           for i, name in enumerate(("instance_norm_affine", "instance_norm_affine_backward",
-                                    "instance_norm_affine_param_grad")))]}))
+                                    "instance_norm_affine_param_grad"))),
+        *({"name": name, "route": "cuda",
+           "source": "multi_task_breast_cancer_tpu_torch/csrc/selective_scan.cu",
+           "replaces": None,
+           "umamba_graphed_training": {
+               "float32_b2": {"per_step": scan["graphed_training"]["per_step"][i],
+                              "per_validation": scan["graphed_training"]["per_validation"][i]}},
+           "umamba_sites_batch_2": scan["float32"]}
+          for i, name in enumerate(("selective_scan", "selective_scan_backward",
+                                    "selective_scan_reduce")))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,8 +5,12 @@ Every architecture of the JAX registry builds. Factories return a model on
 the CPU with its parameters drawn as the JAX initialisers draw them, from an
 explicit ``torch.Generator`` (seed 0 when none is given). ``size`` is the
 input side, which the BTS flatten heads (BTSUNetClassifier, Multi_BTSUNet,
-Multi_FSB_BTSUNet) and SwinUNETR's window sizes need; JAX infers it at
-``init``.
+Multi_FSB_BTSUNet), SwinUNETR's window sizes and UMambaEnc's token layouts
+need; JAX infers it at ``init``.
+
+``PORT_ONLY_SEGMENTATION_ARCHS`` are architectures the port runs and the JAX
+registry has not: UMambaEnc (:mod:`.umamba`), held to the benchmark's plain
+reference instead of a JAX twin.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from multi_task_breast_cancer_tpu_torch.models.multitask import (
 from multi_task_breast_cancer_tpu_torch.models.nnunet import NNUNet2021
 from multi_task_breast_cancer_tpu_torch.models.residual_unet import ResidualUNet
 from multi_task_breast_cancer_tpu_torch.models.swin_unetr import SwinUNETR
+from multi_task_breast_cancer_tpu_torch.models.umamba import UMambaEnc, init_ssm
 from multi_task_breast_cancer_tpu_torch.models.unetpp import (
     BasicUNetPlusPlus,
     MTUNetPlusPlus,
@@ -43,6 +48,7 @@ from multi_task_breast_cancer_tpu_torch.models.unetpp import (
 
 SEGMENTATION_ARCHS = ("BTSUNet", "nnUNet", "UNet", "AttentionUNet", "ResidualUNet",
                       "UnetPlusPlus", "FSBBTSUNet", "SegResNet", "SwinUNETR")
+PORT_ONLY_SEGMENTATION_ARCHS = ("UMambaEnc",)
 CLASSIFICATION_ARCHS = ("BTSUNetClassifier", "UNetPlusPlusClassifier", "nnUNetClassifier")
 MULTITASK_ARCHS = ("Multi_BTSUNet", "MTUNetPlusPlus", "MTnnUNet", "Multi_FSB_BTSUNet", "Adityan")
 
@@ -50,11 +56,11 @@ MULTITASK_ARCHS = ("Multi_BTSUNet", "MTUNetPlusPlus", "MTnnUNet", "Multi_FSB_BTS
 # nnU-Net family takes model.nnunet_widths) and whose deep supervision is
 # fixed (always on for the nnU-Nets, absent elsewhere): the reference's
 # factory ignores these knobs silently, the factories here warn
-_WIDTH_IGNORED = {"nnUNet", "UnetPlusPlus", "SegResNet", "SwinUNETR",
+_WIDTH_IGNORED = {"nnUNet", "UnetPlusPlus", "SegResNet", "SwinUNETR", "UMambaEnc",
                   "UNetPlusPlusClassifier", "nnUNetClassifier",
                   "MTUNetPlusPlus", "MTnnUNet"}
 _DS_FIXED = {"UNet": False, "AttentionUNet": False, "ResidualUNet": False,
-             "SegResNet": False, "SwinUNETR": False,
+             "SegResNet": False, "SwinUNETR": False, "UMambaEnc": False,
              "nnUNet": True, "MTnnUNet": True, "Adityan": False}
 
 # not a deliberate override: None (the knob was not passed) and the
@@ -144,9 +150,12 @@ def init_segmentation_model(architecture: str, sequences: int = 1, regions: int 
     """``nnUNet`` always has 4-head deep supervision (``deep_supervision`` is
     ignored, as in JAX). UNet and AttentionUNet take channels (w, 2w, 4w,
     8w); SegResNet (8 initial filters) and SwinUNETR (feature size 24) have
-    fixed widths."""
+    fixed widths. UMambaEnc takes one width a stage in ``nnunet_widths``
+    (default the planner's (32, 64, 128, 256, 512, 512)) and has no deep
+    supervision."""
     logging.info("Creating %s model (fed with %d sequences)", architecture, sequences)
-    width, ds = _knobs(architecture, ("nnUNet",), width, deep_supervision, nnunet_widths)
+    width, ds = _knobs(architecture, ("nnUNet", "UMambaEnc"), width, deep_supervision,
+                       nnunet_widths)
     if architecture == "BTSUNet":
         model = BTSUNet(sequences, regions, width, ds)
     elif architecture == "FSBBTSUNet":
@@ -164,8 +173,14 @@ def init_segmentation_model(architecture: str, sequences: int = 1, regions: int 
         model = SegResNet(sequences, regions)
     elif architecture == "SwinUNETR":
         model = SwinUNETR(sequences, regions, size=size)
+    elif architecture == "UMambaEnc":
+        generator = generator or torch.Generator().manual_seed(0)
+        kw = {} if nnunet_widths is None else {"widths": nnunet_widths}
+        return init_ssm(_seeded(UMambaEnc(sequences, regions, size=size, **kw), generator),
+                        generator)
     else:
-        raise _unknown("segmentation", architecture, SEGMENTATION_ARCHS)
+        raise _unknown("segmentation", architecture,
+                       SEGMENTATION_ARCHS + PORT_ONLY_SEGMENTATION_ARCHS)
     return _seeded(model, generator)
 
 

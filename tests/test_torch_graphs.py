@@ -48,6 +48,7 @@ from multi_task_breast_cancer_tpu_torch.ops import hopper_kernels as hk
 from multi_task_breast_cancer_tpu_torch.ops import instance_norm_affine as INA
 from multi_task_breast_cancer_tpu_torch.ops import launches
 from multi_task_breast_cancer_tpu_torch.ops import layer_norm as LN
+from multi_task_breast_cancer_tpu_torch.ops import selective_scan as SS
 from multi_task_breast_cancer_tpu_torch.parallel.mesh import DataMesh
 from multi_task_breast_cancer_tpu_torch.train import checkpoint as C
 from multi_task_breast_cancer_tpu_torch.train import loop
@@ -265,11 +266,12 @@ def test_every_counted_entry_point_of_ops_is_in_the_registry():
         module = importlib.import_module(f"{ops_package.__name__}.{info.name}")
         counted |= {obj for obj in vars(module).values()
                     if callable(obj) and hasattr(obj, "launches")}
-    assert counted == set(launches.REGISTRY) and len(counted) == 13
+    assert counted == set(launches.REGISTRY) and len(counted) == 16
     assert {hk.instance_norm_leaky_relu, hk.instance_norm_leaky_relu_backward,
             FA.fast_augment, hk.instance_norm_split_sums, LN.layer_norm,
             LN.layer_norm_backward, LN.layer_norm_param_grad, INA.instance_norm_affine,
-            INA.instance_norm_affine_backward, INA.instance_norm_affine_param_grad} <= counted
+            INA.instance_norm_affine_backward, INA.instance_norm_affine_param_grad,
+            SS.selective_scan, SS.selective_scan_backward, SS.selective_scan_reduce} <= counted
 
 
 def test_a_capture_leaves_the_counters_and_each_replay_adds_its_launches(monkeypatch):
