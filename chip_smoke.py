@@ -90,9 +90,11 @@ Phases, in turn; any mismatch ends the run with a non-zero exit:
    autograd Function against the plain twin in f64 on the same inputs (its
    gradients autograd's; 2e-5 of each one's largest magnitude, as
    ``tests/test_torch_umamba.py``), two runs bit for bit, one launch of
-   each kernel a site, and per site the forward's and the backward's times
-   beside their bound and the plain twin's (no library call computes the
-   scan); then U-Mamba_Enc's step graphed against eager as 7f holds its
+   each kernel a site, per site the launch plan along L (``scan_plan``) and
+   what the card makes of it (blocks an SM, clusters at once), and per site
+   the forward's and the backward's times beside their bound and the plain
+   twin's (no library call computes the scan); then U-Mamba_Enc's step
+   graphed against eager as 7f holds its
    cases (batch 2 f32, 8 steps, 7 real): bit for bit after every epoch,
    the scan 6/6/6 launches a real step, LayerNorm 6/6/6, affine
    InstanceNorm 48/48/48 both ways, a validation pass of 6, 6 and 48
@@ -1613,6 +1615,8 @@ def log_classes(rows, total: float, indent: str = "  ") -> dict:
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 MARKER = "instance_norm_leaky_relu_empty"  # the empty kernel's name
+LEAD_IN = 100  # spin kernels ahead of a profiled step, a millisecond apart
+SPIN = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
 def trace_window(fn, lead_in=None) -> dict:
@@ -1751,9 +1755,16 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
     copy that unpacks the channel pairs, and between it and the convolution
     only the ``casts`` casts of the f32 parameters to their bf16 copies.
 
-    The profiler has been seen, on the card, to return a step's record
-    without the three markers although all three were launched; such a
-    record cannot place the path, so the step is profiled again, up to
+    The profiler loses the device activities of a window's first
+    milliseconds (as :func:`trace_window` says), by an amount that varies
+    over a process's life: on an H100, a window of 300 spin kernels a
+    millisecond apart lost 0-2 of them early in a whole smoke run and 12-15
+    after phase 6c's two minutes, and at 12 ms the loss took this step's
+    markers and kernel in every attempt. So each attempt first runs
+    :data:`LEAD_IN` spin kernels a millisecond apart inside the profile,
+    which take that loss, and logs how many of them the record kept. A
+    record without the three markers
+    cannot place the path, so the step is profiled again, up to
     ``attempts`` times, each miss logged with what the record held. The
     first record that holds the three markers is checked; none in
     ``attempts`` fails the run.
@@ -1787,6 +1798,12 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
             armed.clear()
             marker()
 
+    def lead_in() -> None:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1000)
+            time.sleep(1e-3)
+        torch.cuda.synchronize()
+
     hooks = [m.register_forward_pre_hook(first_conv) for m in engine.model.modules()
              if isinstance(m, torch.nn.Conv2d)]
     engine._augmented_batch = augmented_batch
@@ -1796,6 +1813,7 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
             armed.clear()
             launched.clear()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lead_in()
                 engine.train_epoch(state, data, perm, gen)
                 torch.cuda.synchronize()
             check(len(launched) == 3, f"augmentation path: {len(launched)} markers launched, "
@@ -1806,12 +1824,14 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
             check(bool(names), "augmentation path: the profiler saw no device events")
             marks = [k for k, name in enumerate(names)
                      if "instance_norm_leaky_relu_empty" in name]
+            kept = sum(SPIN in name for name in names)
             if len(marks) == 3:
                 break
             kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
             misses.append(f"attempt {attempt}: {len(marks)} of 3 markers in {len(names)} device "
                           f"events ({len(kernels)} kernels, "
-                          f"{sum('fast_augment' in n for n in names)} fast_augment)")
+                          f"{sum('fast_augment' in n for n in names)} fast_augment, "
+                          f"{kept} of the lead-in's {LEAD_IN})")
             log(f"  augmentation path profile: the record lacks markers, {misses[-1]}")
     finally:
         del engine._augmented_batch
@@ -1821,7 +1841,8 @@ def profile_augmentation_path(engine, state, data, perm, gen, unpack: int = 0,
           f"({'; '.join(misses)})")
     path, between = names[marks[0] + 1:marks[1]], names[marks[1] + 1:marks[2]]
     copies = [n for n in path + between if re.search(r"copy|cast|elementwise", n, re.I)]
-    log(f"  augmentation path of one step (profile, attempt {len(misses)}): {len(path)} "
+    log(f"  augmentation path of one step (profile, attempt {len(misses)}; the record kept "
+        f"{kept} of the lead-in's {LEAD_IN} launches): {len(path)} "
         f"launch(es) {[n[:60] for n in path]}; {len(between)} launch(es) between it and the "
         f"first convolution; {len(copies)} copies or casts")
     check(len(path) == 1 + unpack and "fast_augment" in path[0] and len(between) == casts
@@ -6257,6 +6278,9 @@ def phase_selective_scan() -> dict:
     """6c: the selective scan kernels (``ops/selective_scan.py``) at the six
     scans of a U-Mamba_Enc training step (batch 2, 128², read from the
     registry's model), f32: ptxas's registers and spills; per site the
+    launch plan along L and the card's occupancy of it (every site's
+    clusters must fit on the card at once, no second wave; the plan's blocks
+    run on as many SMs where an SM holds one block); per site the
     output and the eight gradients of the kernels (through the autograd
     Function, as the model calls them) against the plain twin in f64 on
     the same inputs, its gradients autograd's, each within 2e-5 of its
@@ -6292,6 +6316,22 @@ def phase_selective_scan() -> dict:
     totals = dict.fromkeys(keys, 0.0)
     log(f"selective scan at U-Mamba_Enc's 6 sites, batch 2, float32 [{card}]:")
     n = S.D_STATE
+    plans = {}
+    for dn, steps in SCAN_SITES:
+        plan = S.scan_plan(2, dn, steps)
+        occ = S.occupancy(plan, torch.device(DEVICE))
+        groups = plan.blocks // plan.cluster
+        one_wave = all(o["clusters"] >= groups for o in occ.values())
+        sms = (plan.blocks if one_wave and all(o["blocks_per_sm"] == 1 for o in occ.values())
+               else None)
+        plans[f"{dn}x{steps}"] = {**plan._asdict(), **occ, "sms": sms}
+        log(f"  plan d_inner={dn:3d} L={steps:5d}: {plan.cluster} blocks a cluster x {groups} "
+            f"chain groups, {plan.warps} warps a block, {plan.steps} steps a segment, "
+            f"{plan.chains} chains; {occ}; SMs {sms}")
+        check(one_wave, f"the plan at d_inner {dn}, L {steps} runs {groups} clusters of "
+              f"{plan.cluster} blocks, more than the card holds at once: {occ}")
+    check(plans["64x16384"]["sms"] is not None and plans["64x16384"]["sms"] >= 64,
+          f"the first site's plan runs on fewer than 64 SMs: {plans['64x16384']}")
     for dn, steps in SCAN_SITES:
         ins = _scan_site_inputs(2, steps, dn, g)
         dout = torch.randn(2, steps, dn, device=DEVICE, generator=g)
@@ -6350,7 +6390,7 @@ def phase_selective_scan() -> dict:
     log(f"selective scan totals over the 6 sites, float32: "
         + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()) + f" [{card}]")
     torch.cuda.empty_cache()
-    return {"float32": totals, "graphed_training": graphs_umamba(card)}
+    return {"float32": totals, "plans": plans, "graphed_training": graphs_umamba(card)}
 
 
 def phase_selective_scan_alone() -> None:

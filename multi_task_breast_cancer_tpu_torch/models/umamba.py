@@ -53,8 +53,11 @@ for one raises ``NotImplementedError``) and its Mamba layers refuse a
 Spans (:mod:`..utils.profiling`): ``umamba.mamba`` (each
 :class:`MambaLayer`, 6 a forward), ``umamba.scan`` (the scan inside it) and
 ``umamba.decoder``. The counter ``umamba.scan_elements`` adds B·d_inner·L·N
-of each scan: 32,768,000 an image a forward at 128². A captured step counts
-once, at its capture; a replay runs no Python.
+of each scan: 32,768,000 an image a forward at 128². The counter
+``umamba.scan_segments`` adds the independent chains the scan's forward
+kernel runs (:func:`~..ops.selective_scan.scan_plan`'s ``chains``: B ·
+d_inner/32 · segments along L): 2,368 a forward at 128² and batch 2. A
+captured step counts once, at its capture; a replay runs no Python.
 """
 
 from __future__ import annotations
@@ -74,7 +77,11 @@ from multi_task_breast_cancer_tpu_torch.models.blocks import (
     deconv,
 )
 from multi_task_breast_cancer_tpu_torch.models.swin_unetr import _conv, _norm_epilogue
-from multi_task_breast_cancer_tpu_torch.ops.selective_scan import D_STATE, selective_scan
+from multi_task_breast_cancer_tpu_torch.ops.selective_scan import (
+    D_STATE,
+    scan_plan,
+    selective_scan,
+)
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.utils import profiling
 
@@ -169,6 +176,7 @@ class Mamba(nn.Module):
         f32 = torch.promote_types(t.dtype, torch.float32)
         batch, steps = t.shape[:2]
         profiling.count("umamba.scan_elements", batch * self.d_inner * steps * D_STATE)
+        profiling.count("umamba.scan_segments", scan_plan(batch, self.d_inner, steps).chains)
         with profiling.span("umamba.scan"):
             y = selective_scan(u.to(f32), delta.to(f32), -torch.exp(self.A_log.to(f32)),
                                B.to(f32), C.to(f32), self.D.to(f32), z.to(f32),

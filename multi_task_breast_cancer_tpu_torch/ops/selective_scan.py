@@ -32,12 +32,13 @@ Launches, each counted where it launches (:mod:`.launches`): the forward
 per-block partials (:func:`selective_scan_backward`) and their fixed-order
 sums (:func:`selective_scan_reduce`): 6, 6 and 6 a U-Mamba_Enc training
 step, 6 forwards a validation pass. The CUDA source is
-``csrc/selective_scan.cu``.
+``csrc/selective_scan.cu``; both scans cut each sequence into segments along
+L, joined by their decay and end state, as :func:`scan_plan` lays them out.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +48,46 @@ from multi_task_breast_cancer_tpu_torch.ops.launches import counted
 
 _SOURCE = "selective_scan"
 D_STATE = 16  # the kernel's states a channel
-LANES = 32    # the kernel's channels a block: d_inner is a multiple of it
+LANES = 32    # the kernel's channels a warp: d_inner is a multiple of it
+WARPS = 8     # a block's warps at most, one segment each
+# clusters of each size an H100 SXM holds at once at one block an SM, largest
+# size first, up to 16 blocks (Hopper's non-portable largest), by
+# cudaOccupancyMaxActiveClusters of both kernels at 8 warps: its GPCs hold
+# fewer than 132 / size
+H100_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+MIN_STEPS = 16    # a segment's fewest steps: shorter, the join costs more than it saves
+
+
+class ScanPlan(NamedTuple):
+    """How both scan kernels lay a scan on the card: each of the ``batch ·
+    d_inner / 32`` chain groups (32 channels of a sample) takes a cluster of
+    ``cluster`` blocks of ``warps`` warps, a warp one segment of ``steps``
+    steps (the last ones may fall short or be empty)."""
+
+    cluster: int
+    warps: int
+    steps: int
+    blocks: int  # of the launch: at 8 warps one an SM, by their shared memory
+    chains: int  # independent chains the forward runs: groups × segments
+
+    @property
+    def segments(self) -> int:
+        return self.cluster * self.warps
+
+
+def scan_plan(batch: int, dn: int, steps: int) -> ScanPlan:
+    """The launch plan of a scan of ``batch`` × ``steps`` rows of ``dn``
+    channels, from those shapes alone: up to :data:`WARPS` segments a block
+    of at least :data:`MIN_STEPS` steps, and the most blocks a cluster (a
+    size of :data:`H100_CLUSTERS`) at which an H100 holds every chain
+    group's cluster at once, so that no cluster waits for a second wave."""
+    groups = batch * (dn // LANES)
+    most = max(1, steps // MIN_STEPS)  # segments of MIN_STEPS the sequence holds
+    warps = min(WARPS, most)
+    cluster = next(size for size, at_once in H100_CLUSTERS.items()
+                   if size * warps <= most and (groups <= at_once or size == 1))
+    seg = max(1, -(-steps // (cluster * warps)))
+    return ScanPlan(cluster, warps, seg, groups * cluster, groups * cluster * warps)
 
 
 def selective_scan_reference(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -134,10 +174,11 @@ def _forward(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Ten
     if out.numel():
         (u, su), (delta, sd), (z, sz), (bc, sbc) = (_rows(u), _rows(delta), _rows(z),
                                                     _bc_rows(B, C))
+        plan = scan_plan(batch, dn, steps)
         _build.launch(_SOURCE, "selective_scan_forward", u.device, u, delta, z, bc,
                       A.contiguous(), D.contiguous(), delta_bias.contiguous(), out, states,
-                      batch, steps, dn, su, sd, sz, sbc, _build.STREAM, dtype=u.dtype,
-                      counter=selective_scan)
+                      batch, steps, dn, su, sd, sz, sbc, plan.cluster, plan.warps, plan.steps,
+                      _build.STREAM, dtype=u.dtype, counter=selective_scan, plan=plan)
     return out, states
 
 
@@ -146,17 +187,17 @@ def selective_scan_reduce(part_bc: torch.Tensor, part_a: torch.Tensor, part_d: t
                           part_bias: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(dB, dC, dA, dD, ddelta_bias) from the backward kernel's partials:
     ``part_bc`` (groups, batch, L, 2N) added over the channel groups,
-    ``part_a`` (batch, d_inner, N), ``part_d`` and ``part_bias`` (batch,
-    d_inner) over the samples, each in order; counted in
-    ``selective_scan_reduce.launches``."""
+    ``part_a`` (parts, d_inner, N), ``part_d`` and ``part_bias`` (parts,
+    d_inner) over their parts (each sample's cluster blocks), each in order;
+    counted in ``selective_scan_reduce.launches``."""
     groups, batch, steps, _ = part_bc.shape
-    dn = part_a.shape[1]
+    parts, dn = part_a.shape[:2]
     dbc = part_bc.new_empty((batch, steps, 2 * D_STATE))
     dA = part_a.new_empty((dn, D_STATE))
     dD, dbias = part_d.new_empty(dn), part_d.new_empty(dn)
     _build.launch(_SOURCE, "selective_scan_reduce", part_bc.device, part_bc, part_a, part_d,
-                  part_bias, dbc, dA, dD, dbias, groups, batch, steps, dn, _build.STREAM,
-                  dtype=part_bc.dtype, counter=selective_scan_reduce)
+                  part_bias, dbc, dA, dD, dbias, groups, parts, batch, steps, dn,
+                  _build.STREAM, dtype=part_bc.dtype, counter=selective_scan_reduce)
     return dbc[..., :D_STATE], dbc[..., D_STATE:], dA, dD, dbias
 
 
@@ -182,15 +223,32 @@ def selective_scan_backward(u: torch.Tensor, delta: torch.Tensor, A: torch.Tenso
         _rows(u), _rows(delta), _rows(z), _bc_rows(B, C), _rows(dout))
     du, ddelta, dz = (torch.empty((batch, steps, dn), dtype=u.dtype, device=u.device)
                       for _ in range(3))
+    plan = scan_plan(batch, dn, steps)
+    parts = batch * plan.cluster
     part_bc = u.new_empty((dn // LANES, batch, steps, 2 * D_STATE))
-    part_a = u.new_empty((batch, dn, D_STATE))
-    part_d, part_bias = u.new_empty((batch, dn)), u.new_empty((batch, dn))
+    part_a = u.new_empty((parts, dn, D_STATE))
+    part_d, part_bias = u.new_empty((parts, dn)), u.new_empty((parts, dn))
     _build.launch(_SOURCE, "selective_scan_backward", u.device, u, delta, z, bc,
                   A.contiguous(), D.contiguous(), delta_bias.contiguous(), dout, states, du,
                   ddelta, dz, part_bc, part_a, part_d, part_bias, batch, steps, dn, su, sd,
-                  sz, sbc, sg, _build.STREAM, dtype=u.dtype, counter=selective_scan_backward)
+                  sz, sbc, sg, plan.cluster, plan.warps, plan.steps, _build.STREAM,
+                  dtype=u.dtype, counter=selective_scan_backward, plan=plan)
     dB, dC, dA, dD, dbias = selective_scan_reduce(part_bc, part_a, part_d, part_bias)
     return du, ddelta, dA, dB, dC, dD, dz, dbias
+
+
+def occupancy(plan: ScanPlan, device) -> dict:
+    """What ``device``'s card makes of ``plan``: the blocks of each scan
+    kernel an SM holds at once, the clusters of the plan's size the card
+    holds at once (``cudaOccupancyMaxActiveClusters``) and each kernel's
+    dynamic shared memory a block."""
+    out = torch.zeros(6, dtype=torch.int32)
+    _build.launch(_SOURCE, "selective_scan_occupancy", device, plan.cluster, plan.warps, out,
+                  _build.STREAM)
+    blocks, clusters, shared = out.view(3, 2).tolist()
+    return {kernel: {"blocks_per_sm": blocks[i], "clusters": clusters[i],
+                     "shared_bytes": shared[i]}
+            for i, kernel in enumerate(("forward", "backward"))}
 
 
 class _SelectiveScan(torch.autograd.Function):

@@ -12,10 +12,14 @@ weights (``benchmark/data.seeded_state``).
   augmented rows), held to the reference's in f64;
 - the registry: a port-only architecture, every convolution counted,
   ``space`` refused; the spans and the ``umamba.scan_elements`` counter;
+- the scan's launch plan along L (``scan_plan``) at the six sites and the
+  ``umamba.scan_segments`` counter it feeds;
 - on the card (``-m cuda``): the kernel at the six sites of a 128² forward
-  at batch 2 against the plain twin, a graphed Engine equal to an eager one
-  bit for bit, two graphed runs equal, and the counters (6 / 6 / 6 launches
-  a step, 6 a validation pass, 65,536,000 scan elements a forward).
+  at batch 2 and at the edges of its segments against the plain twin, two
+  launches at the first site bit for bit, a graphed Engine equal to an
+  eager one bit for bit, two graphed runs equal, and the counters (6 / 6 /
+  6 launches a step, 6 a validation pass, 65,536,000 scan elements and
+  2,368 scan segments a forward).
 
 This file imports nothing of JAX: its card tests run where JAX is absent.
 """
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from benchmark import data as D, umamba_counts
 from benchmark.reference import train as R, umamba as RU
 from multi_task_breast_cancer_tpu_torch.models import blocks, registry, umamba
-from multi_task_breast_cancer_tpu_torch.ops import launches, selective_scan as S
+from multi_task_breast_cancer_tpu_torch.ops import _build, launches, selective_scan as S
 from multi_task_breast_cancer_tpu_torch.parallel import spatial
 from multi_task_breast_cancer_tpu_torch.utils import profiling
 
@@ -305,6 +309,67 @@ def test_each_span_appears_per_forward_under_recording():
             assert spans[s["parent"]]["name"] == "umamba.mamba"
 
 
+def test_scan_plan_splits_every_published_site_along_l():
+    """At batch 2 every site runs 8 segments a block and at least 16 steps a
+    segment, the segments cover L, no launch asks for more blocks than an
+    H100 has SMs, and every site's clusters fit on the card at once (no
+    second wave); the first site (4 chain groups of 16,384 steps) runs 4
+    clusters of 16 blocks, so 64 SMs, where one warp a chain group ran 4."""
+    plans = [S.scan_plan(2, dn, steps) for dn, steps in SITES]
+    for (dn, steps), plan in zip(SITES, plans):
+        groups = 2 * dn // S.LANES
+        assert plan.warps == S.WARPS and plan.steps >= S.MIN_STEPS, (dn, steps, plan)
+        assert plan.segments * plan.steps >= steps
+        assert plan.blocks == groups * plan.cluster <= _build.H100_SMS
+        assert groups <= S.H100_CLUSTERS[plan.cluster], (dn, steps, plan)
+        assert plan.chains == plan.blocks * plan.warps
+    assert plans[0] == S.ScanPlan(cluster=16, warps=8, steps=128, blocks=64, chains=512)
+    assert [p.cluster for p in plans] == [16, 8, 4, 2, 4, 4]
+    assert [p.chains for p in plans] == [512, 512, 512, 512, 256, 64]
+    assert sum(2 * dn // S.LANES for dn, _ in SITES) == 70  # one chain a warp, before
+
+
+@pytest.mark.parametrize("batch,dn,steps", [(1, 32, 1), (2, 64, 15), (2, 64, 17),
+                                            (1, 64, 2047), (1, 64, 2049), (3, 96, 1000),
+                                            (2, 32, 512), (200, 32, 64)])
+def test_scan_plan_covers_the_sequence(batch, dn, steps):
+    """Any shape: a cluster of 1-16 blocks that the card holds as many of at
+    once as the shape has chain groups (or of one block), at most 8 warps a
+    block, the segments cover L and none but the last ones is short or
+    empty; a sequence shorter than two segments' worth is one segment."""
+    plan = S.scan_plan(batch, dn, steps)
+    assert plan.cluster in S.H100_CLUSTERS and 1 <= plan.warps <= S.WARPS
+    assert plan.cluster == 1 or batch * dn // S.LANES <= S.H100_CLUSTERS[plan.cluster]
+    assert plan.segments * plan.steps >= steps
+    assert plan.steps >= min(steps, S.MIN_STEPS)
+    if steps < 2 * S.MIN_STEPS:
+        assert plan.segments == 1 and plan.steps == steps
+    assert plan.chains == batch * dn // S.LANES * plan.segments
+
+
+def test_scan_segments_count_per_forward():
+    """``umamba.scan_segments`` adds each scan's planned chains: 2,368 a
+    128² forward at batch 2 (the model on the meta device, its scans
+    stubbed: the count is the plan's, read from the shapes)."""
+    model = registry.init_segmentation_model("UMambaEnc", size=128).to("meta")
+    seen = []
+
+    def stub(u, *args):
+        seen.append((u.shape[2], u.shape[1]))
+        return torch.empty_like(u)
+
+    op, umamba.selective_scan = umamba.selective_scan, stub
+    before = profiling.counters().get("umamba.scan_segments", 0)
+    try:
+        with torch.no_grad():
+            model(torch.zeros(2, 1, 128, 128, device="meta"))
+    finally:
+        umamba.selective_scan = op
+    assert seen == SITES
+    grown = profiling.counters().get("umamba.scan_segments", 0) - before
+    assert grown == sum(S.scan_plan(2, dn, steps).chains for dn, steps in SITES) == 2368
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -321,21 +386,70 @@ def test_cuda_kernel_matches_the_twin_at_the_published_sites(dn, steps):
     """Each scan of a 128² forward at batch 2, in f32 on the card, against
     the plain twin in f64 on the same inputs, its gradients autograd's: the
     output and every gradient within 2e-5 of its largest magnitude (the f32
-    chain of up to 16,384 steps; measured ≤ 3.3e-6)."""
+    chain of up to 16,384 steps; measured ≤ 3.3e-6 with one warp along the
+    whole of L, ≤ 3.7e-7 with the segments joined)."""
     _cuda_or_skip()
-    rank = -(-dn // 32)
-    ins = _scan_inputs(batch=2, steps=steps, dn=dn, rank=rank, dtype=torch.float32,
-                       device="cuda", seed=dn + steps)
-    names = ["u", "delta", "A", "B", "C", "D", "z", "delta_bias"]
+    _assert_matches_the_twin(_scan_inputs(batch=2, steps=steps, dn=dn, rank=-(-dn // 32),
+                                          dtype=torch.float32, device="cuda",
+                                          seed=dn + steps))
+
+
+_NAMES = ["u", "delta", "A", "B", "C", "D", "z", "delta_bias"]
+
+
+def _kernel_and_grads(ins: dict) -> list:
+    """The kernel's output and its eight gradients (through the autograd
+    Function) for a seeded output gradient."""
     leaves = {k: v.detach().clone().requires_grad_() for k, v in ins.items()}
     out = S.selective_scan(**leaves)
     dout = torch.randn(out.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
-    got = torch.autograd.grad(out, [leaves[k] for k in names], dout)
-    d64 = [ins[k].detach().double().requires_grad_() for k in names]
+    return [out.detach(), *torch.autograd.grad(out, [leaves[k] for k in _NAMES], dout)], dout
+
+
+def _assert_matches_the_twin(ins: dict) -> None:
+    """The output and every gradient within 2e-5 of its largest magnitude
+    of the plain twin's in f64 on the same inputs."""
+    got, dout = _kernel_and_grads(ins)
+    d64 = [ins[k].detach().double().requires_grad_() for k in _NAMES]
     want_out = S.selective_scan_reference(*d64)
-    want = torch.autograd.grad(want_out, d64, dout.double())
-    for name, g, w in [("out", out, want_out), *zip(names, got, want)]:
+    want = [want_out.detach(), *torch.autograd.grad(want_out, d64, dout.double())]
+    for name, g, w in zip(["out", *_NAMES], got, want):
         assert float((g.double() - w).abs().max()) <= 2e-5 * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,dn,steps,bias", [
+    (2, 32, 1, None),       # one step
+    (2, 64, 15, None),      # one below a segment's fewest steps: one short segment
+    (2, 64, 17, None),      # one above, over two staged chunks
+    (1, 64, 2047, None),    # 8 blocks of 8 segments of 32 steps: the last one short
+    (1, 64, 2049, None),    # 16 blocks of 8 segments of 17 steps, the last 7 empty
+    (3, 96, 1000, None),    # L not a multiple of the 16-step chunk, 3 chain groups
+    (1, 64, 4096, -12.0),   # a step of ~6e-6: the decay across a segment stays near 1
+    (1, 64, 4096, 12.0),    # a step of ~12: the decay across a segment underflows to 0
+])
+def test_cuda_kernel_matches_the_twin_at_the_segments_edges(batch, dn, steps, bias):
+    """The join of the segments along L at its edges, batch 1 included,
+    held as the published sites are."""
+    _cuda_or_skip()
+    ins = _scan_inputs(batch=batch, steps=steps, dn=dn, rank=-(-dn // 32),
+                       dtype=torch.float32, device="cuda", seed=batch + dn + steps)
+    if bias is not None:
+        ins["delta_bias"] = torch.full_like(ins["delta_bias"], bias)
+    _assert_matches_the_twin(ins)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeats_bit_for_bit_at_the_first_site():
+    """Two launches at the first site's shape (batch 2, d_inner 64, 16,384
+    steps: 4 clusters of 16 blocks joined in a fixed order): the same bits
+    in the output and every gradient."""
+    _cuda_or_skip()
+    ins = _scan_inputs(batch=2, steps=16384, dn=64, rank=2, dtype=torch.float32,
+                       device="cuda", seed=3)
+    first, _ = _kernel_and_grads(ins)
+    second, _ = _kernel_and_grads(ins)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _engine(graphed: bool, seed: int = 2 ** 31 + 11):
@@ -361,20 +475,25 @@ def _engine(graphed: bool, seed: int = 2 ** 31 + 11):
     return engine, state, data
 
 
+def _segments() -> int:
+    return profiling.counters().get("umamba.scan_segments", 0)
+
+
 def _steps(graphed: bool, steps: int = 3) -> list:
     """``steps`` one-step epochs (graphed: the first eager, the second
     captured, the rest replayed): every leaf after each step, the launch
-    counters' and the scan-element counter's growth, then a validation
-    pass's launches."""
+    counters' and the scan-element and scan-segment counters' growth, then
+    a validation pass's launches."""
     engine, state, data = _engine(graphed)
     out = []
     for k in range(steps):
-        before, elements = launches.snapshot(), _elements()
+        before, elements, segments = launches.snapshot(), _elements(), _segments()
         engine.train_epoch(state, data, np.array([2 * k, 2 * k + 1]),
                            torch.Generator().manual_seed(k))
         grown = launches.since(before)
         out.append(([p.detach().cpu().clone() for p in engine.model.parameters()],
-                    [grown.get(fn, 0) for fn in COUNTERS], _elements() - elements))
+                    [grown.get(fn, 0) for fn in COUNTERS],
+                    (_elements() - elements, _segments() - segments)))
     before = launches.snapshot()
     engine.eval_epoch(state, data)
     grown = launches.since(before)
@@ -387,8 +506,9 @@ def test_cuda_graphed_steps_equal_eager_steps_and_repeat_bit_for_bit():
     one from the same weights, rows and draws: every leaf equal bit for bit
     after each step. The counters: 6 forward, 6 backward and 6 reduction
     launches a step (a replay counts its captured launches), 6 forwards a
-    validation pass; 65,536,000 scan elements in the eager step, counted
-    again by the capture's run, never by a replay."""
+    validation pass; 65,536,000 scan elements and 2,368 scan segments in
+    the eager step, counted again by the capture's run, never by a
+    replay."""
     _cuda_or_skip()
     graphed, graphed_val = _steps(True)
     again, _ = _steps(True)
@@ -398,5 +518,6 @@ def test_cuda_graphed_steps_equal_eager_steps_and_repeat_bit_for_bit():
         assert all(torch.equal(x, y) for x, y in zip(g, p)), k
         assert n == m == [6, 6, 6], (k, n, m)
     assert graphed_val == eager_val == [6, 0, 0]
-    assert [e for _, _, e in eager] == [65_536_000] * 3
-    assert graphed[0][2] == 65_536_000 and graphed[2][2] == 0
+    assert [e for _, _, e in eager] == [(65_536_000, 2368)] * 3
+    assert graphed[0][2] == graphed[1][2] == (65_536_000, 2368)
+    assert graphed[2][2] == (0, 0)
